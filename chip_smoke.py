@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (kurosiwo_torch) on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. Each phase prints
+its lines; any failed phase exits non-zero.
+
+1. Device: the card's name and power limit (nvidia-smi) and torch's name.
+2. Build: compile the hand-written kernels from kurosiwo_torch/csrc.
+3. Kernels against their plain PyTorch versions at the main path's shapes
+   (UNet-ResNet18, batch 128, 224x224): error within the stated band, two
+   runs bitwise equal, and times (kernel, plain version, one library call)
+   beside the bound of the card (3.35 TB/s HBM, 67 TFLOP/s f32 outside the
+   tensor cores; H100 SXM data sheet).
+4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
+   (4, 64, 64, 6) on the card (kernels) against the same steps on the CPU
+   (plain versions), same weights and batch.
+5. Main path at full width through kurosiwo_torch/bench.py's code: batch 128
+   bf16 train steps (3 warm-up, 10 timed), then the bf16 eval and the f32-twin
+   eval; launch counters are zeroed before each and read after.
+6. The kernel table as one JSON line, then the result line
+   ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+BATCH = 128
+IMAGE = 224
+CW = [0.3715753140309927, 14.009780283125977, 8.20405370357821]
+# (H, W, C) of every BatchNorm input of the UNet-ResNet18 step, with its
+# count per forward pass (30 in all)
+BN_SHAPES = [
+    ((112, 112, 64), 1), ((56, 56, 64), 6), ((28, 28, 128), 7), ((14, 14, 256), 7),
+    ((7, 7, 512), 5), ((112, 112, 32), 2), ((224, 224, 16), 2),
+]
+
+
+class PhaseFailed(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseFailed(msg)
+
+
+def event_ms(torch, fn, reps: int = 5, calls: int = 10) -> float:
+    """Median over ``reps`` of the mean device time of ``calls`` back-to-back
+    calls, from CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_device(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    return smi
+
+
+def phase_build(kernels) -> None:
+    t0 = time.perf_counter()
+    per_source = kernels.build()
+    total = time.perf_counter() - t0
+    detail = ", ".join(f"{k}.cu {v:.1f}s" for k, v in sorted(per_source.items())) or "cached"
+    print(f"[build] {total:.1f}s wall ({detail}) into {kernels.build_dir()}", flush=True)
+    for name in ("pair_sums", "ce_cm"):
+        kernels.library(name)
+
+
+def phase_pair_sums(torch, batchnorm) -> dict:
+    """pair_sums at every BN shape of the step, f32 and bf16, (x, x) and
+    (dy, x). Band: |kernel - plain| <= 1e-5 * sum of |terms| per channel
+    (both sum the same f32 values in another order)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for (h, w, c), count in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((BATCH, h, w, c), device=dev, generator=g).to(dtype)
+            dy = torch.randn((BATCH, h, w, c), device=dev, generator=g).to(dtype)
+            for a, b in ((x, x), (dy, x)):
+                got = batchnorm.pair_sums(a, b)
+                again = batchnorm.pair_sums(a, b)
+                want = batchnorm.pair_sums_plain(a, b)
+                af, bf = a.float().reshape(-1, c), b.float().reshape(-1, c)
+                scale = torch.stack([af.abs().sum(0), (af * bf).abs().sum(0)])
+                err = (got - want).abs()
+                require(bool((err <= 1e-5 * scale + 1e-6).all()),
+                        f"pair_sums {(BATCH, h, w, c)} {dtype}: error {err.max().item():.3e}")
+                require(torch.equal(got, again), f"pair_sums {(BATCH, h, w, c)} not deterministic")
+                tot["max_abs_err"] = max(tot["max_abs_err"], err.max().item())
+                tot["max_rel_err"] = max(tot["max_rel_err"], (err / scale.clamp_min(1e-30)).max().item())
+                if dtype != torch.bfloat16:
+                    continue
+                ms = event_ms(torch, lambda: batchnorm.pair_sums(a, b))
+                plain = event_ms(torch, lambda: batchnorm.pair_sums_plain(a, b))
+                lib = event_ms(torch, lambda: (torch.sum(a.view(-1, c), 0, dtype=torch.float32),
+                                               torch.sum(a.view(-1, c) * b.view(-1, c), 0,
+                                                         dtype=torch.float32)))
+                nbytes = a.numel() * a.element_size() * (1 if a is b else 2) + 2 * c * 4
+                flops = 3 * a.numel()
+                bms, _ = bound(nbytes, flops)
+                kind = "fwd (x,x)" if a is b else "bwd (dy,x)"
+                print(f"[pair_sums] {(BATCH, h, w, c)} bf16 {kind} x{count}/step: kernel "
+                      f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+                      f"bound {bms * 1e3:.1f} us", flush=True)
+                tot["ms"] += count * ms
+                tot["plain_ms"] += count * plain
+                tot["library_ms"] += count * lib
+                tot["bytes"] += count * nbytes
+                tot["flops"] += count * flops
+            del x, dy
+    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"])
+    print(f"[pair_sums] per train step (30 fwd + 30 bwd calls, bf16): kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.3f} ms ({tot['bytes'] / 1e9:.3f} GB)", flush=True)
+    # sums over up to 6.4 M rows reach 1e6-1e7, where one f32 ulp is 0.06-1
+    print(f"[pair_sums] max error: {tot['max_abs_err']:.3e} absolute, "
+          f"{tot['max_rel_err']:.3e} of the sum of |terms|; deterministic", flush=True)
+    return tot
+
+
+def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
+    """CE+cm forward and backward at the main path's logits shape. Bands:
+    loss and weight sum rtol 1e-5 (f32 sums in another order), cm exact,
+    dlogits within 1e-5 (f32) or 1e-2 (bf16, one rounding) of max |dlogits|."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    nhwc = layout == "nhwc"
+    shape = (BATCH, IMAGE, IMAGE, 3) if nhwc else (BATCH, IMAGE // 2, IMAGE // 2, 12)
+    fwd = fused_tail.ce_cm_fwd_nhwc if nhwc else fused_tail.ce_cm_fwd_phase
+    bwd = fused_tail.ce_cm_bwd_nhwc if nhwc else fused_tail.ce_cm_bwd_phase
+    plain_f = fused_tail.ce_cm_forward_plain if nhwc else fused_tail.ce_cm_phase_forward_plain
+    plain_b = fused_tail.ce_cm_backward_plain if nhwc else fused_tail.ce_cm_phase_backward_plain
+    labels = torch.randint(0, 4, (BATCH, IMAGE, IMAGE), device=dev, generator=g,
+                           dtype=torch.int32)
+    cw = torch.tensor(CW, device=dev)
+    out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.randn(shape, device=dev, generator=g).to(dtype)
+        loss, cm, tw = fwd(logits, labels, cw)
+        loss2, cm2, tw2 = fwd(logits, labels, cw)
+        rl, rcm, rtw = plain_f(logits, labels, cw)
+        lerr = abs(loss.item() - rl.item())
+        require(lerr <= 1e-5 * abs(rl.item()), f"ce_cm {layout} {dtype}: loss error {lerr:.3e}")
+        require(abs(tw.item() - rtw.item()) <= 1e-5 * rtw.item(), f"ce_cm {layout}: weight sum")
+        require(torch.equal(cm, rcm), f"ce_cm {layout} {dtype}: cm {cm.tolist()} != {rcm.tolist()}")
+        require(torch.equal(loss, loss2) and torch.equal(cm, cm2) and torch.equal(tw, tw2),
+                f"ce_cm {layout} forward not deterministic")
+        gs = (1.0 / tw).reshape(1)
+        d = bwd(logits, labels, cw, gs)
+        d2 = bwd(logits, labels, cw, gs)
+        rd = plain_b(logits, labels, cw, gs)
+        derr = (d.float() - rd.float()).abs().max().item()
+        band = (1e-5 if dtype == torch.float32 else 1e-2) * rd.float().abs().max().item()
+        require(d.dtype == dtype and d.shape == logits.shape, f"ce_cm {layout}: dlogits layout")
+        require(derr <= band, f"ce_cm {layout} {dtype}: dlogits error {derr:.3e} > {band:.3e}")
+        require(torch.equal(d, d2), f"ce_cm {layout} backward not deterministic")
+        out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], lerr)
+        out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], derr)
+        if dtype != torch.bfloat16:
+            continue
+        # library yardstick: F.cross_entropy(weight, ignore_index=3) + bincount, on the
+        # (B*H*W, 3) view of the interleaved logits; timed here only
+        full = logits if nhwc else fused_tail.depth_to_space(logits).contiguous()
+        lab64 = labels.reshape(-1).long()
+        flat = full.reshape(-1, 3).float().requires_grad_(True)
+
+        def lib_fwd():
+            lv = F.cross_entropy(flat, lab64, weight=cw, ignore_index=3)
+            cmv = torch.bincount(lab64 * 4 + flat.detach().argmax(-1), minlength=16)
+            return lv, cmv
+
+        lib_loss, _ = lib_fwd()
+        fwd_ms = event_ms(torch, lambda: fwd(logits, labels, cw))
+        bwd_ms = event_ms(torch, lambda: bwd(logits, labels, cw, gs))
+        plain_fwd_ms = event_ms(torch, lambda: plain_f(logits, labels, cw))
+        plain_bwd_ms = event_ms(torch, lambda: plain_b(logits, labels, cw, gs))
+        lib_fwd_ms = event_ms(torch, lib_fwd)
+        lib_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(lib_loss, flat, retain_graph=True))
+        n = labels.numel()
+        in_bytes = logits.numel() * logits.element_size() + n * 4
+        fb, fby = bound(in_bytes + 18 * 4, 40 * n)
+        bb, bby = bound(in_bytes + logits.numel() * logits.element_size(), 30 * n)
+        out["fwd"].update(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
+                          bound_ms=fb, bound_by=fby)
+        out["bwd"].update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+                          bound_ms=bb, bound_by=bby)
+        for k in ("fwd", "bwd"):
+            o = out[k]
+            print(f"[ce_cm {layout} {k}] {tuple(shape)} bf16: kernel {o['ms']:.4f} ms, plain "
+                  f"{o['plain_ms']:.4f} ms, library {o['library_ms']:.4f} ms, bound "
+                  f"{o['bound_ms'] * 1e3:.1f} us", flush=True)
+        del flat, lib_loss
+    print(f"[ce_cm {layout}] max abs error: loss {out['fwd']['max_abs_err']:.3e}, "
+          f"dlogits {out['bwd']['max_abs_err']:.3e}; cm exact; deterministic", flush=True)
+    return out
+
+
+def adam_step_close(got: dict, want: dict, lr: float) -> tuple[float, float]:
+    """(max |diff|, share within 3e-4) over all parameters: Adam's first step
+    is lr*g/(|g|+eps), so a gradient whose sign differs moves by up to 2*lr."""
+    import torch
+
+    d = torch.cat([(got[k].cpu() - want[k].cpu()).abs().reshape(-1) for k in want])
+    return d.max().item(), (d <= 3e-4).float().mean().item()
+
+
+def phase_parity(torch) -> None:
+    """f32 train + eval step, card (kernels) against CPU (plain versions).
+    Bands as tests/test_torch_steps.py: loss rtol 1e-4; cm row sums equal,
+    cells within 0.1% of the valid pixels; parameters all within 2*lr and 99%
+    within 3e-4; batch statistics atol 1e-4."""
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.training.state import create_train_state
+    from kurosiwo_torch.training.steps import make_eval_step, make_train_step
+
+    cfg = dict(bench.build_config("unet", 4), mixed_precision=False, fused_tail=True)
+    mc = bench.MODEL_CONFIG
+    batch = bench.host_batch(4, 64, seed=1)
+    valid = int((batch["mask"] != 3).sum())
+    cpu_model = initialize_segmentation_model(cfg, mc, device="cpu", seed=3)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    res = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        state = create_train_state(model, cfg, mc)
+        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, device=name)
+        state, ms, loss = step(state, batch, MetricState.create(name), 1e-3)
+        ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, device=name)
+        ems, eloss, _ = ev(state, batch, MetricState.create(name))
+        res[name] = dict(loss=loss.item(), cm=ms.cm.cpu(), eloss=eloss.item(), ecm=ems.cm.cpu(),
+                         state={k: v.detach().cpu() for k, v in model.state_dict().items()})
+    c, g = res["cpu"], res["cuda"]
+    params = {k for k, _ in cpu_model.named_parameters()}
+    for key in ("loss", "eloss"):
+        require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), f"parity {key}: {g[key]} vs {c[key]}")
+    for key in ("cm", "ecm"):
+        require(torch.equal(g[key].sum(1), c[key].sum(1)), f"parity {key} row sums")
+        require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid, f"parity {key} cells")
+    pmax, pshare = adam_step_close({k: g["state"][k] for k in params},
+                                   {k: c["state"][k] for k in params}, 1e-3)
+    require(pmax <= 2e-3 + 1e-6 and pshare >= 0.99, f"parity params: max {pmax}, share {pshare}")
+    smax = max((g["state"][k] - c["state"][k]).abs().max().item()
+               for k in c["state"] if k not in params)
+    require(smax <= 1e-4, f"parity batch stats: {smax}")
+    print(f"[parity] f32 (4,64,64,6) card vs CPU: loss {g['loss']:.6f} vs {c['loss']:.6f}, "
+          f"eval loss {g['eloss']:.6f} vs {c['eloss']:.6f}, cm max diff "
+          f"{(g['cm'] - c['cm']).abs().max().item():.0f} of {valid} px, params max "
+          f"{pmax:.2e} ({pshare * 100:.2f}% within 3e-4), batch stats max {smax:.2e}", flush=True)
+
+
+def bank_counts_all(metric, pixels: int) -> bool:
+    """The f32 cm bank holds every valid pixel once. Its cells pass 2^24
+    over several b128 steps, where f32 stops counting exactly, hence the
+    relative band of 1e-6."""
+    return abs(metric.cm.sum().item() - pixels) <= 1e-6 * pixels
+
+
+def zero_counters(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counters(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def phase_main_path(torch, counters, smi: str) -> dict:
+    from kurosiwo_torch import bench
+
+    warmup, steps = 3, 10
+    b = bench.setup(BATCH)
+    valid = int((b.batch["mask"] != 3).sum().item())
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    seconds, loss, metric = bench.run_train(b, steps, warmup)
+    launches = read_counters(counters)
+    n = warmup + steps
+    require(bool(torch.isfinite(loss).item()), f"train loss not finite: {loss.item()}")
+    require(launches == {"pair_sums": 60 * n, "ce_cm_fwd_nhwc": n, "ce_cm_bwd_nhwc": n},
+            f"train launches {launches}, expected 60/1/1 per step over {n} steps")
+    require(bank_counts_all(metric, n * valid), "train cm bank does not count every valid pixel")
+    out["train"] = launches
+    print(f"[main] train b{BATCH} bf16: {steps * BATCH / seconds:.2f} patches/s "
+          f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches {launches} "
+          f"over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
+          flush=True)
+    for f32 in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        seconds, loss, metric = bench.run_eval(b, steps, warmup, f32=f32)
+        launches = read_counters(counters)
+        tag = "f32-twin" if f32 else "bf16"
+        require(bool(torch.isfinite(loss).item()), f"eval {tag} loss not finite")
+        # two forward launches per eval step: loss on every pixel, and the cm
+        # bank with sample_weight-0 samples dropped
+        require(launches == {"pair_sums": 0, "ce_cm_fwd_nhwc": 2 * n, "ce_cm_bwd_nhwc": 0},
+                f"eval {tag} launches {launches}")
+        require(bank_counts_all(metric, n * valid), f"eval {tag} cm bank count")
+        out[f"eval_{tag}"] = launches
+        print(f"[main] eval b{BATCH} {tag}: {steps * BATCH / seconds:.2f} patches/s "
+              f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches "
+              f"{launches} over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB [{smi}]", flush=True)
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+
+        from kurosiwo_torch import kernels
+        from kurosiwo_torch.ops import batchnorm, fused_tail
+    except ImportError as e:
+        print(f"FAIL: cannot import the port ({e}); run from the repository root", flush=True)
+        return 1
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; this script needs an NVIDIA GPU",
+              flush=True)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"pair_sums": batchnorm.pair_sums,
+                "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
+                "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc}
+    t0 = time.perf_counter()
+    try:
+        smi = phase_device(torch)
+        phase_build(kernels)
+        pair = phase_pair_sums(torch, batchnorm)
+        ce = phase_ce_cm(torch, fused_tail, "nhwc")
+        phase = phase_ce_cm(torch, fused_tail, "phase")
+        print(f"[ce_cm phase] PHASE instantiation (no port path launches it yet): fwd "
+              f"{phase['fwd']['ms']:.4f} ms, bwd {phase['bwd']['ms']:.4f} ms", flush=True)
+        phase_parity(torch)
+        launches = phase_main_path(torch, counters, smi)["train"]
+    except (PhaseFailed, RuntimeError, subprocess.SubprocessError, OSError) as e:
+        print(f"FAIL: {type(e).__name__}: {e}", flush=True)
+        return 1
+
+    def row(name, source, replaces, stats, n):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+                "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]}
+
+    table = {"kernels": [
+        row("pair_sums (per train step: 30 fwd + 30 bwd calls)",
+            "kurosiwo_torch/csrc/pair_sums.cu", "kurosiwo_tpu/ops/pallas_bn.py:48", pair,
+            launches["pair_sums"]),
+        row("ce_cm_fwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:128",
+            ce["fwd"], launches["ce_cm_fwd_nhwc"]),
+        row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
+            ce["bwd"], launches["ce_cm_bwd_nhwc"]),
+    ]}
+    print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
+    print(json.dumps(table), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

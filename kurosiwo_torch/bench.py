@@ -1,0 +1,248 @@
+"""Throughput benchmark of the port's UNet-ResNet18 step on the card: ONE
+JSON line on stdout, ``{"metric", "value", "unit", "device"}``.
+
+The UNet leg of the repository's ``bench.py``: 224x224 SAR patches, 6 input
+channels (post, pre1, pre2 in VV and VH), 3 classes, RandomEvents-weighted
+cross entropy, Adam, bf16 compute on f32 parameters, the same synthetic
+batch from ``numpy.random.RandomState(0)``. ``--eval`` measures the no-grad
+eval step, ``--eval --f32_eval`` its f32 twin (TF32 off).
+
+Usage: python -m kurosiwo_torch.bench [--batch 128] [--steps 30] [--warmup 5]
+       [--eval [--f32_eval]] [--set KEY=JSONVAL ...] [--profile]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .models.factory import initialize_segmentation_model
+from .ops.losses import create_loss
+from .ops.metrics import MetricState
+from .training.state import TrainState, create_train_state
+from .training.steps import make_eval_step, make_train_step
+
+IMAGE = 224
+
+
+def build_config(model: str, batch: int) -> dict:
+    """The benchmark config of a segmentation model, as the repository's
+    ``bench.build_config`` (the change-detection models are not ported)."""
+    return {
+        "task": "segmentation",
+        "method": model,
+        "num_classes": 3,
+        "mixed_precision": True,
+        "batch_size": batch,
+        "weighted": True,
+        "track": "RandomEvents",
+        "class_weights": [0.3715753140309927, 14.009780283125977, 8.20405370357821],
+        "loss_function": "cross_entropy",
+        "inputs": ["pre_event_1", "pre_event_2", "post_event"],
+        "channels": ["vv", "vh"],
+        "dem": False,
+        "log_zone_metrics": False,
+        "log_AOI_metrics": False,
+        "num_channels": 6,
+    }
+
+
+MODEL_CONFIG = {"backbone": "resnet18", "learning_rate": 1e-3, "optimizer": "adam"}
+
+
+def host_batch(batch: int, size: int = IMAGE, seed: int = 0) -> dict:
+    rs = np.random.RandomState(seed)
+    return {
+        "post": rs.randn(batch, size, size, 2).astype(np.float32),
+        "pre1": rs.randn(batch, size, size, 2).astype(np.float32),
+        "pre2": rs.randn(batch, size, size, 2).astype(np.float32),
+        "mask": rs.randint(0, 4, (batch, size, size)).astype(np.int32),
+        "sample_weight": np.ones((batch,), np.float32),
+    }
+
+
+@dataclasses.dataclass
+class Bench:
+    config: dict
+    state: TrainState
+    batch: dict
+    device: torch.device
+
+
+def setup(batch: int = 128, overrides: dict | None = None, device="cuda", seed: int = 0) -> Bench:
+    """Model, train state and a device-resident batch for the UNet step."""
+    dev = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    cfg = build_config("unet", batch)
+    cfg.update(overrides or {})
+    model = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
+    state = create_train_state(model, cfg, MODEL_CONFIG)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
+    return Bench(cfg, state, data, dev)
+
+
+def _timed(fn, steps: int, warmup: int, device: torch.device):
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, out
+
+
+def _train_fn(b: Bench):
+    """One train step per call; returns the loss and keeps the metric bank."""
+    step = make_train_step(b.state.model, create_loss(b.config, "train"), b.config,
+                           MODEL_CONFIG, device=b.device)
+    metric = [MetricState.create(b.device)]
+
+    def one():
+        _, metric[0], loss = step(b.state, b.batch, metric[0], 1e-3)
+        return loss
+
+    return one, metric
+
+
+def _eval_fn(b: Bench, f32: bool):
+    step = make_eval_step(b.state.model, create_loss(b.config, "val"), b.config, MODEL_CONFIG,
+                          device=b.device, dtype=torch.float32 if f32 else None)
+    metric = [MetricState.create(b.device)]
+
+    def one():
+        metric[0], loss, _ = step(b.state, b.batch, metric[0])
+        return loss
+
+    return one, metric
+
+
+def run_train(b: Bench, steps: int, warmup: int):
+    """Seconds for ``steps`` train steps after ``warmup``, the last loss (a
+    device tensor) and the metric bank of all the steps."""
+    one, metric = _train_fn(b)
+    seconds, loss = _timed(one, steps, warmup, b.device)
+    return seconds, loss, metric[0]
+
+
+def run_eval(b: Bench, steps: int, warmup: int, f32: bool = False):
+    one, metric = _eval_fn(b, f32)
+    seconds, loss = _timed(one, steps, warmup, b.device)
+    return seconds, loss, metric[0]
+
+
+_CATEGORIES = (  # kernel-name substrings -> what the time is spent on
+    ("pair_sums kernel", ("pair_partials", "pair_finalize")),
+    ("ce_cm kernel", ("ce_cm_", "ce_bwd")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "gemm", "sm90_", "cutlass", "wgrad",
+                             "dgrad", "fprop")),
+    ("optimizer", ("adam", "multi_tensor")),
+    ("reduction", ("reduce",)),
+    ("elementwise / copy", ("elementwise", "copy", "fill", "cat", "index", "Memcpy", "Memset")),
+)
+
+
+def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stderr) -> dict:
+    """Device time by kernel over ``steps`` calls of ``fn`` (after the timed
+    run, so the profiler's cost is not in the throughput), from
+    torch.profiler; prints the top kernels, the shares by category and the
+    device's busy share of ``step_ms``, the step time of the unprofiled run
+    (the profiler slows the host, not the kernels). Returns {"wall_ms",
+    "kernel_ms", "categories"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernels only: an op's device time repeats its kernels', and
+    # a record_function range (Optimizer.step#Adam.step) shows on the device
+    # as an annotation spanning kernels that are listed themselves
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith(("Optimizer.", "ProfilerStep")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        kernels.append((t / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    total = sum(t for t, _, _ in kernels)
+    cats: dict[str, float] = {}
+    for t, _, name in kernels:
+        low = name.lower()
+        cat = next((c for c, keys in _CATEGORIES if any(k.lower() in low for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + t
+    busy = total / steps
+    print(f"[profile] {steps} steps: device busy {busy:.2f} ms/step, "
+          f"{100 * busy / step_ms:.1f}% of the unprofiled {step_ms:.2f} ms/step "
+          f"(idle {100 * max(0.0, 1 - busy / step_ms):.1f}%); profiled wall "
+          f"{wall_ms / steps:.2f} ms/step", file=file)
+    for cat, t in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {cat}: {t / steps:.3f} ms/step ({100 * t / total:.1f}%)", file=file)
+    for t, n, name in kernels[:15]:
+        print(f"[profile]   {t / steps:8.3f} ms/step  x{n / steps:g}/step  {name[:110]}", file=file)
+    return {"wall_ms": wall_ms / steps, "kernel_ms": total / steps,
+            "categories": {c: t / steps for c, t in cats.items()}}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--eval", action="store_true", help="time the no-grad eval step")
+    p.add_argument("--f32_eval", action="store_true", help="with --eval: the f32 twin")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=JSONVAL",
+                   help="config override(s), e.g. --set fused_tail=false")
+    p.add_argument("--profile", action="store_true",
+                   help="after the timed run, print device time by kernel to stderr")
+    args = p.parse_args(argv)
+    overrides = {}
+    for kv in args.set:
+        k, _, v = kv.partition("=")
+        try:
+            overrides[k] = json.loads(v)
+        except json.JSONDecodeError:
+            overrides[k] = v
+    b = setup(args.batch, overrides)
+    if args.eval:
+        one, _ = _eval_fn(b, args.f32_eval)
+        kind = f"eval fwd, unet, {'f32-twin' if args.f32_eval else 'bf16'}"
+    else:
+        one, _ = _train_fn(b)
+        kind = "train fwd+bwd, unet, bf16"
+    seconds, loss = _timed(one, args.steps, args.warmup, b.device)
+    if not torch.isfinite(loss).item():
+        raise RuntimeError(f"non-finite loss {loss.item()}")
+    result = {
+        "metric": f"224x224 SAR patches/sec ({kind}, batch {args.batch})",
+        "value": args.steps * args.batch / seconds,
+        "unit": "patches/sec",
+        "device": torch.cuda.get_device_name(b.device),
+    }
+    if args.profile:
+        profile(one, min(args.steps, 5), b.device, seconds / args.steps * 1e3)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
