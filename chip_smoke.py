@@ -11,12 +11,19 @@ its lines; any failed phase exits non-zero.
    runs bitwise equal, and times (kernel, plain version, one library call)
    beside the bound of the card (3.35 TB/s HBM, 67 TFLOP/s f32 outside the
    tensor cores; H100 SXM data sheet).
+   The short-sequence attention kernel (B4), forward and backward, at the
+   MAE ViT-L batch-64 shapes (encoder q/k/v (64, 49, 1024), decoder
+   (64, 196, 1024), H 16, D 64) in f32 and bf16, and at a ragged D-32 and a
+   ChangeFormer-sized (N 3136) shape; the library yardstick is
+   F.scaled_dot_product_attention on the (B, H, N, D) view.
 4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
-   (4, 64, 64, 6) on the card (kernels) against the same steps on the CPU
-   (plain versions), same weights and batch.
-5. Main path at full width through kurosiwo_torch/bench.py's code: batch 128
-   bf16 train steps (3 warm-up, 10 timed), then the bf16 eval and the f32-twin
-   eval; launch counters are zeroed before each and read after.
+   (4, 64, 64, 6), and one f32 and one bf16 MAE train step at a small size, on the card
+   (kernels) against the same steps on the CPU (plain versions), same
+   weights, batch and masking noise.
+5. Main paths at full width through kurosiwo_torch/bench.py's code: batch 128
+   bf16 UNet train steps (3 warm-up, 10 timed), then the bf16 eval and the
+   f32-twin eval; then the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10
+   timed). Launch counters are zeroed before each and read after.
 6. The kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -31,6 +38,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 BATCH = 128
 IMAGE = 224
 CW = [0.3715753140309927, 14.009780283125977, 8.20405370357821]
@@ -70,9 +78,9 @@ def event_ms(torch, fn, reps: int = 5, calls: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -93,7 +101,7 @@ def phase_build(kernels) -> None:
     total = time.perf_counter() - t0
     detail = ", ".join(f"{k}.cu {v:.1f}s" for k, v in sorted(per_source.items())) or "cached"
     print(f"[build] {total:.1f}s wall ({detail}) into {kernels.build_dir()}", flush=True)
-    for name in ("pair_sums", "ce_cm"):
+    for name in ("pair_sums", "ce_cm", "short_attention"):
         kernels.library(name)
 
 
@@ -230,6 +238,114 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
     return out
 
 
+# (B, N, H, D) of the short-attention calls: the MAE ViT-L b64 encoder (24
+# calls per direction per step) and decoder (8), then a ragged D-32 shape
+# and the ChangeFormer-sized N that the router sends to the same kernel
+ATTN_MAIN = {"encoder": ((64, 49, 16, 64), 24), "decoder": ((64, 196, 16, 64), 8)}
+ATTN_EXTRA = {"ragged D32": (2, 77, 8, 32), "N 3136": (2, 3136, 2, 64)}
+
+
+def attention_work(b: int, n: int, h: int, d: int, elem: int) -> dict:
+    """Bytes each direction must move (each input read once, each output
+    written once) and the operations of its products (forward QK^T and PV;
+    backward the recomputed QK^T, dV, dP, dQ, dK)."""
+    t = b * n * h * d * elem
+    stats = b * h * n * 4
+    prods = 2 * b * h * n * n * d
+    return {"fwd": (4 * t + stats, 2 * prods), "bwd": (7 * t + 2 * stats, 5 * prods)}
+
+
+def phase_short_attention(torch, sa) -> dict:
+    """B4 forward and backward against the plain versions. q, k, v are the
+    column-thirds of one (B, N, 3*H*D) qkv tensor, as the model passes them.
+    Bands: f32 out and lse within 1e-5 (relative to max |lse|), gradients
+    within 1e-4 of each tensor's max |value| (the same f32 products summed
+    in another order, the forward by an online softmax); bf16 out within
+    1e-2 of max |out| (the kernel keeps p unrounded where the plain version
+    rounds p/l to bf16), lse within 1e-3, gradients within 2e-2 (both round
+    p and ds to bf16 once; a different f32 sum can round the other way).
+    Two runs bitwise equal."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+               "max_abs_err": 0.0} for k in ("fwd", "bwd")}
+    shapes = [(name, shape, count) for name, (shape, count) in ATTN_MAIN.items()]
+    shapes += [(name, shape, 0) for name, shape in ATTN_EXTRA.items()]
+    for name, (b, n, h, d), count in shapes:
+        scale = d**-0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            qkv = torch.randn((b, n, 3 * h * d), device=dev, generator=g).to(dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+            do = torch.randn((b, n, h * d), device=dev, generator=g).to(dtype)
+            out, lse = sa.short_attention_fwd(q, k, v, h, scale)
+            out2, lse2 = sa.short_attention_fwd(q, k, v, h, scale)
+            want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, h, scale)
+            tag = f"short_attention {name} {(b, n, h * d)} {dtype}"
+            oerr = (out.float() - want_out.float()).abs().max().item()
+            lerr = (lse - want_lse).abs().max().item()
+            oband = (1e-5 if f32 else 1e-2) * want_out.float().abs().max().item()
+            lband = 1e-5 * want_lse.abs().max().item() if f32 else 1e-3
+            require(out.dtype == dtype and lse.shape == (b, h, n), f"{tag}: output layout")
+            require(oerr <= oband and lerr <= lband,
+                    f"{tag}: out error {oerr:.3e} (band {oband:.3e}), lse {lerr:.3e} ({lband:.3e})")
+            require(torch.equal(out, out2) and torch.equal(lse, lse2), f"{tag}: fwd not deterministic")
+            delta = sa.attention_delta(do, want_out, h)
+            grads = sa.short_attention_bwd(q, k, v, do, want_lse, delta, h, scale)
+            again = sa.short_attention_bwd(q, k, v, do, want_lse, delta, h, scale)
+            want = sa.short_attention_bwd_plain(q, k, v, do, want_lse, delta, h, scale)
+            gerr = 0.0
+            for gname, got, ref, rep in zip(("dq", "dk", "dv"), grads, want, again):
+                e = (got.float() - ref.float()).abs().max().item()
+                band = (1e-4 if f32 else 2e-2) * ref.float().abs().max().item()
+                require(e <= band, f"{tag}: {gname} error {e:.3e} > {band:.3e}")
+                require(torch.equal(got, rep), f"{tag}: {gname} not deterministic")
+                gerr = max(gerr, e)
+            print(f"[short_attention] {name} {(b, n, h * d)} D{d} {str(dtype)[6:]}: max abs error "
+                  f"out {oerr:.3e}, lse {lerr:.3e}, grads {gerr:.3e}; deterministic", flush=True)
+            if count and not f32:  # the main path's shapes and dtype
+                tot["fwd"]["max_abs_err"] = max(tot["fwd"]["max_abs_err"], oerr)
+                tot["bwd"]["max_abs_err"] = max(tot["bwd"]["max_abs_err"], gerr)
+            if f32 or name == "ragged D32":
+                continue
+            # library yardstick: SDPA on the (B, H, N, D) view, fwd and its autograd bwd
+            view = lambda t: t.reshape(b, n, h, d).transpose(1, 2)
+            lq, lk, lv = (view(t).detach().requires_grad_(True) for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+            ldo = view(do)
+            ms_f = event_ms(torch, lambda: sa.short_attention_fwd(q, k, v, h, scale))
+            ms_b = event_ms(torch, lambda: sa.short_attention_bwd(q, k, v, do, lse, delta, h, scale))
+            pl_f = event_ms(torch, lambda: sa.short_attention_fwd_plain(q, k, v, h, scale), reps=3)
+            pl_b = event_ms(torch, lambda: sa.short_attention_bwd_plain(q, k, v, do, lse, delta, h,
+                                                                        scale), reps=3)
+            lib_f = event_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale))
+            lib_b = event_ms(torch, lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo,
+                                                                retain_graph=True))
+            work = attention_work(b, n, h, d, 2)
+            for kdir, ms, pl, lib in (("fwd", ms_f, pl_f, lib_f), ("bwd", ms_b, pl_b, lib_b)):
+                nbytes, flops = work[kdir]
+                bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+                print(f"[short_attention {kdir}] {name} {(b, n, h * d)} bf16 x{count}/step: kernel "
+                      f"{ms:.4f} ms, plain {pl:.4f} ms, library {lib:.4f} ms, bound "
+                      f"{bms * 1e3:.1f} us ({by}), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+                t = tot[kdir]
+                t["ms"] += count * ms
+                t["plain_ms"] += count * pl
+                t["library_ms"] += count * lib
+                t["bytes"] += count * nbytes
+                t["flops"] += count * flops
+            del lq, lk, lv, lib_out
+    for kdir, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOP_PER_S)
+        print(f"[short_attention {kdir}] per MAE train step (24 encoder + 8 decoder calls, bf16): "
+              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
+              f"{t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return tot
+
+
 def adam_step_close(got: dict, want: dict, lr: float) -> tuple[float, float]:
     """(max |diff|, share within 3e-4) over all parameters: Adam's first step
     is lr*g/(|g|+eps), so a gradient whose sign differs moves by up to 2*lr."""
@@ -285,6 +401,88 @@ def phase_parity(torch) -> None:
           f"{pmax:.2e} ({pshare * 100:.2f}% within 3e-4), batch stats max {smax:.2e}", flush=True)
 
 
+MAE_SMALL = {"image_size": 112, "patch_size": 16, "dim": 128, "depth": 2, "heads": 2,
+             "mlp_dim": 256, "decoder_dim": 64, "decoder_depth": 1, "decoder_heads": 2,
+             "masked_ratio": 0.75}
+MAE_LR = 1e-4
+
+
+def phase_mae_parity(torch) -> None:
+    """One MAE train step at (4, 112, 112, 6) (49 patches, 13 kept, the
+    ragged tiles of the main path's encoder), card (kernels) against CPU
+    (plain versions), same weights, images and noise; in f32 (the SIMT
+    kernels) and in bf16 (the mma.sync kernels the main path runs). f32
+    bands as tests/test_torch_mae.py: loss rtol 1e-4; parameters all within
+    2*lr and 99% within 0.3*lr (Adam's first update is about lr*sign(g)).
+    bf16: loss rtol 2e-2 as test_bf16_mae_keeps_f32_masters_and_close_loss;
+    every gradient within 5e-2 of its tensor's max |grad| (the kernel's own
+    2e-2 band, compounded by bf16 roundings of 2^-8 at every product of
+    three layers); parameters all within 2*lr, as Adam bounds any step."""
+    import numpy as np
+
+    from kurosiwo_torch.models.factory import build_mae
+    from kurosiwo_torch.training.mae import make_mae_train_step
+    from kurosiwo_torch.training.state import create_train_state
+
+    rs = np.random.RandomState(2)
+    images = rs.randn(4, 112, 112, 6).astype(np.float32)
+    noise = rs.rand(1, 4, 49).astype(np.float32)
+    for bf16 in (False, True):
+        cfg = {"num_channels": 6, "mixed_precision": bf16}
+        cpu_model = build_mae(cfg, MAE_SMALL, device="cpu", seed=5)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        res = {}
+        for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            state = create_train_state(model, cfg, {"learning_rate": MAE_LR}, task="mae")
+            step = make_mae_train_step(model, accum=1, device=name)
+            state, loss = step(state, {"image": images}, MAE_LR, noise=torch.from_numpy(noise))
+            res[name] = dict(loss=loss.item(),
+                             params={k: v.detach().cpu() for k, v in model.named_parameters()},
+                             grads={k: (torch.zeros_like(v) if v.grad is None else v.grad)
+                                    .detach().float().cpu()
+                                    for k, v in model.named_parameters()})
+        c, g = res["cpu"], res["cuda"]
+        tag = "bf16" if bf16 else "f32"
+        rtol = 2e-2 if bf16 else 1e-4
+        require(abs(g["loss"] - c["loss"]) <= rtol * abs(c["loss"]),
+                f"MAE {tag} parity loss: {g['loss']} vs {c['loss']}")
+        d = torch.cat([(g["params"][k] - c["params"][k]).abs().reshape(-1) for k in c["params"]])
+        pmax, share = d.max().item(), (d <= 0.3 * MAE_LR).float().mean().item()
+        require(pmax <= 2 * MAE_LR + 1e-7 and (bf16 or share >= 0.99),
+                f"MAE {tag} parity params: max {pmax}, share within 0.3*lr {share}")
+        gerr = max(((g["grads"][k] - c["grads"][k]).abs().max()
+                    / c["grads"][k].abs().max().clamp_min(1e-30)).item() for k in c["grads"])
+        if bf16:
+            require(gerr <= 5e-2, f"MAE bf16 parity grads: max relative error {gerr}")
+        print(f"[parity] MAE {tag} (4,112,112,6) card vs CPU: loss {g['loss']:.6f} vs "
+              f"{c['loss']:.6f}, grads max err {gerr:.2e} of each tensor's max, params max "
+              f"{pmax:.2e} ({share * 100:.2f}% within 0.3*lr)", flush=True)
+
+
+def phase_mae_main(torch, counters, smi: str) -> dict:
+    """The MAE ViT-L batch-64 bf16 train step through bench.py's code."""
+    from kurosiwo_torch import bench
+
+    warmup, steps = 3, 10
+    b = bench.setup_mae()
+    batch = b.batch["image"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    seconds, loss = bench.run_mae_train(b, steps, warmup)
+    launches = read_counters(counters)
+    n = warmup + steps
+    require(bool(torch.isfinite(loss).item()), f"MAE loss not finite: {loss.item()}")
+    want = {name: 0 for name in counters}
+    want.update(short_attention_fwd=32 * n, short_attention_bwd=32 * n)
+    require(launches == want, f"MAE launches {launches}, expected 32 fwd / 32 bwd per step "
+                              f"over {n} steps")
+    print(f"[main] MAE ViT-L b{batch} bf16: {steps * batch / seconds:.2f} patches/s "
+          f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches {launches} "
+          f"over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
+          flush=True)
+    return launches
+
+
 def bank_counts_all(metric, pixels: int) -> bool:
     """The f32 cm bank holds every valid pixel once. Its cells pass 2^24
     over several b128 steps, where f32 stops counting exactly, hence the
@@ -314,8 +512,9 @@ def phase_main_path(torch, counters, smi: str) -> dict:
     launches = read_counters(counters)
     n = warmup + steps
     require(bool(torch.isfinite(loss).item()), f"train loss not finite: {loss.item()}")
-    require(launches == {"pair_sums": 60 * n, "ce_cm_fwd_nhwc": n, "ce_cm_bwd_nhwc": n},
-            f"train launches {launches}, expected 60/1/1 per step over {n} steps")
+    want = {name: 0 for name in counters}
+    want.update(pair_sums=60 * n, ce_cm_fwd_nhwc=n, ce_cm_bwd_nhwc=n)
+    require(launches == want, f"train launches {launches}, expected 60/1/1 per step over {n} steps")
     require(bank_counts_all(metric, n * valid), "train cm bank does not count every valid pixel")
     out["train"] = launches
     print(f"[main] train b{BATCH} bf16: {steps * BATCH / seconds:.2f} patches/s "
@@ -331,8 +530,9 @@ def phase_main_path(torch, counters, smi: str) -> dict:
         require(bool(torch.isfinite(loss).item()), f"eval {tag} loss not finite")
         # two forward launches per eval step: loss on every pixel, and the cm
         # bank with sample_weight-0 samples dropped
-        require(launches == {"pair_sums": 0, "ce_cm_fwd_nhwc": 2 * n, "ce_cm_bwd_nhwc": 0},
-                f"eval {tag} launches {launches}")
+        want = {name: 0 for name in counters}
+        want.update(ce_cm_fwd_nhwc=2 * n)
+        require(launches == want, f"eval {tag} launches {launches}")
         require(bank_counts_all(metric, n * valid), f"eval {tag} cm bank count")
         out[f"eval_{tag}"] = launches
         print(f"[main] eval b{BATCH} {tag}: {steps * BATCH / seconds:.2f} patches/s "
@@ -348,6 +548,7 @@ def main() -> int:
 
         from kurosiwo_torch import kernels
         from kurosiwo_torch.ops import batchnorm, fused_tail
+        from kurosiwo_torch.ops import short_attention as sa
     except ImportError as e:
         print(f"FAIL: cannot import the port ({e}); run from the repository root", flush=True)
         return 1
@@ -359,7 +560,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = {"pair_sums": batchnorm.pair_sums,
                 "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
-                "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc}
+                "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc,
+                "short_attention_fwd": sa.short_attention_fwd,
+                "short_attention_bwd": sa.short_attention_bwd}
     t0 = time.perf_counter()
     try:
         smi = phase_device(torch)
@@ -369,9 +572,14 @@ def main() -> int:
         phase = phase_ce_cm(torch, fused_tail, "phase")
         print(f"[ce_cm phase] PHASE instantiation (no port path launches it yet): fwd "
               f"{phase['fwd']['ms']:.4f} ms, bwd {phase['bwd']['ms']:.4f} ms", flush=True)
+        attn = phase_short_attention(torch, sa)
         phase_parity(torch)
+        phase_mae_parity(torch)
         launches = phase_main_path(torch, counters, smi)["train"]
-    except (PhaseFailed, RuntimeError, subprocess.SubprocessError, OSError) as e:
+        torch.cuda.empty_cache()
+        mae_launches = phase_mae_main(torch, counters, smi)
+    except (PhaseFailed, RuntimeError, ValueError, TypeError, subprocess.SubprocessError,
+            OSError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
 
@@ -389,6 +597,12 @@ def main() -> int:
             ce["fwd"], launches["ce_cm_fwd_nhwc"]),
         row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
             ce["bwd"], launches["ce_cm_bwd_nhwc"]),
+        row("short_attention_fwd (per MAE train step: 24 encoder + 8 decoder calls)",
+            "kurosiwo_torch/csrc/short_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:259",
+            attn["fwd"], mae_launches["short_attention_fwd"]),
+        row("short_attention_bwd (per MAE train step: 24 encoder + 8 decoder calls)",
+            "kurosiwo_torch/csrc/short_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:283",
+            attn["bwd"], mae_launches["short_attention_bwd"]),
     ]}
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)

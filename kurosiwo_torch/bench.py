@@ -1,14 +1,23 @@
-"""Throughput benchmark of the port's UNet-ResNet18 step on the card: ONE
-JSON line on stdout, ``{"metric", "value", "unit", "device"}``.
+"""Throughput benchmark of the port's train steps on the card: ONE JSON line
+on stdout, ``{"metric", "value", "unit", "device"}``.
 
-The UNet leg of the repository's ``bench.py``: 224x224 SAR patches, 6 input
-channels (post, pre1, pre2 in VV and VH), 3 classes, RandomEvents-weighted
-cross entropy, Adam, bf16 compute on f32 parameters, the same synthetic
-batch from ``numpy.random.RandomState(0)``. ``--eval`` measures the no-grad
-eval step, ``--eval --f32_eval`` its f32 twin (TF32 off).
+``--model unet`` (default): the UNet leg of the repository's ``bench.py``:
+224x224 SAR patches, 6 input channels (post, pre1, pre2 in VV and VH), 3
+classes, RandomEvents-weighted cross entropy, Adam, bf16 compute on f32
+parameters, the same synthetic batch from ``numpy.random.RandomState(0)``.
+``--eval`` measures the no-grad eval step, ``--eval --f32_eval`` its f32
+twin (TF32 off).
 
-Usage: python -m kurosiwo_torch.bench [--batch 128] [--steps 30] [--warmup 5]
-       [--eval [--f32_eval]] [--set KEY=JSONVAL ...] [--profile]
+``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
+pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
+224x224x6 images in 16x16 patches, decoder 512 x 8 layers, mask ratio 0.75,
+batch 64, bf16 compute on f32 parameters, Adam with bf16 moments and lr
+1e-4, accum 1; synthetic images from ``RandomState(0)``, masking noise from
+a generator seeded once.
+
+Usage: python -m kurosiwo_torch.bench [--model unet|mae] [--batch N]
+       [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
+       [--profile]
 """
 
 from __future__ import annotations
@@ -23,9 +32,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.factory import initialize_segmentation_model
+from .models.factory import build_mae, initialize_segmentation_model
 from .ops.losses import create_loss
 from .ops.metrics import MetricState
+from .training.mae import make_mae_train_step
 from .training.state import TrainState, create_train_state
 from .training.steps import make_eval_step, make_train_step
 
@@ -56,6 +66,14 @@ def build_config(model: str, batch: int) -> dict:
 
 MODEL_CONFIG = {"backbone": "resnet18", "learning_rate": 1e-3, "optimizer": "adam"}
 
+# the MAE leg of the repository's bench.py (bench_mae)
+MAE_CONFIG = {"task": "mae", "num_channels": 6, "mixed_precision": True}
+MAE_MODEL_CONFIG = {"image_size": 224, "patch_size": 16, "dim": 1024, "depth": 24, "heads": 16,
+                    "mlp_dim": 2048, "decoder_dim": 512, "decoder_depth": 8,
+                    "decoder_heads": 16, "masked_ratio": 0.75}
+MAE_LR = 1e-4
+MAE_MASK_SEED = 0
+
 
 def host_batch(batch: int, size: int = IMAGE, seed: int = 0) -> dict:
     rs = np.random.RandomState(seed)
@@ -74,20 +92,50 @@ class Bench:
     state: TrainState
     batch: dict
     device: torch.device
+    generator: torch.Generator | None = None  # the MAE step's masking noise
 
 
-def setup(batch: int = 128, overrides: dict | None = None, device="cuda", seed: int = 0) -> Bench:
-    """Model, train state and a device-resident batch for the UNet step."""
-    dev = resolve_device(device)
+def _backends() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+
+
+def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
+          model: str = "unet") -> Bench:
+    """Model, train state and a device-resident batch for the UNet step
+    (default batch 128, ``overrides`` update its config) or, with
+    ``model="mae"``, the MAE step of ``setup_mae``."""
+    if model == "mae":
+        if overrides:
+            raise ValueError("the MAE leg takes no config overrides")
+        return setup_mae(batch, device, seed)
+    if model != "unet":
+        raise NotImplementedError(f"bench model {model!r} is not ported (unet, mae)")
+    dev = resolve_device(device)
+    _backends()
+    batch = batch or 128
     cfg = build_config("unet", batch)
     cfg.update(overrides or {})
-    model = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
-    state = create_train_state(model, cfg, MODEL_CONFIG)
+    net = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
+    state = create_train_state(net, cfg, MODEL_CONFIG)
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
     return Bench(cfg, state, data, dev)
+
+
+def setup_mae(batch: int | None = None, device="cuda", seed: int = 0) -> Bench:
+    """The MAE leg's model, train state, device-resident images (default
+    batch 64) and masking-noise generator."""
+    dev = resolve_device(device)
+    _backends()
+    batch = batch or 64
+    size = MAE_MODEL_CONFIG["image_size"]
+    net = build_mae(MAE_CONFIG, MAE_MODEL_CONFIG, device=dev, seed=seed)
+    state = create_train_state(net, MAE_CONFIG, {"learning_rate": MAE_LR}, task="mae")
+    images = np.random.RandomState(0).randn(batch, size, size, MAE_CONFIG["num_channels"])
+    data = {"image": torch.from_numpy(images.astype(np.float32)).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(MAE_MASK_SEED)
+    return Bench(dict(MAE_CONFIG), state, data, dev, gen)
 
 
 def _timed(fn, steps: int, warmup: int, device: torch.device):
@@ -115,6 +163,17 @@ def _train_fn(b: Bench):
     return one, metric
 
 
+def _mae_train_fn(b: Bench):
+    """One MAE train step per call; returns the loss."""
+    step = make_mae_train_step(b.state.model, accum=1, device=b.device)
+
+    def one():
+        _, loss = step(b.state, b.batch, MAE_LR, b.generator)
+        return loss
+
+    return one
+
+
 def _eval_fn(b: Bench, f32: bool):
     step = make_eval_step(b.state.model, create_loss(b.config, "val"), b.config, MODEL_CONFIG,
                           device=b.device, dtype=torch.float32 if f32 else None)
@@ -135,6 +194,12 @@ def run_train(b: Bench, steps: int, warmup: int):
     return seconds, loss, metric[0]
 
 
+def run_mae_train(b: Bench, steps: int, warmup: int):
+    """Seconds for ``steps`` MAE train steps after ``warmup`` and the last
+    loss (a device tensor)."""
+    return _timed(_mae_train_fn(b), steps, warmup, b.device)
+
+
 def run_eval(b: Bench, steps: int, warmup: int, f32: bool = False):
     one, metric = _eval_fn(b, f32)
     seconds, loss = _timed(one, steps, warmup, b.device)
@@ -144,7 +209,9 @@ def run_eval(b: Bench, steps: int, warmup: int, f32: bool = False):
 _CATEGORIES = (  # kernel-name substrings -> what the time is spent on
     ("pair_sums kernel", ("pair_partials", "pair_finalize")),
     ("ce_cm kernel", ("ce_cm_", "ce_bwd")),
-    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "gemm", "sm90_", "cutlass", "wgrad",
+    ("short_attention kernel", ("attn_fwd", "attn_bwd")),
+    ("convolution / matmul (cuDNN, cuBLAS)", ("conv", "cudnn", "nvjet", "xmma", "gemm", "sm90_",
+                                              "cutlass", "wgrad",
                              "dgrad", "fprop")),
     ("optimizer", ("adam", "multi_tensor")),
     ("reduction", ("reduce",)),
@@ -205,7 +272,8 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--model", choices=["unet", "mae"], default="unet")
+    p.add_argument("--batch", type=int, default=None, help="default 128 for unet, 64 for mae")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--eval", action="store_true", help="time the no-grad eval step")
@@ -215,6 +283,8 @@ def main(argv=None) -> dict:
     p.add_argument("--profile", action="store_true",
                    help="after the timed run, print device time by kernel to stderr")
     args = p.parse_args(argv)
+    if args.model == "mae" and (args.eval or args.set):
+        p.error("--eval, --set: the MAE leg has no eval step and takes no overrides")
     overrides = {}
     for kv in args.set:
         k, _, v = kv.partition("=")
@@ -222,19 +292,26 @@ def main(argv=None) -> dict:
             overrides[k] = json.loads(v)
         except json.JSONDecodeError:
             overrides[k] = v
-    b = setup(args.batch, overrides)
-    if args.eval:
-        one, _ = _eval_fn(b, args.f32_eval)
-        kind = f"eval fwd, unet, {'f32-twin' if args.f32_eval else 'bf16'}"
+    if args.model == "mae":
+        b = setup_mae(args.batch)
+        batch = b.batch["image"].shape[0]
+        one = _mae_train_fn(b)
+        kind = "MAE pretrain step, ViT-L, bf16"
     else:
-        one, _ = _train_fn(b)
-        kind = "train fwd+bwd, unet, bf16"
+        b = setup(args.batch, overrides)
+        batch = b.batch["mask"].shape[0]
+        if args.eval:
+            one, _ = _eval_fn(b, args.f32_eval)
+            kind = f"eval fwd, unet, {'f32-twin' if args.f32_eval else 'bf16'}"
+        else:
+            one, _ = _train_fn(b)
+            kind = "train fwd+bwd, unet, bf16"
     seconds, loss = _timed(one, args.steps, args.warmup, b.device)
     if not torch.isfinite(loss).item():
         raise RuntimeError(f"non-finite loss {loss.item()}")
     result = {
-        "metric": f"224x224 SAR patches/sec ({kind}, batch {args.batch})",
-        "value": args.steps * args.batch / seconds,
+        "metric": f"224x224 SAR patches/sec ({kind}, batch {batch})",
+        "value": args.steps * batch / seconds,
         "unit": "patches/sec",
         "device": torch.cuda.get_device_name(b.device),
     }

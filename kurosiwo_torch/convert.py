@@ -1,13 +1,17 @@
-"""Parameter bridge between a flax UNet's variables and the port's
-``state_dict``.
+"""Parameter bridge between a flax model's variables and the port's
+``state_dict`` (the UNet and the MAE/ViT trees).
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``encoder.layer1_0.ConvBNAct_0.BatchNorm_0``, ``DecoderBlock_4.ConvBNAct_1``,
-``head``), so the map is a path join plus layout transposes:
+``head``; ``encoder.transformer.attn_3.to_qkv``, ``decoder.ff_0.fc1``,
+``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``), so the map is a path
+join plus layout transposes:
 
-  params/.../kernel (HWIO)       <-> ....weight (OIHW)
-  params/.../{bias, scale}       <-> ....{bias, scale}
-  batch_stats/.../{mean, var}    <-> ....{mean, var}   (buffers)
+  params/.../kernel (HWIO, conv)  <-> ....weight (OIHW)
+  params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense)
+  params/.../{bias, scale, embedding, pos_embedding, cls_token, mask_token}
+                                  <-> the same name, as it is
+  batch_stats/.../{mean, var}     <-> ....{mean, var}   (buffers)
 
 Inputs and outputs are numpy arrays (or anything ``np.asarray`` takes);
 the transposes are exact, so a round trip is bit-exact.
@@ -34,14 +38,14 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
 
 
 def flax_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
-    """{"params": ..., "batch_stats": ...} -> state_dict of the port's UNet."""
+    """{"params": ..., "batch_stats": ...} -> state_dict of the port's model."""
     state = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})).items():
             arr = np.asarray(leaf)
             name = path[-1]
             if name == "kernel":
-                arr, name = arr.transpose(3, 2, 0, 1), "weight"
+                arr, name = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T), "weight"
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(arr, order="C"))
     return state
 
@@ -53,7 +57,7 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict]:
         *path, name = key.split(".")
         arr = tensor.detach().cpu().numpy()
         if name == "weight":
-            arr, name = arr.transpose(2, 3, 1, 0), "kernel"
+            arr, name = (arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T), "kernel"
         node = out["batch_stats" if name in _STATS else "params"]
         for p in path:
             node = node.setdefault(p, {})

@@ -1,5 +1,6 @@
-"""Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. Only
-the UNet is ported; every other method names its ``ROADMAP.md`` item."""
+"""Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. The
+UNet and the MAE (ViT encoder) are ported; every other method names its
+``ROADMAP.md`` item."""
 
 from __future__ import annotations
 
@@ -38,3 +39,41 @@ def initialize_segmentation_model(config: dict, model_config: dict,
         raise NotImplementedError(
             f"segmentation method {method!r} is not ported yet (ROADMAP.md, {_NOT_PORTED[method]})")
     raise NotImplementedError(f"segmentation method {method!r} is not supported")
+
+
+def build_mae(config: dict, model_config: dict, device: str | torch.device | None = "cuda",
+              seed: int = 0):
+    """MAE = ViT encoder (pool "cls") + MAE wrapper on ``device``, f32
+    parameters from a seeded ``torch.Generator`` (JAX ``build_mae``,
+    ``factory.py:173-198``)."""
+    from .mae import MAE
+    from .vit import ViT
+
+    dev = resolve_device(device)
+    dt = compute_dtype(config)
+    g = torch.Generator().manual_seed(seed)
+    channels = int(config["num_channels"])
+    encoder = ViT(
+        image_size=model_config.get("image_size", 224),
+        patch_size=model_config.get("patch_size", 16),
+        num_classes=model_config.get("num_classes", 1000),
+        dim=model_config.get("dim", 1024),
+        depth=model_config.get("depth", 24),
+        heads=model_config.get("heads", 16),
+        mlp_dim=model_config.get("mlp_dim", 2048),
+        channels=channels,
+        pool="cls",
+        dtype=dt,
+        generator=g,
+    )
+    model = MAE(
+        encoder,
+        decoder_dim=model_config.get("decoder_dim", 512),
+        masking_ratio=model_config.get("masked_ratio", 0.75),
+        decoder_depth=model_config.get("decoder_depth", 8),
+        decoder_heads=model_config.get("decoder_heads", 16),
+        channels=channels,
+        dtype=dt,
+        generator=g,
+    )
+    return model.to(dev)

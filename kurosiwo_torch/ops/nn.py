@@ -1,5 +1,5 @@
-"""Building blocks of the port's CNNs; counterpart of the parts of
-``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet uses.
+"""Building blocks of the port's models; counterpart of the parts of
+``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet uses, plus flax's ``Dense``.
 
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
@@ -47,6 +47,23 @@ class Conv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``weight`` (out, in) f32 (the flax kernel
+    transposed), optional ``bias``; input and parameters are cast to the
+    compute dtype for the product."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        lecun_normal_(self.weight.data, cin, generator)
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b = self.bias.to(dtype) if self.bias is not None else None
+        return F.linear(x.to(dtype), self.weight.to(dtype), b)
 
 
 class ConvBNAct(nn.Module):

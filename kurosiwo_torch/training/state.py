@@ -4,6 +4,7 @@ In the port the parameters and BatchNorm statistics live in the model
 (an ``nn.Module``, f32 parameters) and the Adam moments in the optimizer;
 the state bundles both with the step count. The bf16 policy is the model's
 compute dtype, so no loss scaling is needed (bf16 has f32's exponent range).
+``task="mae"`` gives the MAE optimizer (bf16 moments by default).
 """
 
 from __future__ import annotations

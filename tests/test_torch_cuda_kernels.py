@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from kurosiwo_torch.ops import batchnorm, fused_tail
+from kurosiwo_torch.ops import short_attention as sa
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +95,85 @@ def test_kernel_wrappers_raise_on_layouts_they_do_not_take(dev):
         batchnorm.pair_sums(x.transpose(1, 2), x.transpose(1, 2))
     with pytest.raises(TypeError):
         batchnorm.pair_sums(x, x.to(torch.bfloat16))
+
+
+def _attention_inputs(dev, b, nq, nk, heads, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = heads * d
+    q, do = (torch.randn(b, nq, hd, device=dev, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, nk, hd, device=dev, generator=g).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _close(got, want, band):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= band * want.float().abs().max().item(), (err, band)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,heads,d", [(3, 49, 49, 4, 64), (2, 77, 77, 8, 32),
+                                             (2, 130, 20, 2, 64), (1, 5, 200, 1, 128),
+                                             (2, 196, 196, 16, 64)])
+def test_short_attention_kernel_matches_plain(dev, b, nq, nk, heads, d, dtype):
+    """Bands as chip_smoke.py: f32 out and lse 1e-5, grads 1e-4 of each
+    tensor's largest value (f32 sums in another order, online softmax);
+    bf16 out 1e-2, lse 1e-3, grads 2e-2 (the kernel keeps p unrounded in
+    the forward; one bf16 rounding of p and ds in both backwards)."""
+    q, k, v, do = _attention_inputs(dev, b, nq, nk, heads, d, dtype, seed=nq + nk)
+    scale = d**-0.5
+    f32 = dtype == torch.float32
+    n0 = sa.short_attention_fwd.launches, sa.short_attention_bwd.launches
+    out, lse = sa.short_attention_fwd(q, k, v, heads, scale)
+    want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, heads, scale)
+    assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (b, heads, nq)
+    _close(out, want_out, 1e-5 if f32 else 1e-2)
+    assert (lse - want_lse).abs().max().item() <= (1e-5 * want_lse.abs().max().item() if f32
+                                                   else 1e-3)
+    delta = sa.attention_delta(do, want_out, heads)
+    got = sa.short_attention_bwd(q, k, v, do, want_lse, delta, heads, scale)
+    want = sa.short_attention_bwd_plain(q, k, v, do, want_lse, delta, heads, scale)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype
+        _close(g_, w_, 1e-4 if f32 else 2e-2)
+    again = sa.short_attention_bwd(q, k, v, do, want_lse, delta, heads, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic
+    assert torch.equal(out, sa.short_attention_fwd(q, k, v, heads, scale)[0])
+    assert (sa.short_attention_fwd.launches, sa.short_attention_bwd.launches) == (n0[0] + 2,
+                                                                                 n0[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_attention_autograd_on_the_card(dev, dtype):
+    """A qkv split (strided views) through the custom VJP, card against CPU
+    (bands as above, relative to each tensor's largest value)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, n, heads, d = 2, 50, 2, 64
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev, generator=g).to(dtype).requires_grad_(True)
+    do = torch.randn(b, n, heads * d, device=dev, generator=g).to(dtype)
+    out = sa.short_attention(*qkv.chunk(3, dim=-1), heads)
+    out.backward(do)
+    ref = qkv.detach().cpu().requires_grad_(True)
+    rout = sa.short_attention(*ref.chunk(3, dim=-1), heads)
+    rout.backward(do.cpu())
+    f32 = dtype == torch.float32
+    _close(out.detach().cpu(), rout.detach(), 1e-5 if f32 else 1e-2)
+    _close(qkv.grad.cpu(), ref.grad, 1e-4 if f32 else 2e-2)
+
+
+def test_short_attention_wrappers_raise_on_layouts_they_do_not_take(dev):
+    x = torch.randn(2, 8, 128, device=dev)
+    with pytest.raises(TypeError):
+        sa.short_attention_fwd(x.half(), x.half(), x.half(), 2, 1.0)
+    with pytest.raises(TypeError):
+        sa.short_attention_fwd(x, x.to(torch.bfloat16), x, 2, 1.0)
+    with pytest.raises(ValueError, match="unit stride"):
+        t = torch.randn(2, 128, 8, device=dev).transpose(1, 2)
+        sa.short_attention_fwd(t, t, t, 2, 1.0)
+    with pytest.raises(ValueError, match="D in"):
+        y = torch.randn(2, 8, 96, device=dev)
+        sa.short_attention_fwd(y, y, y, 2, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sa.short_attention_fwd(x, x.cpu(), x, 2, 1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        u = torch.randn(2, 8, 130, device=dev).to(torch.bfloat16)[..., 2:]
+        sa.short_attention_fwd(u, u, u, 2, 1.0)

@@ -51,7 +51,7 @@ def test_kernel_sources_ship_with_the_package():
     from kurosiwo_torch import kernels
 
     names = {p.name for p in kernels.sources()}
-    assert {"pair_sums.cu", "ce_cm.cu"} <= names
+    assert {"pair_sums.cu", "ce_cm.cu", "short_attention.cu"} <= names
     for src in kernels.sources():
         text = src.read_text()
         assert "Replaces the TPU kernel" in text or "Replaces the TPU kernels" in text
@@ -92,6 +92,58 @@ def test_bench_setup_without_cuda_raises(monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.setup(batch=2)
+
+
+def test_mae_modules_import_without_building_kernels():
+    names = [m.name for m in pkgutil.walk_packages(kurosiwo_torch.__path__, "kurosiwo_torch.")]
+    slice_two = {"kurosiwo_torch.ops.short_attention", "kurosiwo_torch.ops.attention",
+                 "kurosiwo_torch.ops.layernorm", "kurosiwo_torch.ops.schedules",
+                 "kurosiwo_torch.models.vit", "kurosiwo_torch.models.mae",
+                 "kurosiwo_torch.training.mae"}
+    assert slice_two <= set(names)
+    for name in sorted(slice_two):
+        importlib.import_module(name)
+    from kurosiwo_torch import kernels
+
+    assert "short_attention" not in kernels._loaded
+
+
+def test_mae_factory_step_and_bench_without_device_raise_on_a_cpu_box(monkeypatch):
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import build_mae
+    from kurosiwo_torch.training.mae import make_mae_train_step
+
+    cfg = {"num_channels": 6, "mixed_precision": False}
+    mcfg = {"image_size": 32, "patch_size": 16, "dim": 32, "depth": 1, "heads": 2,
+            "mlp_dim": 32, "decoder_dim": 32, "decoder_depth": 1, "decoder_heads": 2}
+    model = build_mae(cfg, mcfg, device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_mae(cfg, mcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mae_train_step(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.setup(batch=2, model="mae")
+
+
+def test_mae_bench_config_is_the_jax_bench_config():
+    """bench.py:209-212, the MAE leg of the repository's benchmark."""
+    from kurosiwo_torch.bench import MAE_CONFIG, MAE_LR, MAE_MODEL_CONFIG
+
+    assert MAE_MODEL_CONFIG == {"image_size": 224, "patch_size": 16, "dim": 1024, "depth": 24,
+                                "heads": 16, "mlp_dim": 2048, "decoder_dim": 512,
+                                "decoder_depth": 8, "decoder_heads": 16, "masked_ratio": 0.75}
+    assert MAE_CONFIG["num_channels"] == 6 and MAE_CONFIG["mixed_precision"] and MAE_LR == 1e-4
+    text = (ROOT / "bench.py").read_text()
+    for key, value in MAE_MODEL_CONFIG.items():
+        assert f'"{key}": {value}' in text
+
+
+def test_vit_ring_axis_names_its_roadmap_item():
+    from kurosiwo_torch.models.vit import SelfAttention
+
+    with pytest.raises(NotImplementedError, match="A12"):
+        SelfAttention(64, 2, 64, ring_axis="seq")
 
 
 @pytest.mark.parametrize("method,item", [
