@@ -20,23 +20,32 @@ its lines; any failed phase exits non-zero.
    whole-scene encode's shape (1, 16, 4096, 64) (q, k, v as head views of one
    qkv tensor, as the ViT passes them), at a ragged (2, 4, 1003 x 1090, 32)
    and at D 128, in f32 and bf16; the library yardstick is
-   F.scaled_dot_product_attention and its autograd backward. Every device
+   F.scaled_dot_product_attention and its autograd backward.
+   The 3x3 conv kernels, in f32 and bf16: B6 (conv + BN statistics, with and
+   without its prologue) at the train step's (128, 14, 14, 256)->256,
+   (128, 7, 7, 512)->512 and (128, 14, 14, 768)->256; B7 (weight gradient)
+   at (128, 28, 28, 128)->128 and (128, 28, 28, 384)->128; B8 (bias + ReLU
+   epilogue, no port path) at (128, 224, 224, 16)->16 and
+   (128, 112, 112, 32)->32. Library yardsticks: F.conv2d (no statistics),
+   torch.nn.grad.conv2d_weight, F.conv2d with bias and relu. Every device
    time is taken behind a sleep kernel, so the host's launch overhead does
    not stand in for a short kernel's time.
 4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
-   (4, 64, 64, 6), and one f32 and one bf16 MAE train step at a small size, on the card
-   (kernels) against the same steps on the CPU (plain versions), same
-   weights, batch and masking noise; the whole-scene ViT encode of a
-   512x512 scene (1,024 tokens, the flash route) at a small width, f32 and
-   bf16, card against CPU.
+   (4, 64, 64, 6), default route and with the conv kernel routes on (B6 and
+   B7 launched 8 and 5 times), and one f32 and one bf16 MAE train step at a
+   small size, on the card (kernels) against the same steps on the CPU
+   (plain versions), same weights, batch and masking noise; the whole-scene
+   ViT encode of a 512x512 scene (1,024 tokens, the flash route) at a small
+   width, f32 and bf16, card against CPU.
 5. Main paths at full width through kurosiwo_torch/bench.py's code: batch 128
    bf16 UNet train steps (3 warm-up, 10 timed), then the bf16 eval and the
-   f32-twin eval; then the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10
-   timed); then serving: the ViT-L encode of a 1024x1024 scene (4,096
-   tokens; 3 warm-up, 10 timed), a 1000x1000 scene (3,969 tokens, off the
-   flash route) and the UNet-ResNet18 sliding-window map of a 2048x2048x6
-   scene (121 tiles of 224, overlap 32, batch 32). Launch counters are
-   zeroed before each and read after.
+   f32-twin eval, then the train step with the conv kernel routes on; then
+   the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed); then
+   serving: the ViT-L encode of a 1024x1024 scene (4,096 tokens; 3 warm-up,
+   10 timed), a 1000x1000 scene (3,969 tokens, off the flash route) and the
+   UNet-ResNet18 sliding-window map of a 2048x2048x6 scene (121 tiles of
+   224, overlap 32, batch 32). Launch counters are zeroed before each and
+   read after.
 6. The kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -139,7 +148,8 @@ def phase_build(kernels) -> None:
     total = time.perf_counter() - t0
     detail = ", ".join(f"{k}.cu {v:.1f}s" for k, v in sorted(per_source.items())) or "cached"
     print(f"[build] {total:.1f}s wall ({detail}) into {kernels.build_dir()}", flush=True)
-    for name in ("pair_sums", "ce_cm", "short_attention", "flash_attention"):
+    for name in ("pair_sums", "ce_cm", "short_attention", "flash_attention", "conv3x3",
+                 "conv_dw"):
         kernels.library(name)
 
 
@@ -518,6 +528,217 @@ SCENE_SMALL = {"image_size": 64, "patch_size": 16, "dim": 64, "depth": 2, "heads
                "mlp_dim": 128, "channels": 6, "dim_head": 32}
 
 
+# (B, H, W, Cin, Cout) of the UNet-ResNet18 b128 train step's B6 calls (layer3
+# and DecoderBlock_0.ConvBNAct_1 at 14^2, layer4 at 7^2, DecoderBlock_0's
+# first conv on the 768-channel concat) and B7 calls (layer2 and
+# DecoderBlock_1 at 28^2), with their counts per step; B8 at the two
+# small-channel decoder levels (launched by no port path)
+CONV_BN_SHAPES = [((BATCH, 14, 14, 256, 256), 4), ((BATCH, 7, 7, 512, 512), 3),
+                  ((BATCH, 14, 14, 768, 256), 1)]
+CONV_DW_SHAPES = [((BATCH, 28, 28, 128, 128), 4), ((BATCH, 28, 28, 384, 128), 1)]
+CONV_FUSED_SHAPES = [(BATCH, 224, 224, 16, 16), (BATCH, 112, 112, 32, 32)]
+ROUTES = {"conv_bn_kernel": True, "dw_kernel": True}
+
+
+def conv_close(torch, got, want, scale, bf16: bool, tag: str) -> float:
+    """The kernel and the plain version sum the same f32 products in another
+    order: |got - want| <= 1e-5 * sum(|terms|) (``scale``, per element); a
+    bf16 output adds one rounding of each side, at most 2^-8 of each value.
+    Returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    band = 1e-5 * scale + 1e-6
+    if bf16:
+        band = band + 2.0**-7 * want.float().abs()
+    require(bool((err <= band).all().item()),
+            f"{tag}: error {err.max().item():.3e}, over the band by "
+            f"{(err - band).max().item():.3e}")
+    return err.max().item()
+
+
+def _new_stats() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+            "max_abs_err": 0.0}
+
+
+def _add_timing(tot: dict, count: int, ms: float, plain: float, lib: float, nbytes: float,
+                flops: float) -> None:
+    for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bytes", nbytes),
+                   ("flops", flops)):
+        tot[key] += count * v
+
+
+def _finish(tot: dict, rate: float) -> dict:
+    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flops"], rate)
+    return tot
+
+
+def phase_conv_bn(torch, conv_bn) -> dict:
+    """B6 at the main path's three shapes, f32 and bf16, with and without the
+    prologue, against the plain version (bands of conv_close; the
+    statistics: sum y within 1e-5 of sum(|terms|), sum y^2 within 1e-5 of
+    2 |y| sum(|terms|)); two runs bitwise equal. bf16 times without the
+    prologue (the route's call); the library yardstick is F.conv2d on the
+    channels-last view (cuDNN), which computes no statistics."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    tot = _new_stats()
+    for (b, h, w, cin, cout), count in CONV_BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
+            wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (3 * cin**0.5)
+            wt = wt.to(dtype)
+            for prologue in (False, True):
+                sb = ()
+                if prologue:
+                    sb = (torch.rand(cin, device=dev, generator=g) + 0.5,
+                          0.1 * torch.randn(cin, device=dev, generator=g))
+                tag = f"conv3x3_bn_stats {(b, h, w, cin)}->{cout} {str(dtype)[6:]}" + \
+                    (" prologue" if prologue else "")
+                y, st = conv_bn.conv3x3_bn_stats(x, wt, *sb)
+                y2, st2 = conv_bn.conv3x3_bn_stats(x, wt, *sb)
+                want_y, want_st = conv_bn.conv3x3_bn_stats_plain(x, wt, *sb)
+                require(y.dtype == dtype and y.shape == (b, h, w, cout), f"{tag}: layout")
+                require(torch.equal(y, y2) and torch.equal(st, st2), f"{tag}: not deterministic")
+                xa = torch.relu(x.float() * sb[0] + sb[1]).to(dtype) if prologue else x
+                scale = conv_bn.conv3x3_plain_f32(xa.abs(), wt.abs())
+                yerr = conv_close(torch, y, want_y, scale, bf16, tag + " y")
+                s = scale.reshape(-1, cout)
+                sscale = torch.stack([s.sum(0), 2 * (want_y.float().abs().reshape(-1, cout)
+                                                     * s).sum(0)])
+                serr = conv_close(torch, st, want_st, sscale, False, tag + " stats")
+                print(f"[conv_bn] {tag}: max abs error y {yerr:.3e}, stats {serr:.3e}; "
+                      f"deterministic", flush=True)
+                del scale, s, sscale, want_y, xa
+                if not bf16 or prologue:
+                    continue
+                tot["max_abs_err"] = max(tot["max_abs_err"], yerr)
+                ms = event_ms(torch, lambda: conv_bn.conv3x3_bn_stats(x, wt))
+                plain = event_ms(torch, lambda: conv_bn.conv3x3_bn_stats_plain(x, wt), reps=3,
+                                 calls=3)
+                xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                lib = event_ms(torch, lambda: F.conv2d(xc, wc, padding=1))
+                nbytes = (x.numel() + wt.numel() + b * h * w * cout) * 2 + 2 * cout * 4
+                flops = 2.0 * b * h * w * 9 * cin * cout
+                bms, _ = bound(nbytes, flops, BF16_FLOP_PER_S)
+                print(f"[conv_bn] {tag} x{count}/step: kernel {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
+                      f"(F.conv2d, no statistics) {lib:.4f} ms, bound {bms * 1e3:.1f} us",
+                      flush=True)
+                _add_timing(tot, count, ms, plain, lib, nbytes, flops)
+            del x, wt
+    _finish(tot, BF16_FLOP_PER_S)
+    print(f"[conv_bn] per train step (8 calls, bf16): kernel {tot['ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return tot
+
+
+def phase_conv_dw(torch, conv_dw) -> dict:
+    """B7 at the main path's two shapes, f32 and bf16, against the plain
+    version (bands of conv_close, f32 output); two runs bitwise equal. bf16
+    times; the library yardstick is torch.nn.grad.conv2d_weight (cuDNN's
+    backward-filter), which computes the same function."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    tot = _new_stats()
+    for (b, h, w, cin, cout), count in CONV_DW_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
+            dy = torch.randn((b, h, w, cout), device=dev, generator=g).to(dtype)
+            tag = f"conv3x3_dw {(b, h, w, cin)}->{cout} {str(dtype)[6:]}"
+            got = conv_dw.conv3x3_dw(x, dy)
+            again = conv_dw.conv3x3_dw(x, dy)
+            want = conv_dw.conv3x3_dw_plain(x, dy)
+            require(got.dtype == torch.float32 and got.shape == (3, 3, cin, cout),
+                    f"{tag}: layout")
+            require(torch.equal(got, again), f"{tag}: not deterministic")
+            err = conv_close(torch, got, want, conv_dw.conv3x3_dw_plain(x.abs(), dy.abs()),
+                             False, tag)
+            print(f"[conv_dw] {tag}: max abs error {err:.3e} (max |dW| "
+                  f"{want.abs().max().item():.1f}); deterministic", flush=True)
+            if bf16:
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                ms = event_ms(torch, lambda: conv_dw.conv3x3_dw(x, dy))
+                plain = event_ms(torch, lambda: conv_dw.conv3x3_dw_plain(x, dy), reps=3, calls=3)
+                xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+                lib = event_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                    xc, (cout, cin, 3, 3), dyc, padding=1))
+                nbytes = (x.numel() + dy.numel()) * 2 + 9 * cin * cout * 4
+                flops = 2.0 * b * h * w * 9 * cin * cout
+                bms, _ = bound(nbytes, flops, BF16_FLOP_PER_S)
+                print(f"[conv_dw] {tag} x{count}/step: kernel {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
+                      f"(conv2d_weight) {lib:.4f} ms, bound {bms * 1e3:.1f} us", flush=True)
+                _add_timing(tot, count, ms, plain, lib, nbytes, flops)
+            del x, dy, got, again, want
+    _finish(tot, BF16_FLOP_PER_S)
+    print(f"[conv_dw] per train step (5 calls, bf16): kernel {tot['ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    return tot
+
+
+def phase_conv_fused(torch, conv_fused) -> dict:
+    """B8 at the two small-channel decoder shapes, f32 and bf16, ReLU on and
+    off, against the plain version (bands of conv_close); two runs bitwise
+    equal. bf16 times with ReLU, one call at each shape; the library
+    yardstick is F.conv2d with bias, then relu."""
+    import torch.nn.functional as F
+
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    tot = _new_stats()
+    for b, h, w, cin, cout in CONV_FUSED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
+            wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (3 * cin**0.5)
+            wt = wt.to(dtype)
+            bias = 0.1 * torch.randn(cout, device=dev, generator=g)
+            scale = conv3x3_plain_f32(x.abs(), wt.abs()) + bias.abs()
+            for relu in (True, False):
+                tag = f"conv3x3_fused {(b, h, w, cin)}->{cout} {str(dtype)[6:]} relu={relu}"
+                got = conv_fused.conv3x3_fused(x, wt, bias, relu)
+                require(torch.equal(got, conv_fused.conv3x3_fused(x, wt, bias, relu)),
+                        f"{tag}: not deterministic")
+                want = conv_fused.conv3x3_fused_plain(x, wt, bias, relu)
+                require(got.dtype == dtype and got.shape == (b, h, w, cout), f"{tag}: layout")
+                err = conv_close(torch, got, want, scale, bf16, tag)
+                print(f"[conv_fused] {tag}: max abs error {err:.3e}; deterministic", flush=True)
+                del got, want
+                if not (bf16 and relu):
+                    continue
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                ms = event_ms(torch, lambda: conv_fused.conv3x3_fused(x, wt, bias, True))
+                plain = event_ms(torch, lambda: conv_fused.conv3x3_fused_plain(x, wt, bias, True),
+                                 reps=3, calls=2)
+                xc = x.permute(0, 3, 1, 2)
+                wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                bc = bias.to(dtype)
+                lib = event_ms(torch, lambda: torch.relu(F.conv2d(xc, wc, bc, padding=1)))
+                nbytes = (x.numel() + wt.numel() + b * h * w * cout) * 2 + cout * 4
+                flops = 2.0 * b * h * w * 9 * cin * cout
+                bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+                print(f"[conv_fused] {tag}: kernel {ms:.4f} ms "
+                      f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain:.4f} ms, library "
+                      f"(F.conv2d + relu) {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by})",
+                      flush=True)
+                _add_timing(tot, 1, ms, plain, lib, nbytes, flops)
+            del x, wt, scale
+    _finish(tot, BF16_FLOP_PER_S)
+    print(f"[conv_fused] both shapes, one call each (bf16, ReLU): kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['bytes'] / 1e9:.3f} GB)", flush=True)
+    return tot
+
+
 def phase_scene_parity(torch, fa) -> None:
     """vit_whole_scene of a 512x512x6 scene at patch 16 (32x32 = 1,024
     tokens, the flash route; dim 64, depth 2, 2 heads of 32), card (kernels)
@@ -624,8 +845,10 @@ def adam_step_close(got: dict, want: dict, lr: float) -> tuple[float, float]:
     return d.max().item(), (d <= 3e-4).float().mean().item()
 
 
-def phase_parity(torch) -> None:
-    """f32 train + eval step, card (kernels) against CPU (plain versions).
+def phase_parity(torch, counters, routes: bool = False) -> None:
+    """f32 train + eval step, card (kernels) against CPU (plain versions);
+    with ``routes`` the conv kernel routes are on (B6 and B7 in f32, TF32
+    off), and the card's train step must launch B6 8 times and B7 5 times.
     Bands as tests/test_torch_steps.py: loss rtol 1e-4; cm row sums equal,
     cells within 0.1% of the valid pixels; parameters all within 2*lr and 99%
     within 3e-4; batch statistics atol 1e-4."""
@@ -637,6 +860,8 @@ def phase_parity(torch) -> None:
     from kurosiwo_torch.training.steps import make_eval_step, make_train_step
 
     cfg = dict(bench.build_config("unet", 4), mixed_precision=False, fused_tail=True)
+    if routes:
+        cfg.update(ROUTES)
     mc = bench.MODEL_CONFIG
     batch = bench.host_batch(4, 64, seed=1)
     valid = int((batch["mask"] != 3).sum())
@@ -646,12 +871,17 @@ def phase_parity(torch) -> None:
     for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
         state = create_train_state(model, cfg, mc)
         step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, device=name)
+        zero_counters(counters)
         state, ms, loss = step(state, batch, MetricState.create(name), 1e-3)
+        launched = read_counters(counters)
         ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, device=name)
         ems, eloss, _ = ev(state, batch, MetricState.create(name))
         res[name] = dict(loss=loss.item(), cm=ms.cm.cpu(), eloss=eloss.item(), ecm=ems.cm.cpu(),
                          state={k: v.detach().cpu() for k, v in model.state_dict().items()})
     c, g = res["cpu"], res["cuda"]
+    routed = (launched["conv3x3_bn_stats"], launched["conv3x3_dw"])
+    require(routed == ((8, 5) if routes else (0, 0)),
+            f"parity train step launched B6 {routed[0]}, B7 {routed[1]} times")
     params = {k for k, _ in cpu_model.named_parameters()}
     for key in ("loss", "eloss"):
         require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), f"parity {key}: {g[key]} vs {c[key]}")
@@ -664,7 +894,8 @@ def phase_parity(torch) -> None:
     smax = max((g["state"][k] - c["state"][k]).abs().max().item()
                for k in c["state"] if k not in params)
     require(smax <= 1e-4, f"parity batch stats: {smax}")
-    print(f"[parity] f32 (4,64,64,6) card vs CPU: loss {g['loss']:.6f} vs {c['loss']:.6f}, "
+    print(f"[parity] f32 (4,64,64,6){' conv routes on' if routes else ''} card vs CPU: "
+          f"loss {g['loss']:.6f} vs {c['loss']:.6f}, "
           f"eval loss {g['eloss']:.6f} vs {c['eloss']:.6f}, cm max diff "
           f"{(g['cm'] - c['cm']).abs().max().item():.0f} of {valid} px, params max "
           f"{pmax:.2e} ({pshare * 100:.2f}% within 3e-4), batch stats max {smax:.2e}", flush=True)
@@ -790,6 +1021,7 @@ def phase_main_path(torch, counters, smi: str) -> dict:
           f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches {launches} "
           f"over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
           flush=True)
+    default_rate = steps * BATCH / seconds
     for f32 in (False, True):
         torch.cuda.reset_peak_memory_stats()
         zero_counters(counters)
@@ -808,6 +1040,27 @@ def phase_main_path(torch, counters, smi: str) -> dict:
               f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches "
               f"{launches} over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
               f"GiB [{smi}]", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    # the same step with both conv kernel routes on: B6 takes 8 convs' forward
+    # and BN statistics (their forward pair sums go), B7 5 convs' dW
+    b = bench.setup(BATCH, overrides=ROUTES)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    seconds, loss, metric = bench.run_train(b, steps, warmup)
+    launches = read_counters(counters)
+    require(bool(torch.isfinite(loss).item()), f"routed train loss not finite: {loss.item()}")
+    want = {name: 0 for name in counters}
+    want.update(pair_sums=52 * n, conv3x3_bn_stats=8 * n, conv3x3_dw=5 * n, ce_cm_fwd_nhwc=n,
+                ce_cm_bwd_nhwc=n)
+    require(launches == want, f"routed train launches {launches}, expected 52 pair_sums, 8 B6, "
+                              f"5 B7 and 1/1 CE+cm per step over {n} steps")
+    require(bank_counts_all(metric, n * valid), "routed train cm bank count")
+    out["train_routes"] = launches
+    print(f"[main] train b{BATCH} bf16, conv routes on (B6, B7): {steps * BATCH / seconds:.2f} "
+          f"patches/s ({seconds / steps * 1e3:.2f} ms/step; default route {default_rate:.2f} "
+          f"patches/s in this run), loss {loss.item():.5f}, launches {launches} over {n} steps, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
     return out
 
 
@@ -816,7 +1069,7 @@ def main() -> int:
         import torch
 
         from kurosiwo_torch import kernels
-        from kurosiwo_torch.ops import batchnorm, fused_tail
+        from kurosiwo_torch.ops import batchnorm, conv_bn, conv_dw, conv_fused, fused_tail
         from kurosiwo_torch.ops import flash_attention as fa
         from kurosiwo_torch.ops import short_attention as sa
     except ImportError as e:
@@ -835,7 +1088,10 @@ def main() -> int:
                 "short_attention_bwd": sa.short_attention_bwd,
                 "flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_dq": fa.flash_attention_dq,
-                "flash_attention_dkv": fa.flash_attention_dkv}
+                "flash_attention_dkv": fa.flash_attention_dkv,
+                "conv3x3_bn_stats": conv_bn.conv3x3_bn_stats,
+                "conv3x3_dw": conv_dw.conv3x3_dw,
+                "conv3x3_fused": conv_fused.conv3x3_fused}
     t0 = time.perf_counter()
     try:
         smi = phase_device(torch)
@@ -848,10 +1104,16 @@ def main() -> int:
         attn = phase_short_attention(torch, sa)
         flash = phase_flash_attention(torch, fa)
         torch.cuda.empty_cache()
-        phase_parity(torch)
+        cbn = phase_conv_bn(torch, conv_bn)
+        cdw = phase_conv_dw(torch, conv_dw)
+        cfu = phase_conv_fused(torch, conv_fused)
+        torch.cuda.empty_cache()
+        phase_parity(torch, counters)
+        phase_parity(torch, counters, routes=True)
         phase_mae_parity(torch)
         phase_scene_parity(torch, fa)
-        launches = phase_main_path(torch, counters, smi)["train"]
+        unet = phase_main_path(torch, counters, smi)
+        launches, routed = unet["train"], unet["train_routes"]
         torch.cuda.empty_cache()
         mae_launches = phase_mae_main(torch, counters, smi)
         torch.cuda.empty_cache()
@@ -900,6 +1162,15 @@ def main() -> int:
                  "kurosiwo_tpu/ops/pallas_attention.py:86", flash["dkv"],
                  scene_launches["flash_attention_dkv"]),
              phase_launches=flash["dkv"]["phase_launches"]),
+        row("conv3x3_bn_stats (B6; per train step with the conv routes on: 8 calls; library: "
+            "F.conv2d, no statistics)", "kurosiwo_torch/csrc/conv3x3.cu",
+            "kurosiwo_tpu/ops/pallas_conv_bn.py:79", cbn, routed["conv3x3_bn_stats"]),
+        row("conv3x3_dw (B7; per train step with the conv routes on: 5 calls)",
+            "kurosiwo_torch/csrc/conv_dw.cu", "kurosiwo_tpu/ops/pallas_dw.py:48", cdw,
+            routed["conv3x3_dw"]),
+        row("conv3x3_fused (B8; no port path launches it; one call at each of "
+            "(128,224,224,16)->16 and (128,112,112,32)->32)", "kurosiwo_torch/csrc/conv3x3.cu",
+            "kurosiwo_tpu/ops/pallas_conv.py:40", cfu, routed["conv3x3_fused"]),
     ]}
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)

@@ -6,7 +6,9 @@ card: ONE JSON line on stdout, ``{"metric", "value", "unit", "device"}``.
 classes, RandomEvents-weighted cross entropy, Adam, bf16 compute on f32
 parameters, the same synthetic batch from ``numpy.random.RandomState(0)``.
 ``--eval`` measures the no-grad eval step, ``--eval --f32_eval`` its f32
-twin (TF32 off).
+twin (TF32 off). ``--set conv_bn_kernel=true --set dw_kernel=true`` turns on
+the conv kernel routes of the train step (B6, B7); the JSON line names the
+routes that were on.
 
 ``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
 pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
@@ -78,6 +80,8 @@ def build_config(model: str, batch: int) -> dict:
 
 
 MODEL_CONFIG = {"backbone": "resnet18", "learning_rate": 1e-3, "optimizer": "adam"}
+# the UNet's opt-in conv kernel routes (B6, B7), off unless --set turns them on
+ROUTE_KEYS = ("conv_bn_kernel", "dw_kernel")
 
 # the MAE leg of the repository's bench.py (bench_mae)
 MAE_CONFIG = {"task": "mae", "num_channels": 6, "mixed_precision": True}
@@ -276,6 +280,7 @@ _CATEGORIES = (  # kernel-name substrings -> what the time is spent on
     ("ce_cm kernel", ("ce_cm_", "ce_bwd")),
     ("short_attention kernel", ("attn_fwd", "attn_bwd")),
     ("flash_attention kernel", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("conv kernels (B6, B7)", ("conv3x3", "conv_dw", "stats_fold", "dw_fold")),
     ("convolution / matmul (cuDNN, cuBLAS)", ("conv", "cudnn", "nvjet", "xmma", "gemm", "sm90_",
                                               "cutlass", "wgrad",
                              "dgrad", "fprop")),
@@ -384,6 +389,8 @@ def main(argv=None) -> dict:
         "unit": "patches/sec",
         "device": torch.cuda.get_device_name(b.device),
     }
+    if args.model == "unet":
+        result["routes"] = {k: bool(b.config.get(k, False)) for k in ROUTE_KEYS}
     if args.profile:
         profile(one, min(args.steps, 5), b.device, seconds / args.steps * 1e3)
     print(json.dumps(result), flush=True)

@@ -21,7 +21,9 @@ def compute_dtype(config: dict) -> torch.dtype:
 def initialize_segmentation_model(config: dict, model_config: dict,
                                   device: str | torch.device | None = "cuda", seed: int = 0):
     """The segmentation model on ``device`` (the card unless the caller
-    asks for the CPU), f32 parameters from a seeded ``torch.Generator``."""
+    asks for the CPU), f32 parameters from a seeded ``torch.Generator``.
+    Config keys ``conv_bn_kernel`` and ``dw_kernel`` (default off) open the
+    UNet's B6 and B7 conv routes (``ops/nn.ConvBNAct``)."""
     dev = resolve_device(device)
     method = config["method"].lower()
     if config.get("task") == "diffusion-unsup":
@@ -33,6 +35,8 @@ def initialize_segmentation_model(config: dict, model_config: dict,
             in_channels=int(config["num_channels"]), num_classes=int(config["num_classes"]),
             backbone=model_config.get("backbone", "resnet18"), dtype=compute_dtype(config),
             generator=torch.Generator().manual_seed(seed),
+            conv_bn_kernel=bool(config.get("conv_bn_kernel", False)),
+            dw_kernel=bool(config.get("dw_kernel", False)),
         )
         return model.to(dev)
     if method in _NOT_PORTED:

@@ -14,11 +14,11 @@ RESNET_DEPTHS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, **routes: bool):
         super().__init__()
         g = generator
-        self.ConvBNAct_0 = ConvBNAct(cin, features, 3, stride, generator=g)
-        self.ConvBNAct_1 = ConvBNAct(features, features, 3, 1, act=False, generator=g)
+        self.ConvBNAct_0 = ConvBNAct(cin, features, 3, stride, generator=g, **routes)
+        self.ConvBNAct_1 = ConvBNAct(features, features, 3, 1, act=False, generator=g, **routes)
         self.ConvBNAct_2 = (
             ConvBNAct(cin, features, 1, stride, act=False, padding=0, generator=g)
             if downsample else None
@@ -31,10 +31,12 @@ class BasicBlock(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """5-stage pyramid: [x, s1(/2), s2(/4), s3(/8), s4(/16), s5(/32)]."""
+    """5-stage pyramid: [x, s1(/2), s2(/4), s3(/8), s4(/16), s5(/32)].
+    ``routes`` (``conv_bn_kernel``, ``dw_kernel``) go to every block's
+    ``ConvBNAct``, whose gates decide which conv takes them."""
 
     def __init__(self, in_channels: int, backbone: str = "resnet18", width: int = 64,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, **routes: bool):
         super().__init__()
         if backbone not in RESNET_DEPTHS:
             raise NotImplementedError(
@@ -51,7 +53,7 @@ class ResNetEncoder(nn.Module):
                 name = f"layer{stage + 1}_{i}"
                 ds = i == 0 and (stride != 1 or cin != features)
                 self.add_module(name, BasicBlock(cin, features, stride if i == 0 else 1, ds,
-                                                 generator=generator))
+                                                 generator=generator, **routes))
                 self.blocks.append((stage, name))
                 cin = features
             self.channels.append(features)

@@ -163,8 +163,13 @@ class BatchNorm(nn.Module):
             y = (x.float() - self.mean) * (inv * self.scale) + self.bias
             return y.to(out_dtype)
         y, mean, var = bn_train_apply(x.to(out_dtype), self.scale, self.bias, self.eps)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-            self.var.copy_(m * self.var + (1.0 - m) * var)
+        self.update_running(mean, var)
         return y
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold a batch's f32 mean and biased variance into the running
+        statistics with flax's momentum."""
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)

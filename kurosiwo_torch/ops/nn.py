@@ -4,8 +4,9 @@
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
 ``channels_last`` tensor that cuDNN takes directly, and its output is
-permuted back. Convolutions stay library calls: the JAX default path leaves
-them to XLA as well.
+permuted back. Convolutions are library calls, as the JAX default path
+leaves them to XLA, except where ``ConvBNAct``'s opt-in kernel routes take
+them.
 
 Mixed precision follows flax's (dtype, param_dtype) pair: parameters are f32
 and each convolution casts its weight and input to the compute ``dtype``.
@@ -20,6 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .batchnorm import BatchNorm
+from .conv_bn import conv3x3_bn
+from .conv_dw import conv3x3_pdw, pick_batch_block
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None = None):
@@ -67,21 +70,55 @@ class Dense(nn.Module):
 
 
 class ConvBNAct(nn.Module):
-    """Conv -> BatchNorm -> optional ReLU: the default branch of the JAX
-    ``ConvBNAct`` (``ops/nn.py:481-498``), with its flax names
-    ``Conv_0`` and ``BatchNorm_0``. Padding defaults to k//2 (SAME)."""
+    """Conv -> BatchNorm -> optional ReLU, the JAX ``ConvBNAct`` with its flax
+    names ``Conv_0`` and ``BatchNorm_0``. Padding defaults to k//2 (SAME).
+
+    Its default branch (``ops/nn.py:481-498``) is the library conv and the
+    pair-sum BatchNorm. Two opt-in routes, the counterparts of
+    ``KUROSIWO_PALLAS_CONV`` and ``KUROSIWO_PALLAS_DW``, take a train-mode
+    3x3 stride-1 conv with default padding and 128-multiple channels, with
+    the JAX package's gates, tested in its order (``ops/nn.py:425-480``):
+      * ``conv_bn_kernel``, for min(Cin, Cout) >= 256: the conv and its BN
+        statistics in one pass of the B6 kernel (``ops/conv_bn.conv3x3_bn``);
+      * ``dw_kernel``, for min(H, W) >= 6 and a non-zero
+        ``pick_batch_block``: the conv's weight gradient by the B7 kernel
+        (``ops/conv_dw.conv3x3_pdw``), then the default BatchNorm.
+    Both use the same parameters and buffers as the default branch, and
+    eval takes neither."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  act: bool = True, padding: int | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, conv_bn_kernel: bool = False,
+                 dw_kernel: bool = False):
         super().__init__()
         pad = padding if padding is not None else kernel // 2
         self.Conv_0 = Conv(cin, features, kernel, stride, pad, generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
         self.act = act
+        routable = (kernel == 3 and stride == 1 and padding is None
+                    and cin % 128 == 0 and features % 128 == 0)
+        self.conv_bn_kernel = conv_bn_kernel and routable and min(cin, features) >= 256
+        self.dw_kernel = dw_kernel and routable
+
+    def _takes_dw_route(self, x: torch.Tensor, dtype: torch.dtype) -> bool:
+        b, h, w, cin = x.shape
+        return self.dw_kernel and min(h, w) >= 6 and bool(pick_batch_block(
+            b, h, w, cin, self.Conv_0.weight.shape[0], itemsize=dtype.itemsize))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = self.BatchNorm_0(self.Conv_0(x, dtype), dtype)
+        if self.training and self.conv_bn_kernel:
+            bn = self.BatchNorm_0
+            # the HWIO view of the f32 parameter; conv3x3_bn casts it to dtype
+            y, mean, var = conv3x3_bn(x.to(dtype), self.Conv_0.weight.permute(2, 3, 1, 0),
+                                      bn.scale, bn.bias, bn.eps)
+            bn.update_running(mean, var)
+        elif self.training and self._takes_dw_route(x, dtype):
+            # the weight cast before the route, as the JAX package passes it
+            # (nn.py:473): dW is rounded to dtype, then to the f32 parameter
+            w = self.Conv_0.weight.to(dtype).permute(2, 3, 1, 0)
+            y = self.BatchNorm_0(conv3x3_pdw(x.to(dtype), w), dtype)
+        else:
+            y = self.BatchNorm_0(self.Conv_0(x, dtype), dtype)
         return torch.relu(y) if self.act else y
 
 

@@ -281,3 +281,139 @@ def test_flash_attention_wrappers_raise_on_layouts_they_do_not_take(dev):
     with pytest.raises(ValueError, match="16-byte"):
         u = torch.randn(1, 2, 64, 72, device=dev).to(torch.bfloat16)[..., 4:68]
         fa.flash_attention_fwd(u, u, u, 1.0)
+
+
+# ---------------------------------------------------------------- B6-B8 convs
+
+
+def conv_band(got, want, scale, bf16):
+    """Bands as chip_smoke.py: the kernel and the plain version sum the same
+    f32 products in another order, so |got - want| <= 1e-5 * sum(|terms|)
+    (``scale``, per element); a bf16 output adds one rounding of each side,
+    at most 2^-8 of each value, so 2^-7 * |want| more."""
+    err = (got.float() - want.float()).abs()
+    band = 1e-5 * scale + 1e-6
+    if bf16:
+        band = band + 2.0**-7 * want.float().abs()
+    assert bool((err <= band).all()), (err.max().item(), (err - band).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("shape,cout", [((2, 7, 9, 256), 128), ((3, 14, 14, 256), 256),
+                                        ((1, 5, 6, 24), 40), ((2, 8, 8, 768), 256)])
+def test_conv3x3_bn_stats_kernel_matches_plain(dev, shape, cout, prologue, dtype):
+    from kurosiwo_torch.ops import conv_bn
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    w = (0.05 * torch.randn((3, 3, shape[-1], cout), device=dev, generator=g)).to(dtype)
+    sb = None
+    if prologue:
+        sb = (torch.rand(shape[-1], device=dev, generator=g) + 0.5,
+              0.1 * torch.randn(shape[-1], device=dev, generator=g))
+    n0 = conv_bn.conv3x3_bn_stats.launches
+    y, st = conv_bn.conv3x3_bn_stats(x, w, *(sb or ()))
+    want_y, want_st = conv_bn.conv3x3_bn_stats_plain(x, w, *(sb or ()))
+    assert y.dtype == dtype and y.shape == (*shape[:3], cout) and st.shape == (2, cout)
+    xa = x if sb is None else torch.relu(x.float() * sb[0] + sb[1]).to(dtype)
+    scale = conv3x3_plain_f32(xa.abs(), w.abs())
+    conv_band(y, want_y, scale, dtype == torch.bfloat16)
+    # sum y moves by the sum of the y errors, sum y^2 by 2 |y| times each
+    s = scale.reshape(-1, cout)
+    conv_band(st, want_st, torch.stack([s.sum(0), 2 * (want_y.float().abs().reshape(-1, cout)
+                                                       * s).sum(0)]), False)
+    y2, st2 = conv_bn.conv3x3_bn_stats(x, w, *(sb or ()))
+    assert torch.equal(y, y2) and torch.equal(st, st2)  # deterministic
+    assert conv_bn.conv3x3_bn_stats.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((2, 7, 9, 128), 128), ((4, 28, 28, 128), 128),
+                                        ((2, 6, 5, 384), 128), ((1, 9, 7, 24), 16)])
+def test_conv3x3_dw_kernel_matches_plain(dev, shape, cout, dtype):
+    from kurosiwo_torch.ops import conv_dw
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    dy = torch.randn((*shape[:3], cout), device=dev, generator=g).to(dtype)
+    n0 = conv_dw.conv3x3_dw.launches
+    got = conv_dw.conv3x3_dw(x, dy)
+    want = conv_dw.conv3x3_dw_plain(x, dy)
+    assert got.dtype == torch.float32 and got.shape == (3, 3, shape[-1], cout)
+    conv_band(got, want, conv_dw.conv3x3_dw_plain(x.abs(), dy.abs()), False)
+    assert torch.equal(got, conv_dw.conv3x3_dw(x, dy))  # deterministic
+    assert conv_dw.conv3x3_dw.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape,cout", [((2, 32, 16, 8), 4), ((1, 16, 17, 6), 6),
+                                        ((2, 20, 22, 16), 16), ((2, 11, 13, 32), 32),
+                                        ((1, 9, 10, 40), 24)])
+def test_conv3x3_fused_kernel_matches_plain(dev, shape, cout, relu, dtype):
+    from kurosiwo_torch.ops import conv_fused
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    w = torch.randn((3, 3, shape[-1], cout), device=dev, generator=g).to(dtype)
+    b = torch.randn(cout, device=dev, generator=g)
+    n0 = conv_fused.conv3x3_fused.launches
+    got = conv_fused.conv3x3_fused(x, w, b, relu)
+    want = conv_fused.conv3x3_fused_plain(x, w, b, relu)
+    assert got.dtype == dtype and got.shape == (*shape[:3], cout)
+    conv_band(got, want, conv3x3_plain_f32(x.abs(), w.abs()) + b.abs(), dtype == torch.bfloat16)
+    assert torch.equal(got, conv_fused.conv3x3_fused(x, w, b, relu))
+    assert conv_fused.conv3x3_fused.launches == n0 + 2
+    if not relu:
+        assert got.float().min().item() < 0
+
+
+@pytest.mark.parametrize("route", ["conv_bn_kernel", "dw_kernel"])
+def test_conv_routes_autograd_on_the_card(dev, route):
+    """A train-mode ConvBNAct on the route, f32, card (kernels) against CPU
+    (plain versions): output, running statistics and gradients."""
+    from kurosiwo_torch.ops import conv_bn, conv_dw
+    from kurosiwo_torch.ops.nn import ConvBNAct
+
+    cin = 256 if route == "conv_bn_kernel" else 128
+    g = torch.Generator().manual_seed(7)
+    cpu = ConvBNAct(cin, cin, generator=g, **{route: True})
+    gpu = ConvBNAct(cin, cin, **{route: True}).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 8, 8, cin, generator=g)
+    n0 = conv_bn.conv3x3_bn_stats.launches, conv_dw.conv3x3_dw.launches
+    res = []
+    for m, xin in ((cpu, x), (gpu, x.to(dev))):
+        m.train()
+        xin = xin.clone().requires_grad_(True)
+        out = m(xin, torch.float32)
+        (out * out).sum().backward()
+        res.append([t.detach().cpu() for t in (out, xin.grad, m.Conv_0.weight.grad,
+                                               m.BatchNorm_0.scale.grad, m.BatchNorm_0.mean,
+                                               m.BatchNorm_0.var)])
+    assert (conv_bn.conv3x3_bn_stats.launches - n0[0], conv_dw.conv3x3_dw.launches - n0[1]) == \
+        ((1, 0) if route == "conv_bn_kernel" else (0, 1))
+    for got, want in zip(*res[::-1]):
+        _close(got, want, 1e-4)
+
+
+def test_conv_wrappers_raise_on_shapes_they_do_not_take(dev):
+    from kurosiwo_torch.ops import conv_bn, conv_dw, conv_fused
+
+    x = torch.randn(2, 6, 6, 16, device=dev)
+    w = torch.randn(3, 3, 16, 8, device=dev)
+    with pytest.raises(TypeError):
+        conv_bn.conv3x3_bn_stats(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_bn.conv3x3_bn_stats(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match=r"\(3, 3, Cin, Cout\)"):
+        conv_bn.conv3x3_bn_stats(x, torch.randn(3, 3, 8, 8, device=dev))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv_dw.conv3x3_dw(torch.randn(2, 6, 6, 6, device=dev), torch.randn(2, 6, 6, 8, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_fused.conv3x3_fused(x, w, torch.zeros(8))
+    with pytest.raises(TypeError):
+        conv_fused.conv3x3_fused(x.half(), w.half(), torch.zeros(8, device=dev))

@@ -121,7 +121,7 @@ def test_attention_bhnd_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-def test_flash_route_raises_naming_its_roadmap_item(monkeypatch):
+def test_flash_route_shapes_run_the_flash_kernel_wrapper(monkeypatch):
     """Flash-route shapes go to the flash attention of ROADMAP B5
     (``ops/flash_attention.py``), never to the short kernel: both entry
     points reach its forward wrapper, whose plain version runs here."""

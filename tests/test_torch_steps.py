@@ -9,9 +9,9 @@ Bands: loss rtol 1e-4; confusion-matrix row sums equal and each cell within
 parameters atol 3e-4 (the band of tests/test_pallas_tail.py) for at least
 99% of the elements and 2*lr for all, since Adam's first step is about
 lr*sign(g) and a gradient whose sign differs between the frameworks moves
-its parameter the other way (see _assert_adam_step_close); Adam's first
+its parameter the other way (see assert_adam_step_close); Adam's first
 moment, the gradient itself, within 5% of each tensor's largest value and 2%
-in relative L2 norm (see _assert_first_moment_close); batch statistics atol
+in relative L2 norm (see assert_first_moment_close); batch statistics atol
 1e-4.
 """
 
@@ -35,6 +35,7 @@ from kurosiwo_tpu.ops.metrics import MetricState as JMetricState
 from kurosiwo_tpu.training.state import create_train_state as j_create_state
 from kurosiwo_tpu.training.steps import make_eval_step as j_eval_step
 from kurosiwo_tpu.training.steps import make_train_step as j_train_step
+from torch_step_parity import assert_adam_step_close, assert_first_moment_close
 
 torch.set_num_threads(2)
 torch.backends.cudnn.allow_tf32 = False
@@ -119,37 +120,6 @@ def _assert_trees_close(got, want, atol):
         np.testing.assert_allclose(g, w, atol=atol)
 
 
-def _assert_adam_step_close(got, want):
-    """Adam's first update is lr*g/(|g|+eps): where the two frameworks'
-    gradients differ in sign, the parameters differ by up to 2*lr. Such
-    flips come from near-zero gradients and from near-ties of the ReLUs:
-    on this batch 2 of the 131,072 outputs of the last decoder BatchNorm sit
-    on opposite sides of zero in the two frameworks (values within 1e-5 of
-    each other), and those two pixels' gradients reach every earlier layer.
-    So: every element within the 2*lr bound of one flip, and at least 99%
-    of all parameter elements within atol 3e-4."""
-    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
-    d = np.concatenate([np.abs(g - w).ravel()
-                        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want))])
-    assert d.max() <= 2 * LR + 1e-6
-    assert np.mean(d <= 3e-4) >= 0.99
-
-
-def _assert_first_moment_close(got, want):
-    """Adam's first moment after one step is (1 - b1) * g: the gradients
-    themselves, whose scale the sign-like parameter update cannot check.
-    The same ReLU near-ties move them too (at most 2.5% of a tensor's
-    largest gradient, 0.7% in relative L2 norm on this batch), so: each
-    tensor within 5% of its largest value, and all within 2% in L2 norm."""
-    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
-    num = den = 0.0
-    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
-        assert np.abs(g - w).max() <= 5e-2 * np.abs(w).max()
-        num += float(np.square(g - w).sum())
-        den += float(np.square(w).sum())
-    assert np.sqrt(num / den) <= 2e-2
-
-
 @pytest.mark.parametrize("tail", [True, False], ids=["fused", "plain"])
 def test_train_step_matches_jax(jax_run, tail):
     cfg = dict(CFG, fused_tail=tail)
@@ -161,9 +131,9 @@ def test_train_step_matches_jax(jax_run, tail):
     np.testing.assert_allclose(float(loss), jax_run["loss"], rtol=1e-4)
     _assert_cm_close(ms.cm.numpy(), jax_run["cm"], jax_run["batch"]["mask"])
     tree = torch_to_flax(model.state_dict())
-    _assert_adam_step_close(tree["params"], jax_run["params"])
+    assert_adam_step_close(tree["params"], jax_run["params"], LR)
     mu = {name: state.optimizer.state[p]["exp_avg"] for name, p in model.named_parameters()}
-    _assert_first_moment_close(torch_to_flax(mu)["params"], jax_run["mu"])
+    assert_first_moment_close(torch_to_flax(mu)["params"], jax_run["mu"])
     _assert_trees_close(tree["batch_stats"], jax_run["batch_stats"], atol=1e-4)
 
 
