@@ -23,23 +23,29 @@ its lines; any failed phase exits non-zero.
    F.scaled_dot_product_attention and its autograd backward.
    The 3x3 conv kernels, in f32 and bf16: B6 (conv + BN statistics, with and
    without its prologue) at the train step's (128, 14, 14, 256)->256,
-   (128, 7, 7, 512)->512 and (128, 14, 14, 768)->256; B7 (weight gradient)
-   at (128, 28, 28, 128)->128 and (128, 28, 28, 384)->128; B8 (bias + ReLU
-   epilogue, no port path) at (128, 224, 224, 16)->16 and
-   (128, 112, 112, 32)->32. Library yardsticks: F.conv2d (no statistics),
-   torch.nn.grad.conv2d_weight, F.conv2d with bias and relu. Every device
-   time is taken behind a sleep kernel, so the host's launch overhead does
-   not stand in for a short kernel's time.
+   (128, 7, 7, 512)->512 and (128, 14, 14, 768)->256, and at a ragged
+   (3, 7, 7, 256)->256; B7 (weight gradient) at (128, 28, 28, 128)->128,
+   (128, 28, 28, 384)->128 and a ragged (2, 9, 11, 128)->128; each with
+   the kernel its wrapper's plan picked (bf16 routed calls: the wgmma
+   kernels), its grid and TFLOP/s; B8 (bias + ReLU epilogue, no port path)
+   at (128, 224, 224, 16)->16 and (128, 112, 112, 32)->32. Library
+   yardsticks: F.conv2d (no statistics), torch.nn.grad.conv2d_weight,
+   F.conv2d with bias and relu. Every device time is taken behind a sleep
+   kernel, so the host's launch overhead does not stand in for a short
+   kernel's time.
 4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
    (4, 64, 64, 6), default route and with the conv kernel routes on (B6 and
-   B7 launched 8 and 5 times), and one f32 and one bf16 MAE train step at a
+   B7 launched 8 and 5 times, their f32 kernels), and one f32 and one bf16
+   MAE train step at a
    small size, on the card (kernels) against the same steps on the CPU
    (plain versions), same weights, batch and masking noise; the whole-scene
    ViT encode of a 512x512 scene (1,024 tokens, the flash route) at a small
    width, f32 and bf16, card against CPU.
 5. Main paths at full width through kurosiwo_torch/bench.py's code: batch 128
    bf16 UNet train steps (3 warm-up, 10 timed), then the bf16 eval and the
-   f32-twin eval, then the train step with the conv kernel routes on; then
+   f32-twin eval, then the train step with the conv kernel routes on (the
+   wgmma B6 8 times and the wgmma B7 5 times a step, by their own
+   counters); then
    the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed); then
    serving: the ViT-L encode of a 1024x1024 scene (4,096 tokens; 3 warm-up,
    10 timed), a 1000x1000 scene (3,969 tokens, off the flash route) and the
@@ -536,6 +542,14 @@ SCENE_SMALL = {"image_size": 64, "patch_size": 16, "dim": 64, "depth": 2, "heads
 CONV_BN_SHAPES = [((BATCH, 14, 14, 256, 256), 4), ((BATCH, 7, 7, 512, 512), 3),
                   ((BATCH, 14, 14, 768, 256), 1)]
 CONV_DW_SHAPES = [((BATCH, 28, 28, 128, 128), 4), ((BATCH, 28, 28, 384, 128), 1)]
+# ragged bf16 cases (pixel counts that fill no tile, a halo on every side):
+# count 0, checked and not added to the per-step totals
+CONV_BN_RAGGED = ((3, 7, 7, 256, 256), 0)
+CONV_DW_RAGGED = ((2, 9, 11, 128, 128), 0)
+# per-step times of the kernels the wgmma ones replaced (mma.sync with
+# register-staged loads), recorded from an earlier run of this script on an
+# NVIDIA H100 80GB HBM3 at 700 W; printed for reference, never measured here
+EARLIER_MS = {"conv3x3_bn_stats": 1.907, "conv3x3_dw": 1.585}
 CONV_FUSED_SHAPES = [(BATCH, 224, 224, 16, 16), (BATCH, 112, 112, 32, 32)]
 ROUTES = {"conv_bn_kernel": True, "dw_kernel": True}
 
@@ -574,23 +588,25 @@ def _finish(tot: dict, rate: float) -> dict:
 
 def phase_conv_bn(torch, conv_bn) -> dict:
     """B6 at the main path's three shapes, f32 and bf16, with and without the
-    prologue, against the plain version (bands of conv_close; the
-    statistics: sum y within 1e-5 of sum(|terms|), sum y^2 within 1e-5 of
-    2 |y| sum(|terms|)); two runs bitwise equal. bf16 times without the
-    prologue (the route's call); the library yardstick is F.conv2d on the
-    channels-last view (cuDNN), which computes no statistics."""
+    prologue, and at a ragged bf16 shape without it, against the plain
+    version (bands of conv_close; the statistics: sum y within 1e-5 of
+    sum(|terms|), sum y^2 within 1e-5 of 2 |y| sum(|terms|)); two runs
+    bitwise equal. bf16 times without the prologue (the route's call), with
+    the kernel the plan picked and its grid; the library yardstick is
+    F.conv2d on the channels-last view (cuDNN), which computes no
+    statistics."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
     tot = _new_stats()
-    for (b, h, w, cin, cout), count in CONV_BN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (b, h, w, cin, cout), count in CONV_BN_SHAPES + [CONV_BN_RAGGED]:
+        for dtype in (torch.float32, torch.bfloat16) if count else (torch.bfloat16,):
             bf16 = dtype == torch.bfloat16
             x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
             wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (3 * cin**0.5)
             wt = wt.to(dtype)
-            for prologue in (False, True):
+            for prologue in (False, True) if count else (False,):
                 sb = ()
                 if prologue:
                     sb = (torch.rand(cin, device=dev, generator=g) + 0.5,
@@ -614,7 +630,17 @@ def phase_conv_bn(torch, conv_bn) -> dict:
                 del scale, s, sscale, want_y, xa
                 if not bf16 or prologue:
                     continue
+                plan = conv_bn.conv3x3_plan(dtype, b * h * w, cin, cout)
+                k0 = conv_bn.conv3x3_bn_stats.kernel_launches[plan.kernel]
+                conv_bn.conv3x3_bn_stats(x, wt)
+                require(conv_bn.conv3x3_bn_stats.kernel_launches[plan.kernel] == k0 + 1,
+                        f"{tag}: the {plan.kernel} kernel did not launch")
+                desc = (f"kernel {plan.kernel} ({conv_bn.PIXEL_TILE[plan.kernel]}-pixel tiles, "
+                        f"grid ({plan.tiles}, {cout // 128}))")
                 tot["max_abs_err"] = max(tot["max_abs_err"], yerr)
+                if not count:
+                    print(f"[conv_bn] {tag}: {desc}", flush=True)
+                    continue
                 ms = event_ms(torch, lambda: conv_bn.conv3x3_bn_stats(x, wt))
                 plain = event_ms(torch, lambda: conv_bn.conv3x3_bn_stats_plain(x, wt), reps=3,
                                  calls=3)
@@ -624,7 +650,7 @@ def phase_conv_bn(torch, conv_bn) -> dict:
                 nbytes = (x.numel() + wt.numel() + b * h * w * cout) * 2 + 2 * cout * 4
                 flops = 2.0 * b * h * w * 9 * cin * cout
                 bms, _ = bound(nbytes, flops, BF16_FLOP_PER_S)
-                print(f"[conv_bn] {tag} x{count}/step: kernel {ms:.4f} ms "
+                print(f"[conv_bn] {tag} x{count}/step: {desc} {ms:.4f} ms "
                       f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
                       f"(F.conv2d, no statistics) {lib:.4f} ms, bound {bms * 1e3:.1f} us",
                       flush=True)
@@ -634,19 +660,41 @@ def phase_conv_bn(torch, conv_bn) -> dict:
     print(f"[conv_bn] per train step (8 calls, bf16): kernel {tot['ms']:.3f} ms, plain "
           f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.3f} ms ({tot['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    print(f"[conv_bn] the mma.sync kernel it replaced (recorded, not measured here): "
+          f"{EARLIER_MS['conv3x3_bn_stats']} ms per train step", flush=True)
     return tot
 
 
+def split_ab(torch, conv_dw, x, dy, plan, want) -> str:
+    """The wgmma B7 kernel's time at half, the plan's and twice the plan's K
+    split and at the splits between, timed in turn in this call (each result
+    held to ``want`` by conv_close's band): whether the plan's split is the
+    fastest one near it."""
+    p = x.shape[0] * x.shape[1] * x.shape[2]
+    scale = conv_dw.conv3x3_dw_plain(x.abs(), dy.abs())
+    out = []
+    for splits in sorted({max(1, plan.splits // 2), max(1, 3 * plan.splits // 4), plan.splits,
+                          3 * plan.splits // 2, 2 * plan.splits}):
+        slice_ = -(-(-(-p // splits)) // plan.step) * plan.step
+        forced = plan._replace(splits=-(-p // slice_), slice=slice_)
+        conv_close(torch, conv_dw.launch_dw(forced, x, dy), want, scale, False,
+                   f"conv3x3_dw split {forced.splits}")
+        ms = event_ms(torch, lambda: conv_dw.launch_dw(forced, x, dy))
+        out.append(f"{forced.splits}{' (plan)' if forced == plan else ''} {ms:.4f} ms")
+    return ", ".join(out)
+
+
 def phase_conv_dw(torch, conv_dw) -> dict:
-    """B7 at the main path's two shapes, f32 and bf16, against the plain
-    version (bands of conv_close, f32 output); two runs bitwise equal. bf16
-    times; the library yardstick is torch.nn.grad.conv2d_weight (cuDNN's
+    """B7 at the main path's two shapes, f32 and bf16, and at a ragged bf16
+    shape, against the plain version (bands of conv_close, f32 output); two
+    runs bitwise equal. bf16 times, with the kernel the plan picked and its
+    grid; the library yardstick is torch.nn.grad.conv2d_weight (cuDNN's
     backward-filter), which computes the same function."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     tot = _new_stats()
-    for (b, h, w, cin, cout), count in CONV_DW_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (b, h, w, cin, cout), count in CONV_DW_SHAPES + [CONV_DW_RAGGED]:
+        for dtype in (torch.float32, torch.bfloat16) if count else (torch.bfloat16,):
             bf16 = dtype == torch.bfloat16
             x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
             dy = torch.randn((b, h, w, cout), device=dev, generator=g).to(dtype)
@@ -661,7 +709,17 @@ def phase_conv_dw(torch, conv_dw) -> dict:
                              False, tag)
             print(f"[conv_dw] {tag}: max abs error {err:.3e} (max |dW| "
                   f"{want.abs().max().item():.1f}); deterministic", flush=True)
-            if bf16:
+            plan = conv_dw.conv3x3_dw_plan(dtype, b * h * w, cin, cout)
+            k0 = conv_dw.conv3x3_dw.kernel_launches[plan.kernel]
+            conv_dw.conv3x3_dw(x, dy)
+            require(conv_dw.conv3x3_dw.kernel_launches[plan.kernel] == k0 + 1,
+                    f"{tag}: the {plan.kernel} kernel did not launch")
+            desc = (f"kernel {plan.kernel} ({plan.splits} K slices of {plan.slice} pixels, grid "
+                    f"({plan.splits}, {plan.tiles}))")
+            if bf16 and not count:
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                print(f"[conv_dw] {tag}: {desc}", flush=True)
+            elif bf16:
                 tot["max_abs_err"] = max(tot["max_abs_err"], err)
                 ms = event_ms(torch, lambda: conv_dw.conv3x3_dw(x, dy))
                 plain = event_ms(torch, lambda: conv_dw.conv3x3_dw_plain(x, dy), reps=3, calls=3)
@@ -671,15 +729,19 @@ def phase_conv_dw(torch, conv_dw) -> dict:
                 nbytes = (x.numel() + dy.numel()) * 2 + 9 * cin * cout * 4
                 flops = 2.0 * b * h * w * 9 * cin * cout
                 bms, _ = bound(nbytes, flops, BF16_FLOP_PER_S)
-                print(f"[conv_dw] {tag} x{count}/step: kernel {ms:.4f} ms "
+                print(f"[conv_dw] {tag} x{count}/step: {desc} {ms:.4f} ms "
                       f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
                       f"(conv2d_weight) {lib:.4f} ms, bound {bms * 1e3:.1f} us", flush=True)
                 _add_timing(tot, count, ms, plain, lib, nbytes, flops)
+                print(f"[conv_dw] {tag}: K split A/B, "
+                      + split_ab(torch, conv_dw, x, dy, plan, want), flush=True)
             del x, dy, got, again, want
     _finish(tot, BF16_FLOP_PER_S)
     print(f"[conv_dw] per train step (5 calls, bf16): kernel {tot['ms']:.3f} ms, plain "
           f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.3f} ms ({tot['flops'] / 1e9:.1f} GFLOP)", flush=True)
+    print(f"[conv_dw] the mma.sync kernel it replaced (recorded, not measured here): "
+          f"{EARLIER_MS['conv3x3_dw']} ms per train step", flush=True)
     return tot
 
 
@@ -874,6 +936,7 @@ def phase_parity(torch, counters, routes: bool = False) -> None:
         zero_counters(counters)
         state, ms, loss = step(state, batch, MetricState.create(name), 1e-3)
         launched = read_counters(counters)
+        by_kernel = read_kernel_counters(counters)
         ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, device=name)
         ems, eloss, _ = ev(state, batch, MetricState.create(name))
         res[name] = dict(loss=loss.item(), cm=ms.cm.cpu(), eloss=eloss.item(), ecm=ems.cm.cpu(),
@@ -882,6 +945,9 @@ def phase_parity(torch, counters, routes: bool = False) -> None:
     routed = (launched["conv3x3_bn_stats"], launched["conv3x3_dw"])
     require(routed == ((8, 5) if routes else (0, 0)),
             f"parity train step launched B6 {routed[0]}, B7 {routed[1]} times")
+    simt = (by_kernel["conv3x3_bn_stats.simt"], by_kernel["conv3x3_dw.simt"])
+    require(simt == routed and sum(by_kernel.values()) == sum(routed),
+            f"parity train step (f32) launched B6/B7 kernels {by_kernel}")
     params = {k for k, _ in cpu_model.named_parameters()}
     for key in ("loss", "eloss"):
         require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), f"parity {key}: {g[key]} vs {c[key]}")
@@ -993,10 +1059,19 @@ def bank_counts_all(metric, pixels: int) -> bool:
 def zero_counters(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+        for kernel in getattr(fn, "kernel_launches", {}):
+            fn.kernel_launches[kernel] = 0
 
 
 def read_counters(counters) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def read_kernel_counters(counters) -> dict:
+    """{"<wrapper>.<kernel>": launches} of the wrappers that count by kernel
+    (B6 and B7)."""
+    return {f"{name}.{k}": n for name, fn in counters.items()
+            for k, n in getattr(fn, "kernel_launches", {}).items()}
 
 
 def phase_main_path(torch, counters, smi: str) -> dict:
@@ -1055,12 +1130,19 @@ def phase_main_path(torch, counters, smi: str) -> dict:
                 ce_cm_bwd_nhwc=n)
     require(launches == want, f"routed train launches {launches}, expected 52 pair_sums, 8 B6, "
                               f"5 B7 and 1/1 CE+cm per step over {n} steps")
+    by_kernel = read_kernel_counters(counters)
+    want_k = dict.fromkeys(by_kernel, 0)
+    want_k.update({"conv3x3_bn_stats.wgmma": 8 * n, "conv3x3_dw.wgmma": 5 * n})
+    require(by_kernel == want_k, f"routed train kernel launches {by_kernel}, expected the "
+                                 f"wgmma B6 8 and the wgmma B7 5 times per step over {n} steps")
+    out["train_routes_kernels"] = by_kernel
     require(bank_counts_all(metric, n * valid), "routed train cm bank count")
     out["train_routes"] = launches
     print(f"[main] train b{BATCH} bf16, conv routes on (B6, B7): {steps * BATCH / seconds:.2f} "
           f"patches/s ({seconds / steps * 1e3:.2f} ms/step; default route {default_rate:.2f} "
-          f"patches/s in this run), loss {loss.item():.5f}, launches {launches} over {n} steps, "
-          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+          f"patches/s in this run), loss {loss.item():.5f}, launches {launches} over {n} steps "
+          f"(by kernel {by_kernel}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
     return out
 
 
@@ -1162,12 +1244,13 @@ def main() -> int:
                  "kurosiwo_tpu/ops/pallas_attention.py:86", flash["dkv"],
                  scene_launches["flash_attention_dkv"]),
              phase_launches=flash["dkv"]["phase_launches"]),
-        row("conv3x3_bn_stats (B6; per train step with the conv routes on: 8 calls; library: "
-            "F.conv2d, no statistics)", "kurosiwo_torch/csrc/conv3x3.cu",
-            "kurosiwo_tpu/ops/pallas_conv_bn.py:79", cbn, routed["conv3x3_bn_stats"]),
-        row("conv3x3_dw (B7; per train step with the conv routes on: 5 calls)",
+        row("conv3x3_bn_stats (B6, the wgmma kernel; per train step with the conv routes on: "
+            "8 calls; library: F.conv2d, no statistics)", "kurosiwo_torch/csrc/conv3x3.cu",
+            "kurosiwo_tpu/ops/pallas_conv_bn.py:79", cbn,
+            unet["train_routes_kernels"]["conv3x3_bn_stats.wgmma"]),
+        row("conv3x3_dw (B7, the wgmma kernel; per train step with the conv routes on: 5 calls)",
             "kurosiwo_torch/csrc/conv_dw.cu", "kurosiwo_tpu/ops/pallas_dw.py:48", cdw,
-            routed["conv3x3_dw"]),
+            unet["train_routes_kernels"]["conv3x3_dw.wgmma"]),
         row("conv3x3_fused (B8; no port path launches it; one call at each of "
             "(128,224,224,16)->16 and (128,112,112,32)->32)", "kurosiwo_torch/csrc/conv3x3.cu",
             "kurosiwo_tpu/ops/pallas_conv.py:40", cfu, routed["conv3x3_fused"]),

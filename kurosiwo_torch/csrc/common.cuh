@@ -84,14 +84,6 @@ __device__ __forceinline__ void load_a_x4(uint32_t (&a)[4], const __nv_bfloat16*
   ldmatrix_x4(a, t + (r0 + (mat & 1) * 8 + lane % 8) * ld + k0 + (mat >> 1) * 8);
 }
 
-// The A fragment (rows m in [m0, m0 + 16), k in [k0, k0 + 16)) of a tile
-// stored k-major: ROW k of the tile holds the m values (one ldmatrix.x4.trans)
-__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const __nv_bfloat16* t, int ld,
-                                             int k0, int m0) {
-  const int lane = threadIdx.x & 31, mat = lane / 8;
-  ldmatrix_x4_trans(a, t + (k0 + (mat >> 1) * 8 + lane % 8) * ld + m0 + (mat & 1) * 8);
-}
-
 // B fragments (k 16 x n 8) of the two column tiles n0 and n0 + 8 of a
 // row-major tile whose ROW is n (k along the row from k0): one ldmatrix.x4.
 // b[0], b[1] belong to n0, b[2], b[3] to n0 + 8.

@@ -3,15 +3,15 @@
 //  * B6 (ks_conv3x3_bn_stats): y in x's dtype plus per-channel f32 [sum y,
 //    sum y^2] for the BatchNorm batch statistics, with an optional
 //    relu(scale * x + bias) prologue on the input. Replaces the TPU kernel
-//    kurosiwo_tpu/ops/pallas_conv_bn.py::conv3x3_bn_stats (its inner
+//    kurosiwo_tpu/ops/pallas_conv_bn.py::conv3x3_bn_stats (:35; its inner
 //    `kernel`, launched at :115).
 //  * B8 (ks_conv3x3_bias_act): y = [relu](conv + bias) in x's dtype for any
 //    channel count. Replaces kurosiwo_tpu/ops/pallas_conv.py::_conv_kernel
 //    (conv3x3_fused, launched at :85).
 //
-// GEMM: M = output pixels (B*H*W), N = Cout, K = 9*Cin, walked tap by tap in
-// chunks of BK input channels. A block owns a BM x BN output tile; for each
-// tap it reads the BM pixels shifted by (dh, dw) straight from x: it computes
+// GEMM: M = output pixels (B*H*W), N = Cout, K = 9*Cin, walked in chunks of
+// input channels and taps. A block owns a BM x BN output tile; for each tap
+// it reads the BM pixels shifted by (dh, dw) straight from x: it computes
 // its own halo offsets (pixel m + dh*W + dw) and masks the image edge to 0,
 // so the TPU kernel's row-slab DMA and 8-aligned width padding have no
 // counterpart. The weight is the (9*Cin, Cout) row-major view of HWIO.
@@ -21,25 +21,41 @@
 // bf16). B8 at C 16/32 (K = 144/288) does about 2*K operations per 2*Cout
 // bytes: bytes (3.35 TB/s).
 //
-// Design:
-//  * bf16 runs on tensor cores: mma.sync m16n8k16 with f32 accumulators,
-//    A fragments by ldmatrix.x4 from a [BM][BK+8] pixel tile, B fragments by
-//    ldmatrix.x4.trans from a [BK][BN+8] weight tile (padded rows: no bank
-//    conflicts). f32 runs on CUDA-core FMA (64x64 tiles, 4x4 per thread), so
+// Three kernels; the wrapper (ops/conv_bn.py: conv3x3_plan) picks one by
+// dtype, epilogue and shape, and the entry points refuse a call the named
+// kernel does not take:
+//  * wgmma_conv3x3 (B6 in bf16 without the prologue, Cin % 64 == 0, Cout %
+//    128 == 0: every routed call): Hopper's warpgroup products. Each of
+//    three warpgroups owns 64 pixel rows x 128 channels of a 192-pixel tile
+//    (1.98 waves of the 132 SMs at 14^2, one at 7^2) and issues
+//    wgmma m64n128k16 on operands in 128-byte-swizzled shared memory: the
+//    pixel tile K-major (64 channels a row), the weight rows MN-major, as
+//    they lie in memory. Both arrive by TMA (hopper.cuh: ring_gemm) through
+//    a ring of 5 stages, three chunks of 64 channels ahead, completion
+//    counted on one mbarrier a stage: one thread asks for three boxes a
+//    chunk, and no thread computes an address or stages a value in
+//    registers. The pixel box is the tile's rows shifted by the tap in the
+//    flat (B*H*W, Cin) view; rows outside the tensor read as 0, and the
+//    rows whose shifted pixel left the image (the halo) are zeroed in
+//    shared memory before the product. One barrier per 64-deep chunk, at
+//    most one wgmma group in flight.
+//  * tc_conv3x3 (the prologue variant and B8 in bf16): mma.sync m16n8k16
+//    with f32 accumulators, fragments by ldmatrix from padded tiles, two
+//    shared buffers with the next chunk's loads staged in registers.
+//  * simt_conv3x3 (f32): CUDA-core FMA (64x64 tiles, 4x4 per thread), so
 //    f32 results match the CPU's f32 with TF32 off.
-//  * Two shared-memory buffers; the next chunk's global loads are issued into
-//    registers before the current chunk's products, and stored after them:
-//    one barrier per chunk.
-//  * The prologue runs in f32 on the loaded A vector of a pixel inside the
-//    image and rounds to x's dtype before the product, as the TPU kernel
-//    does; a halo pixel stays 0 (the network pads after the activation).
-//  * B6's statistics come from the f32 accumulators before y is rounded (as
-//    pallas_conv_bn.py:105-108): each block writes its tile's per-channel
-//    partials (a fixed-order sum over its warps), and a second launch sums
-//    the m tiles in order. No float atomics: the result is deterministic.
-//  * B8 takes any Cin and Cout: K is zero-padded to the chunk depth (16) and
-//    ragged channel and pixel counts are masked; no divisibility is asked.
+// The prologue runs in f32 on the loaded A vector of a pixel inside the
+// image and rounds to x's dtype before the product, as the TPU kernel does;
+// a halo pixel stays 0 (the network pads after the activation).
+// B6's statistics come from the f32 accumulators before y is rounded (as
+// pallas_conv_bn.py:105-108): each block writes its tile's per-channel
+// partials (a shuffle over a warp's rows, then a fixed-order sum over its
+// warps), and a second launch sums the pixel tiles in a fixed order. No
+// float atomics: the result is deterministic. B8 takes any Cin and Cout: K is
+// zero-padded to the chunk depth (16) and ragged channel and pixel counts
+// are masked; no divisibility is asked.
 #include "conv_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -249,6 +265,112 @@ tc_conv3x3(const Conv c) {
   }
 }
 
+// ================================================= bf16 on Hopper: wgmma
+
+// B6 without the prologue: see the note at the top. kWgNWG warpgroups, BM =
+// 192 pixels x 128 output channels; Cin % 64 == 0, Cout % 128 == 0.
+// xmap: x as (B*H*W, Cin) in boxes of BM pixels x 64 channels; wmap: w as
+// (9*Cin, Cout) in boxes of 64 rows x 64 channels.
+constexpr int kStages = 5;  // ring depth: 5 x 40 KB
+constexpr int kWgNWG = 3, kWgBM = 64 * kWgNWG;
+
+__global__ void __launch_bounds__(128 * kWgNWG, 1)
+wgmma_conv3x3(const Conv c, const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap) {
+  constexpr int NWG = kWgNWG, BM = kWgBM, NT = 128 * NWG, BN = 128;
+  constexpr int AS = BM * 8 / NT;  // A rows a thread checks per chunk
+  extern __shared__ __align__(1024) uint8_t dyn[];
+  const uint32_t raw = hopper::smem_addr(dyn), ring = (raw + 1023) & ~1023u;
+  float* red =
+      reinterpret_cast<float*>(dyn + (ring - raw) + hopper::ring_bytes<NWG, kStages>() - 1024);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+  // A's rows are this tile's BM pixels shifted by the tap; this thread
+  // checks chunk tid % 8 of rows tid / 8 + i NT / 8 for the halo
+  int ph[AS], pw[AS];
+  bool live[AS];
+  uint32_t aoff[AS];
+#pragma unroll
+  for (int i = 0; i < AS; ++i) {
+    const int row = tid / 8 + i * (NT / 8);
+    const Pixel p = make_pixel(m0 + row, c.m, c.h, c.w);
+    ph[i] = p.h;
+    pw[i] = p.w;
+    live[i] = p.live;
+    aoff[i] = hopper::b128_offset(row, tid % 8);
+  }
+  // K runs tap-minor: chunk it is tap it % 9 of input channels 64 (it / 9)
+  auto issue = [&](int it, uint32_t a, uint32_t b, uint32_t bar) {
+    const int tap = it % 9, c0 = (it / 9) * 64, k = tap * c.cin + c0;
+    hopper::mbar_arrive_expect_tx(bar, BM * 128 + hopper::kTileB);
+    hopper::tma_load_2d(a, xmap, c0, static_cast<int>(m0) + (tap / 3 - 1) * c.w + tap % 3 - 1,
+                        bar);
+    hopper::tma_load_2d(b, wmap, n0, k, bar);
+    hopper::tma_load_2d(b + 8192, wmap, n0 + 64, k, bar);
+  };
+  // the box read each row's pixel shifted in memory; where the shifted pixel
+  // lies outside the image (the halo), the row must read as 0
+  auto fixup = [&](int it, uint32_t a) {
+    const int dh = it % 9 / 3 - 1, dw = it % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < AS; ++i) {
+      const int hh = ph[i] + dh, ww = pw[i] + dw;
+      if (!(live[i] && hh >= 0 && hh < c.h && ww >= 0 && ww < c.w))
+        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(a + aoff[i]), "r"(0)
+                     : "memory");
+    }
+  };
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  hopper::ring_gemm<NWG, kStages, 0>(acc, ring, 9 * (c.cin / 64), issue, fixup);
+
+  // epilogue: this thread holds rows r0 and r0 + 8, columns 8 j + 2 (lane%4)
+  // (+1) of the block tile (hopper.cuh: wgmma_m64n128k16)
+  const long long r0 = m0 + warp * 16 + lane / 4;
+  const bool ok0 = r0 < c.m, ok1 = r0 + 8 < c.m;
+  bf16* y0 = static_cast<bf16*>(c.y) + r0 * c.cout + n0 + 2 * (lane % 4);
+  bf16* y1 = y0 + 8LL * c.cout;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float* v = acc + 4 * j;
+    if (ok0) *reinterpret_cast<uint32_t*>(y0 + 8 * j) = ks::pack(v[0], v[1]);
+    if (ok1) *reinterpret_cast<uint32_t*>(y1 + 8 * j) = ks::pack(v[2], v[3]);
+    float s[2], q[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = ok0 ? v[e] : 0.f, b = ok1 ? v[2 + e] : 0.f;
+      s[e] = a + b;
+      q[e] = fmaf(b, b, a * a);
+    }
+    // column sums over the warp's rows (lanes with one lane%4)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[e] += __shfl_xor_sync(0xffffffffu, s[e], off);
+        q[e] += __shfl_xor_sync(0xffffffffu, q[e], off);
+      }
+    if (lane < 4)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[(warp * 2) * BN + 8 * j + 2 * lane + e] = s[e];
+        red[(warp * 2 + 1) * BN + 8 * j + 2 * lane + e] = q[e];
+      }
+  }
+  __syncthreads();
+  // then over the block's warps in order
+  for (int t = tid; t < 2 * BN; t += NT) {
+    const int st = t / BN, col = t % BN;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < BM / 16; ++w) v += red[(w * 2 + st) * BN + col];
+    c.partials[(static_cast<long long>(blockIdx.x) * 2 + st) * c.cout + n0 + col] = v;
+  }
+}
+
 // ======================================================= f32: CUDA-core FMA
 
 constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16, kSimtThreads = 256;
@@ -344,30 +466,76 @@ simt_conv3x3(const Conv c) {
   }
 }
 
-// stats[s, n] = sum over m tiles t (in order) of partials[t, s, n]
-__global__ void stats_fold(const float* __restrict__ partials, float* __restrict__ stats,
-                           int tiles, int cout) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * cout) return;
-  const int s = i / cout, n = i % cout;
+// stats[c] = sum over pixel tiles t of partials[t, c], c over the 2 Cout
+// [sum y, sum y^2] columns, in a fixed order: kFoldGroups groups of tiles
+// (t = g mod kFoldGroups), each summed in order of t, then the group sums
+// in order of g. A block folds 32 columns; the groups put more loads in
+// flight than one thread walking every tile of a column would.
+constexpr int kFoldGroups = 8;
+
+__global__ void __launch_bounds__(32 * kFoldGroups)
+stats_fold(const float* __restrict__ partials, float* __restrict__ stats, int tiles, int cout) {
+  __shared__ float group[kFoldGroups][32];
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
   float v = 0.f;
-  for (int t = 0; t < tiles; ++t) v += partials[(static_cast<long long>(t) * 2 + s) * cout + n];
-  stats[i] = v;
+  if (c < 2 * cout) {
+#pragma unroll 4
+    for (int t = g; t < tiles; t += kFoldGroups)
+      v += partials[static_cast<long long>(t) * 2 * cout + c];
+  }
+  group[g][lane] = v;
+  __syncthreads();
+  if (g == 0 && c < 2 * cout) {
+    float r = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFoldGroups; ++i) r += group[i][lane];
+    stats[c] = r;
+  }
 }
 
-// B6 bf16 tiles: 128 pixels x 128 channels, 8 warps of 32 x 64
+// The kernels; the wrapper's plan (ops/conv_bn.py: conv3x3_plan) names one
+// of them for each call, and sizes B6's partials by its pixel tile.
+enum Kernel { kSimt = 0, kMmaSync = 1, kWgmma = 2 };
 constexpr int kTcBM = 128;
 
-int m_tile(bool bf16) { return bf16 ? kTcBM : kSimtBM; }
+// whether `kernel` computes this call: the one check of the plan
+bool takes(int kernel, bool bf16, bool stats_no_pro, int cin, int cout) {
+  switch (kernel) {
+    case kSimt: return !bf16;
+    case kMmaSync: return bf16;
+    case kWgmma: return bf16 && stats_no_pro && cin % 64 == 0 && cout % 128 == 0;
+    default: return false;
+  }
+}
+
+// output pixels a block of `kernel` owns (ops/conv_bn.py: PIXEL_TILE)
+int tile_of(int kernel) { return kernel == kSimt ? kSimtBM : kernel == kMmaSync ? kTcBM : kWgBM; }
 
 dim3 grid_of(const Conv& c, int bm, int bn) {
   return dim3(static_cast<unsigned>((c.m + bm - 1) / bm), (c.cout + bn - 1) / bn);
 }
 
+cudaError_t launch_wgmma(const Conv& c, cudaStream_t s) {
+  constexpr int bytes = hopper::ring_bytes<kWgNWG, kStages>() + (kWgBM / 16) * 2 * 128 * 4;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgmma_conv3x3, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap xmap, wmap;
+  if (hopper::encode_bf16_rows(&xmap, c.x, c.m, c.cin, kWgBM) ||
+      hopper::encode_bf16_rows(&wmap, c.wt, 9LL * c.cin, c.cout, 64))
+    return cudaErrorInvalidValue;
+  wgmma_conv3x3<<<grid_of(c, kWgBM, 128), 128 * kWgNWG, bytes, s>>>(c, xmap, wmap);
+  return cudaGetLastError();
+}
+
 template <int EPI, bool PRO>
-void launch(const Conv& c, bool is_bf16, cudaStream_t s) {
-  if (!is_bf16) {
+cudaError_t launch(const Conv& c, int kernel, cudaStream_t s) {
+  if (kernel == kSimt) {
     simt_conv3x3<EPI, PRO><<<grid_of(c, kSimtBM, kSimtBN), kSimtThreads, 0, s>>>(c);
+  } else if (kernel == kWgmma) {
+    if constexpr (EPI == kStats && !PRO) return launch_wgmma(c, s);
+    return cudaErrorInvalidValue;
   } else if constexpr (EPI == kStats) {
     tc_conv3x3<kTcBM, 128, 32, 4, 2, EPI, PRO><<<grid_of(c, kTcBM, 128), 256, 0, s>>>(c);
   } else if (c.cout <= 16) {  // B8: narrow N tiles, K in chunks of 16 channels
@@ -375,6 +543,7 @@ void launch(const Conv& c, bool is_bf16, cudaStream_t s) {
   } else {
     tc_conv3x3<kTcBM, 32, 16, 8, 1, EPI, false><<<grid_of(c, kTcBM, 32), 256, 0, s>>>(c);
   }
+  return cudaGetLastError();
 }
 
 Conv make_conv(const void* x, const void* w, void* y, long long m, int h, int w_, int cin,
@@ -396,46 +565,44 @@ Conv make_conv(const void* x, const void* w, void* y, long long m, int h, int w_
 
 }  // namespace
 
-// Rows of output pixels one block covers: the wrapper sizes B6's partials
-// (ceil(B*H*W / m_tile), 2, Cout) with it.
-extern "C" int ks_conv3x3_m_tile(int is_bf16) { return m_tile(is_bf16 != 0); }
-
 // B6. x (B, H, W, Cin) and w (9*Cin, Cout), both f32 or both bf16,
-// contiguous; scale, bias (Cin,) f32 or both null (no prologue); y (B, H, W,
-// Cout) in x's dtype; partials (ceil(m / m_tile), 2, Cout) f32 scratch;
-// stats (2, Cout) f32. m = B*H*W.
+// contiguous and 16-byte aligned; scale, bias (Cin,) f32 or both null (no
+// prologue); y (B, H, W, Cout) in x's dtype; partials (ceil(m / tile), 2,
+// Cout) f32 scratch, tile the kernel's pixel tile (tile_of); stats (2, Cout)
+// f32. m = B*H*W. kernel (Kernel) from the wrapper's plan;
+// cudaErrorInvalidValue, and nothing launched, when it does not take the
+// call.
 extern "C" int ks_conv3x3_bn_stats(const void* x, const void* w, const void* scale,
                                    const void* bias, void* y, void* partials, void* stats,
                                    long long m, int h, int w_, int cin, int cout, int is_bf16,
-                                   void* stream) {
+                                   int kernel, void* stream) {
+  if (!takes(kernel, is_bf16 != 0, scale == nullptr, cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   Conv c = make_conv(x, w, y, m, h, w_, cin, cout, is_bf16 != 0);
   c.pscale = static_cast<const float*>(scale);
   c.pbias = static_cast<const float*>(bias);
   c.partials = static_cast<float*>(partials);
-  if (scale != nullptr) {
-    launch<kStats, true>(c, is_bf16 != 0, s);
-  } else {
-    launch<kStats, false>(c, is_bf16 != 0, s);
-  }
-  const int tiles = static_cast<int>((m + m_tile(is_bf16 != 0) - 1) / m_tile(is_bf16 != 0));
-  stats_fold<<<(2 * cout + 255) / 256, 256, 0, s>>>(c.partials, static_cast<float*>(stats),
-                                                    tiles, cout);
+  const cudaError_t err = scale != nullptr ? launch<kStats, true>(c, kernel, s)
+                                           : launch<kStats, false>(c, kernel, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = static_cast<int>((m + tile_of(kernel) - 1) / tile_of(kernel));
+  stats_fold<<<(2 * cout + 31) / 32, 32 * kFoldGroups, 0, s>>>(
+      c.partials, static_cast<float*>(stats), tiles, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B8. x (B, H, W, Cin) and w (9*Cin, Cout), both f32 or both bf16,
-// contiguous; bias (Cout,) f32; y (B, H, W, Cout) in x's dtype.
+// contiguous; bias (Cout,) f32; y (B, H, W, Cout) in x's dtype; kernel as
+// for B6 (simt or mma_sync).
 extern "C" int ks_conv3x3_bias_act(const void* x, const void* w, const void* bias, void* y,
                                    long long m, int h, int w_, int cin, int cout, int relu,
-                                   int is_bf16, void* stream) {
+                                   int is_bf16, int kernel, void* stream) {
+  if (!takes(kernel, is_bf16 != 0, false, cin, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   Conv c = make_conv(x, w, y, m, h, w_, cin, cout, is_bf16 != 0);
   c.bias = static_cast<const float*>(bias);
-  if (relu) {
-    launch<kBiasRelu, false>(c, is_bf16 != 0, s);
-  } else {
-    launch<kBias, false>(c, is_bf16 != 0, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(relu ? launch<kBiasRelu, false>(c, kernel, s)
+                               : launch<kBias, false>(c, kernel, s));
 }

@@ -1,7 +1,8 @@
 // B7: weight gradient of a 3x3 SAME stride-1 convolution on NHWC,
 //   dW[tap][ci][co] = sum over pixels p of x[p shifted by tap][ci] * dy[p][co],
 // (3, 3, Cin, Cout) f32. Replaces the TPU kernel
-// kurosiwo_tpu/ops/pallas_dw.py::_dw_kernel (conv3x3_dw, launched at :105).
+// kurosiwo_tpu/ops/pallas_dw.py::_dw_kernel (:48; conv3x3_dw, launched at
+// :105).
 //
 // GEMM per tap: M = Cin, N = Cout, K = B*H*W pixels (100,352 at the UNet's
 // 28x28 level, batch 128). The TPU kernel pads x and dy into one flat
@@ -11,20 +12,33 @@
 // pixels of its slice and the x pixels shifted by the tap, masking those
 // outside the image to 0 (no padded copies). Without a split of K there would
 // be only 9 x (Cin/128) x (Cout/128) blocks for the card's 132 SMs, so K is
-// cut into slices (about two blocks per SM in all), each slice writes f32
-// partials, and a second launch sums the slices in order: deterministic, no
-// float atomics.
+// cut into slices (ops/conv_dw.py: conv3x3_dw_plan picks how many, from the
+// waves of blocks over the SMs against the partials' traffic), each slice
+// writes f32 partials, and a second launch sums the slices in order:
+// deterministic, no float atomics.
 //
 // Bound on an H100: 2 * 9 * Cin * Cout * K operations (29.6 GFLOP at 128 ->
 // 128, 88.8 at 384 -> 128) over 51-103 MB: operations (989 TFLOP/s bf16).
 //
-// Design: bf16 on tensor cores (mma.sync m16n8k16, f32 accumulators); both
-// operands are stored pixel-major in shared memory ([BK][BM+8] x rows and
-// [BK][BN+8] dy rows, as they arrive from global memory), so A fragments come
-// from ldmatrix.x4.trans and B fragments from ldmatrix.x4.trans. f32 on
-// CUDA-core FMA (64x64 tiles, 4x4 per thread). Two shared-memory buffers
-// with the next slice chunk's loads in registers during the products.
+// Design:
+//  * bf16: wgmma_conv_dw, Hopper's warpgroup products. Two warpgroups own
+//    64 input channels each of a 128 x 128 (Cin x Cout) tile and issue
+//    wgmma m64n128k16 on both operands as they lie in memory: pixel rows of
+//    x (shifted) and of dy, Cin or Cout along the row, i.e. MN-major
+//    128-byte-swizzled tiles, read through the descriptors' transpose bits.
+//    They arrive by TMA (hopper.cuh: ring_gemm) through a ring of 5 stages,
+//    three chunks of 64 pixels ahead, completion counted on one mbarrier a
+//    stage: one barrier per chunk, no per-thread address arithmetic or
+//    register staging, at most one wgmma group in flight. Pixels past
+//    B*H*W and channels past Cin or Cout read as 0 (so any Cin and Cout
+//    that are multiples of 8 run on it); x rows whose shifted pixel left
+//    the image are zeroed in shared memory before the product, each thread
+//    walking its rows' (h, w) from chunk to chunk without a division.
+//  * f32: simt_conv_dw, CUDA-core FMA (64x64 tiles, 4x4 per thread, two
+//    shared buffers with the next chunk's loads in registers), so f32
+//    results match the CPU's f32 with TF32 off.
 #include "conv_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -38,9 +52,8 @@ struct Dw {
   bool x_vec, dy_vec;
 };
 
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 32, kTcWM = 4, kTcWN = 2;
 constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16, kSimtThreads = 256;
-constexpr int kTargetBlocks = 2 * 132;  // about two blocks on each of the H100's SMs
+constexpr int kWgBM = 128, kWgBN = 128, kWgBK = 64;  // wgmma tile: Cin x Cout x pixels a chunk
 
 struct Tile {
   int tap, ci0, co0;
@@ -80,110 +93,75 @@ __device__ __forceinline__ float* partial_row(const Dw& d, int tap, int ci) {
   return d.partials + ((static_cast<long long>(blockIdx.x) * 9 + tap) * d.cin + ci) * d.cout;
 }
 
-// ======================================================= bf16: tensor cores
+// ================================================= bf16 on Hopper: wgmma
 
-// Two blocks per SM (at most 128 registers a thread, 8 bytes spill) hide
-// more of a chunk's load latency than one block of 167.
-__global__ void __launch_bounds__(32 * kTcWM * kTcWN, 2)
-tc_conv_dw(const Dw d) {
-  constexpr int BM = kTcBM, BN = kTcBN, BK = kTcBK, WM = kTcWM, WN = kTcWN;
-  constexpr int NT = 32 * WM * WN;
-  constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
-  constexpr int LDA = BM + 8, LDB = BN + 8;
-  constexpr int AS = BK * BM / 8 / NT, BS = BK * BN / 8 / NT;  // 16-byte vectors per thread
-  static_assert(BK * BM / 8 % NT == 0 && BK * BN / 8 % NT == 0 && NI % 2 == 0, "tile shape");
-  __shared__ __align__(16) bf16 xs[2][BK * LDA];  // row k = pixel, Cin along the row
-  __shared__ __align__(16) bf16 ds[2][BK * LDB];  // row k = pixel, Cout along the row
+// xmap, dymap: x as (B*H*W, Cin) and dy as (B*H*W, Cout) in boxes of 64
+// pixels x 64 channels.
+constexpr int kStages = 5;  // ring depth: 5 x 32 KB
 
+__global__ void __launch_bounds__(256, 1)
+wgmma_conv_dw(const Dw d, const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap dymap) {
+  extern __shared__ __align__(1024) uint8_t dyn[];
+  const uint32_t ring = (hopper::smem_addr(dyn) + 1023) & ~1023u;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Tile t = tile_of(d, BM, BN);
-  const int wm0 = (warp % WM) * (BM / WM), wn0 = (warp / WM) * (BN / WN);
-  const int iters = t.k1 > t.k0 ? static_cast<int>((t.k1 - t.k0 + BK - 1) / BK) : 0;
-  uint4 ra[AS], rb[BS];
-  // each load slot's x pixel, walked BK pixels on per chunk (no division)
-  Pixel px[AS];
+  const Tile t = tile_of(d, kWgBM, kWgBN);
+  const int chunks = t.k1 > t.k0 ? static_cast<int>((t.k1 - t.k0 + kWgBK - 1) / kWgBK) : 0;
+  const int dh = t.tap / 3 - 1, dw = t.tap % 3 - 1;
+  // A (x shifted) and B (dy): 64 pixel rows of 16 chunks (two 64-column
+  // blocks). This thread checks chunk tid % 16 of A's rows tid / 16 + 16 i
+  // for the halo, walking those pixels' (h, w) from chunk to chunk.
+  Pixel px[4];
+  uint32_t off[4];
 #pragma unroll
-  for (int i = 0; i < AS; ++i)
-    px[i] = make_pixel(t.k0 + (tid + i * NT) / (BM / 8), t.k1, d.h, d.w);
-  auto fetch = [&](int it) {
-    const long long k0 = t.k0 + static_cast<long long>(it) * BK;
+  for (int i = 0; i < 4; ++i) {
+    const int r = tid / 16 + 16 * i;
+    px[i] = make_pixel(t.k0 + r, t.k1, d.h, d.w);
+    off[i] = (tid % 16 / 8) * 8192 + hopper::b128_offset(r, tid % 8);
+  }
+  // slices are whole chunks, so a box never reaches into the next slice;
+  // rows past B*H*W and channels past Cin or Cout read as 0
+  auto issue = [&](int it, uint32_t a, uint32_t b, uint32_t bar) {
+    const int k = static_cast<int>(t.k0) + it * kWgBK, xk = k + dh * d.w + dw;
+    hopper::mbar_arrive_expect_tx(bar, 2 * hopper::kTileB);
+    hopper::tma_load_2d(a, xmap, t.ci0, xk, bar);
+    hopper::tma_load_2d(a + 8192, xmap, t.ci0 + 64, xk, bar);
+    hopper::tma_load_2d(b, dymap, t.co0, k, bar);
+    hopper::tma_load_2d(b + 8192, dymap, t.co0 + 64, k, bar);
+  };
+  // where a row's shifted pixel lies outside the image, its x row reads as 0
+  auto fixup = [&](int, uint32_t a) {
 #pragma unroll
-    for (int i = 0; i < AS; ++i) {
-      const int v = tid + i * NT;
-      ra[i] = load_x<bf16>(d, t, px[i], t.ci0 + (v % (BM / 8)) * 8);
-      advance(px[i], BK, t.k1, d.h, d.w);
-    }
-#pragma unroll
-    for (int i = 0; i < BS; ++i) {
-      const int v = tid + i * NT;
-      rb[i] = load_dy<bf16>(d, t, k0 + v / (BN / 8), t.co0 + (v % (BN / 8)) * 8);
+    for (int i = 0; i < 4; ++i) {
+      Pixel& p = px[i];
+      const int hh = p.h + dh, ww = p.w + dw;
+      if (!(p.live && hh >= 0 && hh < d.h && ww >= 0 && ww < d.w))
+        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(a + off[i]), "r"(0)
+                     : "memory");
+      advance(p, kWgBK, t.k1, d.h, d.w);
     }
   };
-  auto stash = [&](int buf) {
+  float acc[64];
 #pragma unroll
-    for (int i = 0; i < AS; ++i) {
-      const int v = tid + i * NT;
-      *reinterpret_cast<uint4*>(&xs[buf][(v / (BM / 8)) * LDA + (v % (BM / 8)) * 8]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < BS; ++i) {
-      const int v = tid + i * NT;
-      *reinterpret_cast<uint4*>(&ds[buf][(v / (BN / 8)) * LDB + (v % (BN / 8)) * 8]) = rb[i];
-    }
-  };
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  hopper::ring_gemm<2, kStages, 1>(acc, ring, chunks, issue, fixup);
 
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  if (iters > 0) {
-    fetch(0);
-    stash(0);
-  }
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < iters) fetch(it + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) ks::load_a_trans(a[i], xs[buf], LDA, 16 * kk, wm0 + 16 * i);
-#pragma unroll
-      for (int j = 0; j < NI / 2; ++j) {
-        uint32_t b[4];
-        ks::load_b_trans(b, ds[buf], LDB, 16 * kk, wn0 + 16 * j);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          ks::mma(acc[i][2 * j], a[i], b[0], b[1]);
-          ks::mma(acc[i][2 * j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    if (it + 1 < iters) stash(buf ^ 1);
-    __syncthreads();
-  }
-
-  // C fragment element e of tile (i, j): Cin row 16 i + lane/4 + 8 (e/2),
-  // Cout column 8 j + 2 (lane%4) + e%2 of the warp tile. Cin and Cout are
+  // this thread holds Cin rows r0 and r0 + 8, Cout columns 8 j + 2 (lane%4)
+  // (+1) of the tile (hopper.cuh: wgmma_m64n128k16). Cin and Cout are
   // multiples of 8, so a column pair is in or out as a whole.
+  const int r0 = t.ci0 + warp * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= d.cin) continue;
+    float* row = partial_row(d, t.tap, r0 + 8 * h);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ci = t.ci0 + wm0 + 16 * i + lane / 4 + 8 * half;
-      if (ci >= d.cin) continue;
-      float* row = partial_row(d, t.tap, ci);
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int co = t.co0 + wn0 + 8 * j + 2 * (lane % 4);
-        if (co < d.cout)
-          *reinterpret_cast<float2*>(row + co) =
-              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int col = t.co0 + 8 * j + 2 * (lane % 4);
+      if (col < d.cout)
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
+  }
 }
 
 // ======================================================= f32: CUDA-core FMA
@@ -263,65 +241,60 @@ __global__ void dw_fold(const float* __restrict__ partials, float* __restrict__ 
   out[i] = v;
 }
 
-struct Plan {
-  int bm, bn, bk, mtiles, splits;
-  long long chunk;
-};
-
-Plan plan(long long p, int cin, int cout, bool is_bf16) {
-  Plan pl;
-  pl.bm = is_bf16 ? kTcBM : kSimtBM;
-  pl.bn = is_bf16 ? kTcBN : kSimtBN;
-  pl.bk = is_bf16 ? kTcBK : kSimtBK;
-  pl.mtiles = (cin + pl.bm - 1) / pl.bm;
-  const int tiles = 9 * pl.mtiles * ((cout + pl.bn - 1) / pl.bn);
-  const long long most = (p + 4 * pl.bk - 1) / (4 * pl.bk);  // at least 4 chunks a slice
-  long long splits = (kTargetBlocks + tiles - 1) / tiles;
-  if (splits > most) splits = most;
-  if (splits < 1) splits = 1;
-  pl.chunk = ((p + splits - 1) / splits + pl.bk - 1) / pl.bk * pl.bk;
-  pl.splits = static_cast<int>(splits);
-  return pl;
-}
+// the kernels; the wrapper's plan (ops/conv_dw.py: conv3x3_dw_plan) names
+// one of them for each call, with its K split
+enum Kernel { kSimt = 0, kWgmma = 1 };
 
 }  // namespace
 
-// K slices of a call: the wrapper sizes the partials (splits, 9, Cin, Cout) f32.
-extern "C" int ks_conv_dw_splits(long long p, int cin, int cout, int is_bf16) {
-  return plan(p, cin, cout, is_bf16 != 0).splits;
-}
-
-// x (B, H, W, Cin) and dy (B, H, W, Cout), both f32 or both bf16, contiguous,
-// Cin and Cout multiples of 8; partials (splits, 9, Cin, Cout) f32 scratch;
-// out (3, 3, Cin, Cout) f32. p = B*H*W.
+// x (B, H, W, Cin) and dy (B, H, W, Cout), both f32 or both bf16, contiguous
+// and 16-byte aligned, Cin and Cout multiples of 8; partials (splits, 9, Cin,
+// Cout) f32 scratch; out (3, 3, Cin, Cout) f32. p = B*H*W. kernel (Kernel),
+// splits and slice (pixels a block sums) from the wrapper's plan: the one
+// check of the plan is here. bf16 takes kWgmma and f32 kSimt, and slice is
+// a multiple of the kernel's chunk (64 for bf16, 16 for f32) with splits *
+// slice >= p; cudaErrorInvalidValue, and nothing launched, otherwise.
 extern "C" int ks_conv3x3_dw(const void* x, const void* dy, void* partials, void* out,
                              long long p, int h, int w, int cin, int cout, int is_bf16,
-                             void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
+                             int kernel, int splits, long long slice, void* stream) {
   const bool bf = is_bf16 != 0;
-  const Plan pl = plan(p, cin, cout, bf);
+  const int bm = bf ? kWgBM : kSimtBM, bn = bf ? kWgBN : kSimtBN, bk = bf ? kWgBK : kSimtBK;
+  if (kernel != (bf ? kWgmma : kSimt) || splits < 1 || slice < bk || slice % bk ||
+      splits * slice < p)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
   const int v = bf ? 8 : 4;
   Dw d{};
   d.x = x;
   d.dy = dy;
   d.partials = static_cast<float*>(partials);
   d.p = p;
-  d.chunk = pl.chunk;
+  d.chunk = slice;
   d.h = h;
   d.w = w;
   d.cin = cin;
   d.cout = cout;
-  d.mtiles = pl.mtiles;
+  d.mtiles = (cin + bm - 1) / bm;
   d.x_vec = cin % v == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   d.dy_vec = cout % v == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  const dim3 grid(pl.splits, 9 * pl.mtiles * ((cout + pl.bn - 1) / pl.bn));
+  const dim3 grid(splits, 9 * d.mtiles * ((cout + bn - 1) / bn));
   if (bf) {
-    tc_conv_dw<<<grid, 32 * kTcWM * kTcWN, 0, s>>>(d);
+    constexpr int bytes = hopper::ring_bytes<2, kStages>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        wgmma_conv_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    CUtensorMap xmap, dymap;
+    if (hopper::encode_bf16_rows(&xmap, x, p, cin, 64) ||
+        hopper::encode_bf16_rows(&dymap, dy, p, cout, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    wgmma_conv_dw<<<grid, 256, bytes, s>>>(d, xmap, dymap);
   } else {
     simt_conv_dw<<<grid, kSimtThreads, 0, s>>>(d);
   }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = 9LL * cin * cout;
   dw_fold<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      d.partials, static_cast<float*>(out), n, pl.splits);
+      d.partials, static_cast<float*>(out), n, splits);
   return static_cast<int>(cudaGetLastError());
 }

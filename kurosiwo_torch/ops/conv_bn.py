@@ -13,13 +13,16 @@ dtype.
 
 Layouts are the JAX package's: x (B, H, W, Cin) NHWC, w (3, 3, Cin, Cout)
 HWIO. The wrapper takes the plain version for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises. ``conv3x3_bn_stats.launches``
-counts kernel wrapper calls.
+tensor it launches the kernel that ``conv3x3_plan`` names for the call's
+dtype and shape, or raises. ``conv3x3_bn_stats.launches`` counts kernel
+wrapper calls, ``conv3x3_bn_stats.kernel_launches`` them by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -89,16 +92,54 @@ def check_cuda(what: str, dtype: torch.dtype, device: torch.device,
                              f"{t.stride()}")
 
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# the kernels of csrc/conv3x3.cu, by their Kernel number there
+CONV3X3_KERNELS = {"simt": 0, "mma_sync": 1, "wgmma": 2}
+# output pixels a block of each kernel owns (csrc/conv3x3.cu: tile_of)
+PIXEL_TILE = {"simt": 64, "mma_sync": 128, "wgmma": 192}
+
+
+class ConvPlan(NamedTuple):
+    kernel: str   # a key of CONV3X3_KERNELS
+    tiles: int    # pixel tiles of PIXEL_TILE[kernel]: B6's partials are (tiles, 2, Cout)
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan(dtype: torch.dtype, m: int, cin: int, cout: int,
+                 epilogue: str = "stats") -> ConvPlan:
+    """The csrc/conv3x3.cu kernel of one call over m = B*H*W output pixels;
+    ``epilogue`` is "stats" (B6), "prologue" (B6 with its relu(scale*x +
+    bias) prologue) or "bias" (B8). f32 takes the CUDA-core kernel; bf16 B6
+    without the prologue at Cin % 64 == 0 and Cout % 128 == 0 (every routed
+    call) the wgmma kernel; the rest of bf16 the mma.sync kernel. The
+    kernel refuses a call it does not take (the wrapper raises)."""
+    if epilogue not in ("stats", "prologue", "bias"):
+        raise ValueError(f"conv3x3_plan: unknown epilogue {epilogue!r}")
+    if dtype == torch.float32:
+        kernel = "simt"
+    elif epilogue == "stats" and cin % 64 == 0 and cout % 128 == 0:
+        kernel = "wgmma"
+    else:
+        kernel = "mma_sync"
+    return ConvPlan(kernel, -(-m // PIXEL_TILE[kernel]))
+
+
+def check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the wgmma
+    kernels copy 16 bytes at a time)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs 16-byte aligned tensors; {name} is not")
+
+
 def lib():
     """``csrc/conv3x3.cu`` (B6 and B8), its argument types set once."""
     lib = kernels.library("conv3x3")
     if lib.ks_conv3x3_bn_stats.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ks_conv3x3_m_tile.argtypes = [i]
-        lib.ks_conv3x3_m_tile.restype = i
-        lib.ks_conv3x3_bn_stats.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, p]
+        lib.ks_conv3x3_bn_stats.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
         lib.ks_conv3x3_bn_stats.restype = i
-        lib.ks_conv3x3_bias_act.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p]
+        lib.ks_conv3x3_bias_act.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, p]
         lib.ks_conv3x3_bias_act.restype = i
     return lib
 
@@ -114,30 +155,42 @@ def conv3x3_bn_stats(x, w, scale=None, bias=None):
         raise ValueError("conv3x3_bn_stats: give both prologue scale and bias, or neither")
     if x.device.type == "cpu":
         return conv3x3_bn_stats_plain(x, w, scale, bias)
+    b, h, wd, cin = x.shape
+    plan = conv3x3_plan(x.dtype, b * h * wd, cin, w.shape[-1],
+                        "stats" if scale is None else "prologue")
+    return launch_bn_stats(plan, x, w, scale, bias)
+
+
+def launch_bn_stats(plan: ConvPlan, x, w, scale=None, bias=None):
+    """``conv3x3_bn_stats`` on the card through ``plan``'s kernel; raises
+    when that kernel does not take the call (csrc/conv3x3.cu refuses it
+    before any launch)."""
     check_cuda("conv3x3_bn_stats", x.dtype, x.device, x=x, w=w)
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
+    if plan.kernel == "wgmma":
+        check_aligned("conv3x3_bn_stats", x=x, w=w)
     if scale is not None:
         if scale.shape != (cin,) or bias.shape != (cin,):
             raise ValueError(f"conv3x3_bn_stats: prologue scale and bias must be ({cin},)")
         check_cuda("conv3x3_bn_stats prologue", torch.float32, x.device, scale=scale, bias=bias)
-    m = b * h * wd
     k = lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    tiles = -(-m // k.ks_conv3x3_m_tile(bf16))
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    partials = torch.empty((tiles, 2, cout), dtype=torch.float32, device=x.device)
+    partials = torch.empty((plan.tiles, 2, cout), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     err = k.ks_conv3x3_bn_stats(
         x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(), partials.data_ptr(),
-        stats.data_ptr(), m, h, wd, cin, cout, bf16, kernels.stream_ptr(x))
-    kernels.check(k, err, "conv3x3_bn_stats launch")
+        stats.data_ptr(), b * h * wd, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
+        CONV3X3_KERNELS[plan.kernel], kernels.stream_ptr(x))
+    kernels.check(k, err, f"conv3x3_bn_stats {plan.kernel} launch")
     conv3x3_bn_stats.launches += 1
+    conv3x3_bn_stats.kernel_launches[plan.kernel] += 1
     return y, stats
 
 
 conv3x3_bn_stats.launches = 0
+conv3x3_bn_stats.kernel_launches = dict.fromkeys(CONV3X3_KERNELS, 0)
 
 
 def conv_backward(x, w, dy, needs_x: bool, needs_w: bool):

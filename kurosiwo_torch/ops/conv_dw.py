@@ -14,19 +14,22 @@ kernel tiles on its own.
 
 Layouts: x (B, H, W, Cin), dy (B, H, W, Cout), w (3, 3, Cin, Cout). The
 wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises. ``conv3x3_dw.launches`` counts kernel wrapper
-calls.
+launches the kernel that ``conv3x3_dw_plan`` names for the call's dtype and
+shape, or raises. ``conv3x3_dw.launches`` counts kernel wrapper calls,
+``conv3x3_dw.kernel_launches`` them by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .conv_bn import check_cuda, conv_backward, taps
+from .conv_bn import SMS, check_aligned, check_cuda, conv_backward, taps
 
 
 def _round_up(v: int, m: int) -> int:
@@ -60,13 +63,55 @@ def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# the kernels of csrc/conv_dw.cu, by their Kernel number there
+DW_KERNELS = {"simt": 0, "wgmma": 1}
+
+
+class DwPlan(NamedTuple):
+    kernel: str   # a key of DW_KERNELS: "wgmma" (bf16) or "simt" (f32)
+    step: int     # pixels a K chunk takes
+    splits: int   # K slices: the partials are (splits, 9, Cin, Cout) f32
+    slice: int    # pixels a block sums: a multiple of step, splits * slice >= B*H*W
+    tiles: int    # blocks of one slice (the grid is splits x tiles)
+
+
+def _simt_splits(p: int, tiles: int) -> int:
+    # about two blocks on each SM, at least 4 chunks of 16 pixels a slice
+    return max(1, min(-(-2 * SMS // tiles), -(-p // 64)))
+
+
+def _wgmma_splits(p: int, tiles: int, cin: int, cout: int) -> int:
+    # One block per SM (a 160 KB ring): the fewest chunk steps on the
+    # busiest SM, the waves of blocks times the chunks of a slice, plus the
+    # partials each split adds (9 Cin Cout f32 written and read) at 2 MB of
+    # device memory traffic per chunk step (a 128 x 128 x 64 chunk takes
+    # about 0.63 us on an H100, and 3.35 TB/s moves 2.1 MB in that time);
+    # at least 4 chunks a slice, so the ring fills.
+    def cost(s: int) -> float:
+        chunks = -(-p // (64 * s))
+        return -(-tiles * s // SMS) * chunks + s * 9 * cin * cout * 8 / 2e6
+    return min(range(1, max(1, p // 256) + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_dw_plan(dtype: torch.dtype, p: int, cin: int, cout: int) -> DwPlan:
+    """The csrc/conv_dw.cu kernel and its K split for p = B*H*W pixels:
+    bf16 takes the wgmma kernel (one tap's 128 x 128 Cin x Cout a block,
+    64-pixel chunks), f32 the CUDA-core kernel (64 x 64, 16). Cached: a
+    train step asks for the same few shapes every step."""
+    tile, kernel, step = (128, "wgmma", 64) if dtype == torch.bfloat16 else (64, "simt", 16)
+    tiles = 9 * -(-cin // tile) * -(-cout // tile)
+    splits = (_wgmma_splits(p, tiles, cin, cout) if kernel == "wgmma"
+              else _simt_splits(p, tiles))
+    slice_ = -(-p // splits)
+    return DwPlan(kernel, step, splits, -(-slice_ // step) * step, tiles)
+
+
 def _lib():
     lib = kernels.library("conv_dw")
     if lib.ks_conv3x3_dw.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ks_conv_dw_splits.argtypes = [ll, i, i, i]
-        lib.ks_conv_dw_splits.restype = i
-        lib.ks_conv3x3_dw.argtypes = [p, p, p, p, ll, i, i, i, i, i, p]
+        lib.ks_conv3x3_dw.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, ll, p]
         lib.ks_conv3x3_dw.restype = i
     return lib
 
@@ -83,25 +128,36 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError("conv3x3_dw: empty input")
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, dy)
+    b, h, w, cin = x.shape
+    return launch_dw(conv3x3_dw_plan(x.dtype, b * h * w, cin, dy.shape[-1]), x, dy)
+
+
+def launch_dw(plan: DwPlan, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``conv3x3_dw`` on the card through ``plan``; raises when its kernel
+    or split does not take the call (csrc/conv_dw.cu refuses it before any
+    launch)."""
     check_cuda("conv3x3_dw", x.dtype, x.device, x=x, dy=dy)
     b, h, w, cin = x.shape
     cout = dy.shape[-1]
     if cin % 8 or cout % 8:
         raise ValueError(f"conv3x3_dw kernel needs Cin and Cout multiples of 8, got {cin}, {cout}")
     p = b * h * w
+    if plan.kernel == "wgmma":
+        check_aligned("conv3x3_dw", x=x, dy=dy)
     k = _lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    splits = k.ks_conv_dw_splits(p, cin, cout, bf16)
-    partials = torch.empty((splits, 9, cin, cout), dtype=torch.float32, device=x.device)
+    partials = torch.empty((plan.splits, 9, cin, cout), dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     err = k.ks_conv3x3_dw(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                          p, h, w, cin, cout, bf16, kernels.stream_ptr(x))
-    kernels.check(k, err, "conv3x3_dw launch")
+                          p, h, w, cin, cout, int(x.dtype == torch.bfloat16),
+                          DW_KERNELS[plan.kernel], plan.splits, plan.slice, kernels.stream_ptr(x))
+    kernels.check(k, err, f"conv3x3_dw {plan.kernel} launch")
     conv3x3_dw.launches += 1
+    conv3x3_dw.kernel_launches[plan.kernel] += 1
     return out
 
 
 conv3x3_dw.launches = 0
+conv3x3_dw.kernel_launches = dict.fromkeys(DW_KERNELS, 0)
 
 
 def conv_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .conv_bn import check_conv3x3, check_cuda, conv3x3_plain_f32, lib
+from .conv_bn import (CONV3X3_KERNELS, check_conv3x3, check_cuda, conv3x3_plain_f32,
+                      conv3x3_plan, lib)
 
 
 def conv3x3_fused_plain(x, w, b, relu: bool = True):
@@ -41,11 +42,13 @@ def conv3x3_fused(x, w, b, relu: bool = True):
     bias = b.float().contiguous()
     check_cuda("conv3x3_fused", torch.float32, x.device, b=bias)
     bsz, h, wd, cin = x.shape
+    plan = conv3x3_plan(x.dtype, bsz * h * wd, cin, cout, "bias")
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     k = lib()
     err = k.ks_conv3x3_bias_act(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
                                 bsz * h * wd, h, wd, cin, cout, int(relu),
-                                int(x.dtype == torch.bfloat16), kernels.stream_ptr(x))
+                                int(x.dtype == torch.bfloat16), CONV3X3_KERNELS[plan.kernel],
+                                kernels.stream_ptr(x))
     kernels.check(k, err, "conv3x3_fused launch")
     conv3x3_fused.launches += 1
     return y

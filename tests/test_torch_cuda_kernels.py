@@ -314,6 +314,9 @@ def test_conv3x3_bn_stats_kernel_matches_plain(dev, shape, cout, prologue, dtype
         sb = (torch.rand(shape[-1], device=dev, generator=g) + 0.5,
               0.1 * torch.randn(shape[-1], device=dev, generator=g))
     n0 = conv_bn.conv3x3_bn_stats.launches
+    plan = conv_bn.conv3x3_plan(dtype, shape[0] * shape[1] * shape[2], shape[-1], cout,
+                                "prologue" if prologue else "stats")
+    k0 = conv_bn.conv3x3_bn_stats.kernel_launches[plan.kernel]
     y, st = conv_bn.conv3x3_bn_stats(x, w, *(sb or ()))
     want_y, want_st = conv_bn.conv3x3_bn_stats_plain(x, w, *(sb or ()))
     assert y.dtype == dtype and y.shape == (*shape[:3], cout) and st.shape == (2, cout)
@@ -327,6 +330,7 @@ def test_conv3x3_bn_stats_kernel_matches_plain(dev, shape, cout, prologue, dtype
     y2, st2 = conv_bn.conv3x3_bn_stats(x, w, *(sb or ()))
     assert torch.equal(y, y2) and torch.equal(st, st2)  # deterministic
     assert conv_bn.conv3x3_bn_stats.launches == n0 + 2
+    assert conv_bn.conv3x3_bn_stats.kernel_launches[plan.kernel] == k0 + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -339,12 +343,91 @@ def test_conv3x3_dw_kernel_matches_plain(dev, shape, cout, dtype):
     x = torch.randn(shape, device=dev, generator=g).to(dtype)
     dy = torch.randn((*shape[:3], cout), device=dev, generator=g).to(dtype)
     n0 = conv_dw.conv3x3_dw.launches
+    kernel = "wgmma" if dtype == torch.bfloat16 else "simt"
+    k0 = conv_dw.conv3x3_dw.kernel_launches[kernel]
     got = conv_dw.conv3x3_dw(x, dy)
     want = conv_dw.conv3x3_dw_plain(x, dy)
     assert got.dtype == torch.float32 and got.shape == (3, 3, shape[-1], cout)
     conv_band(got, want, conv_dw.conv3x3_dw_plain(x.abs(), dy.abs()), False)
     assert torch.equal(got, conv_dw.conv3x3_dw(x, dy))  # deterministic
     assert conv_dw.conv3x3_dw.launches == n0 + 2
+    assert conv_dw.conv3x3_dw.kernel_launches[kernel] == k0 + 2
+
+
+# B6's and B7's wgmma kernels at a routed shape of the b128 step, at a ragged
+# shape (pixels that fill no tile, a halo on every side) and at Cin 64 (one
+# K chunk a tap), all in 192-pixel tiles
+@pytest.mark.parametrize("shape,cout", [((128, 7, 7, 512), 512), ((48, 14, 14, 256), 256),
+                                        ((3, 7, 7, 256), 256), ((2, 9, 11, 64), 128)])
+def test_wgmma_conv3x3_bn_stats_matches_plain(dev, shape, cout):
+    from kurosiwo_torch.ops import conv_bn
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    b, h, w, cin = shape
+    assert conv_bn.conv3x3_plan(torch.bfloat16, b * h * w, cin, cout).kernel == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(cin + cout + b)
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    wt = (torch.randn((3, 3, cin, cout), device=dev, generator=g) / (3 * cin**0.5)).to(
+        torch.bfloat16)
+    k0 = conv_bn.conv3x3_bn_stats.kernel_launches["wgmma"]
+    y, st = conv_bn.conv3x3_bn_stats(x, wt)
+    y2, st2 = conv_bn.conv3x3_bn_stats(x, wt)
+    assert conv_bn.conv3x3_bn_stats.kernel_launches["wgmma"] == k0 + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    want_y, want_st = conv_bn.conv3x3_bn_stats_plain(x, wt)
+    scale = conv3x3_plain_f32(x.abs(), wt.abs())
+    conv_band(y, want_y, scale, True)
+    s = scale.reshape(-1, cout)
+    conv_band(st, want_st, torch.stack([s.sum(0), 2 * (want_y.float().abs().reshape(-1, cout)
+                                                       * s).sum(0)]), False)
+
+
+@pytest.mark.parametrize("shape,cout", [((128, 28, 28, 128), 128), ((2, 9, 11, 128), 128),
+                                        ((4, 8, 8, 64), 128), ((3, 6, 5, 200), 72)])
+def test_wgmma_conv3x3_dw_matches_plain(dev, shape, cout):
+    from kurosiwo_torch.ops import conv_dw
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    dy = torch.randn((*shape[:3], cout), device=dev, generator=g).to(torch.bfloat16)
+    k0 = conv_dw.conv3x3_dw.kernel_launches["wgmma"]
+    got = conv_dw.conv3x3_dw(x, dy)
+    assert conv_dw.conv3x3_dw.kernel_launches["wgmma"] == k0 + 1
+    assert torch.equal(got, conv_dw.conv3x3_dw(x, dy))
+    conv_band(got, conv_dw.conv3x3_dw_plain(x, dy), conv_dw.conv3x3_dw_plain(x.abs(), dy.abs()),
+              False)
+
+
+def test_wgmma_wrappers_raise_and_do_not_retry(dev):
+    """A plan that names a kernel which does not take the call raises before
+    any launch (the C entry point refuses it): no counter moves, and no
+    other kernel is tried."""
+    from kurosiwo_torch.ops import conv_bn, conv_dw
+
+    x = torch.randn(2, 6, 6, 24, device=dev).to(torch.bfloat16)
+    w = torch.randn(3, 3, 24, 128, device=dev).to(torch.bfloat16)
+    before = (dict(conv_bn.conv3x3_bn_stats.kernel_launches),
+              dict(conv_dw.conv3x3_dw.kernel_launches))
+    refused = "launch: CUDA error 1 "
+    with pytest.raises(RuntimeError, match="wgmma " + refused):  # Cin 24: no multiple of 64
+        conv_bn.launch_bn_stats(conv_bn.ConvPlan("wgmma", 1), x, w)
+    x64 = torch.randn(2, 6, 6, 64, device=dev).to(torch.bfloat16)
+    w64 = torch.randn(3, 3, 64, 128, device=dev).to(torch.bfloat16)
+    sb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(RuntimeError, match="wgmma " + refused):  # the kernel has no prologue
+        conv_bn.launch_bn_stats(conv_bn.ConvPlan("wgmma", 1), x64, w64, *sb)
+    with pytest.raises(RuntimeError, match="wgmma " + refused):  # f32 on the bf16 kernel
+        conv_bn.launch_bn_stats(conv_bn.ConvPlan("wgmma", 1), x64.float(), w64.float())
+    dy = torch.randn(2, 6, 6, 128, device=dev).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="simt " + refused):  # bf16 on the f32 kernel
+        conv_dw.launch_dw(conv_dw.conv3x3_dw_plan(torch.float32, 72, 64, 128), x64, dy)
+    with pytest.raises(RuntimeError, match="wgmma " + refused):  # a slice: no multiple of 64
+        conv_dw.launch_dw(conv_dw.DwPlan("wgmma", 64, 1, 96, 3), x64, dy)
+    with pytest.raises(ValueError, match="16-byte"):
+        u = torch.randn(2 * 6 * 6 * 64 + 1, device=dev).to(torch.bfloat16)[1:].view(2, 6, 6, 64)
+        conv_dw.conv3x3_dw(u, dy)
+    assert (conv_bn.conv3x3_bn_stats.kernel_launches, conv_dw.conv3x3_dw.kernel_launches) == \
+        before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -371,10 +454,14 @@ def test_conv3x3_fused_kernel_matches_plain(dev, shape, cout, relu, dtype):
         assert got.float().min().item() < 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route", ["conv_bn_kernel", "dw_kernel"])
-def test_conv_routes_autograd_on_the_card(dev, route):
-    """A train-mode ConvBNAct on the route, f32, card (kernels) against CPU
-    (plain versions): output, running statistics and gradients."""
+def test_conv_routes_autograd_on_the_card(dev, route, dtype):
+    """A train-mode ConvBNAct on the route, card (kernels) against CPU
+    (plain versions): output, running statistics and gradients, within
+    1e-4 of each tensor's max in f32 (TF32 off) and 3e-2 in bf16 (a few
+    roundings of 2^-8 between the two sides' orders of summation); f32
+    runs the CUDA-core kernels, bf16 the wgmma ones."""
     from kurosiwo_torch.ops import conv_bn, conv_dw
     from kurosiwo_torch.ops.nn import ConvBNAct
 
@@ -384,20 +471,26 @@ def test_conv_routes_autograd_on_the_card(dev, route):
     gpu = ConvBNAct(cin, cin, **{route: True}).to(dev)
     gpu.load_state_dict(cpu.state_dict())
     x = torch.randn(2, 8, 8, cin, generator=g)
+    kernel = "simt" if dtype == torch.float32 else "wgmma"
     n0 = conv_bn.conv3x3_bn_stats.launches, conv_dw.conv3x3_dw.launches
+    k0 = (conv_bn.conv3x3_bn_stats.kernel_launches[kernel],
+          conv_dw.conv3x3_dw.kernel_launches[kernel])
     res = []
     for m, xin in ((cpu, x), (gpu, x.to(dev))):
         m.train()
         xin = xin.clone().requires_grad_(True)
-        out = m(xin, torch.float32)
-        (out * out).sum().backward()
+        out = m(xin, dtype)
+        (out.float() * out.float()).sum().backward()
         res.append([t.detach().cpu() for t in (out, xin.grad, m.Conv_0.weight.grad,
                                                m.BatchNorm_0.scale.grad, m.BatchNorm_0.mean,
                                                m.BatchNorm_0.var)])
+    want = (1, 0) if route == "conv_bn_kernel" else (0, 1)
     assert (conv_bn.conv3x3_bn_stats.launches - n0[0], conv_dw.conv3x3_dw.launches - n0[1]) == \
-        ((1, 0) if route == "conv_bn_kernel" else (0, 1))
+        want
+    assert (conv_bn.conv3x3_bn_stats.kernel_launches[kernel] - k0[0],
+            conv_dw.conv3x3_dw.kernel_launches[kernel] - k0[1]) == want
     for got, want in zip(*res[::-1]):
-        _close(got, want, 1e-4)
+        _close(got, want, 1e-4 if dtype == torch.float32 else 3e-2)
 
 
 def test_conv_wrappers_raise_on_shapes_they_do_not_take(dev):
