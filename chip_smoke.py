@@ -19,8 +19,11 @@ its lines; any failed phase exits non-zero.
    The flash attention kernels (B5), forward, dq and dk/dv, at the
    whole-scene encode's shape (1, 16, 4096, 64) (q, k, v as head views of one
    qkv tensor, as the ViT passes them), at a ragged (2, 4, 1003 x 1090, 32)
-   and at D 128, in f32 and bf16; the library yardstick is
-   F.scaled_dot_product_attention and its autograd backward.
+   and at D 128, in f32 and bf16, each with the kernel its plan picked
+   (bf16 at D 64 and 128: the wgmma kernels), shared memory per block and
+   waves; the library yardstick is F.scaled_dot_product_attention and its
+   autograd backward, beside the whole port backward (flash_delta, dq and
+   dk/dv).
    The 3x3 conv kernels, in f32 and bf16: B6 (conv + BN statistics, with and
    without its prologue) at the train step's (128, 14, 14, 256)->256,
    (128, 7, 7, 512)->512 and (128, 14, 14, 768)->256, and at a ragged
@@ -40,7 +43,8 @@ its lines; any failed phase exits non-zero.
    small size, on the card (kernels) against the same steps on the CPU
    (plain versions), same weights, batch and masking noise; the whole-scene
    ViT encode of a 512x512 scene (1,024 tokens, the flash route) at a small
-   width, f32 and bf16, card against CPU.
+   width with heads of 32 and of 64 (the wgmma forward), f32 and bf16, card
+   against CPU.
 5. Main paths at full width through kurosiwo_torch/bench.py's code: batch 128
    bf16 UNet train steps (3 warm-up, 10 timed), then the bf16 eval and the
    f32-twin eval, then the train step with the conv kernel routes on (the
@@ -48,7 +52,8 @@ its lines; any failed phase exits non-zero.
    counters); then
    the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed); then
    serving: the ViT-L encode of a 1024x1024 scene (4,096 tokens; 3 warm-up,
-   10 timed), a 1000x1000 scene (3,969 tokens, off the flash route) and the
+   10 timed; 24 wgmma B5 forwards per encode, no other), a 1000x1000 scene
+   (3,969 tokens, off the flash route) and the
    UNet-ResNet18 sliding-window map of a 2048x2048x6 scene (121 tiles of
    224, overlap 32, batch 32). Launch counters are zeroed before each and
    read after.
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,6 +73,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores
+SMS = 132  # streaming multiprocessors of an H100 SXM
 BATCH = 128
 IMAGE = 224
 CW = [0.3715753140309927, 14.009780283125977, 8.20405370357821]
@@ -402,9 +409,15 @@ def phase_short_attention(torch, sa) -> dict:
 
 
 # (B, H, Nq, Nk, D, packed) of the flash-attention checks: the whole-scene
-# ViT-L encode's call (24 per encode), a ragged Nq != Nk D-32 shape and D 128
+# ViT-L encode's call (24 per encode), a ragged Nq != Nk D-32 shape, D 128
+# and a ragged D-64 shape
 FLASH_MAIN = ("scene", (1, 16, 4096, 4096, 64, True), 24)
-FLASH_EXTRA = {"ragged D32": (2, 4, 1003, 1090, 32, False), "D128": (1, 4, 1024, 1024, 128, True)}
+FLASH_EXTRA = {"ragged D32": (2, 4, 1003, 1090, 32, False), "D128": (1, 4, 1024, 1024, 128, True),
+               "ragged D64": (2, 4, 1003, 1090, 64, False)}
+# B5's bf16 times at the main shape before the wgmma kernels (mma.sync with a
+# cp.async ring), recorded from an earlier run of this script on an NVIDIA
+# H100 80GB HBM3 at 700 W; printed for reference, never measured here
+EARLIER_FLASH_MS = {"fwd": 0.3021, "dq": 0.6411, "dkv": 0.9435}
 
 
 def flash_work(b: int, h: int, nq: int, nk: int, d: int, elem: int) -> dict:
@@ -430,6 +443,24 @@ def flash_inputs(torch, dev, g, b, h, nq, nk, d, packed, dtype):
     return q, k, v, torch.randn((b, h, nq, d), device=dev, generator=g).to(dtype)
 
 
+def flash_plan_line(fa, plan, b, h, nq, nk) -> str:
+    """The kernel a plan picked, its shared memory per block and, for the
+    wgmma kernels (one 384-thread block an SM), the waves of its grids."""
+    blocks = {"fwd": -(-nq // plan.q_tile) * b * h, "dq": -(-nq // plan.q_tile) * b * h,
+              "dkv": -(-nk // plan.k_tile) * b * h}
+    smem = {"fwd": plan.fwd_smem, "dq": plan.dq_smem, "dkv": plan.dkv_smem}
+    parts = []
+    for kname in ("fwd", "dq", "dkv"):
+        waves = f", {blocks[kname] / SMS:.2f} waves" if plan.kernel == "wgmma" else ""
+        parts.append(f"{kname} {smem[kname]} B smem, {blocks[kname]} blocks{waves}")
+    return f"kernel {plan.kernel} ({plan.q_tile}/{plan.k_tile}-row tiles): " + "; ".join(parts)
+
+
+def port_backward(fa, q, k, v, do, out, lse, scale):
+    """The whole backward of the port's custom VJP: delta, then dq and dk/dv."""
+    return fa.flash_attention_bwd(q, k, v, do, lse, fa.flash_delta(do, out), scale)
+
+
 def phase_flash_attention(torch, fa) -> dict:
     """B5 forward, dq and dk/dv against the plain versions on the same card
     inputs. Bands: f32 out, lse and gradients within 1e-5 of each tensor's
@@ -437,9 +468,10 @@ def phase_flash_attention(torch, fa) -> dict:
     by an online softmax); bf16 out and gradients within 2e-2 of each
     tensor's max |value|, lse within 1e-4 (the kernel rounds p and ds to
     bf16 as tensor-core operands, the plain version keeps them in f32 as
-    the TPU kernel does). Two runs bitwise equal. bf16 times of the three
-    kernels, SDPA's forward and the forward wrapper's host time at every
-    shape; plain versions and SDPA's backward at the main shape."""
+    the TPU kernel does). Two runs bitwise equal; every call on the kernel
+    its plan names. bf16 times of the three kernels, the whole port backward
+    (flash_delta, dq, dk/dv), SDPA's forward and backward and the forward
+    wrapper's host time at every shape; plain versions at the main shape."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -447,12 +479,16 @@ def phase_flash_attention(torch, fa) -> dict:
     stats = {k: {"max_abs_err": 0.0} for k in ("fwd", "dq", "dkv")}
     counts = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
     shapes = [FLASH_MAIN] + [(name, shape, 0) for name, shape in FLASH_EXTRA.items()]
+    fns = {"fwd": fa.flash_attention_fwd, "dq": fa.flash_attention_dq,
+           "dkv": fa.flash_attention_dkv}
     for name, (b, h, nq, nk, d, packed), count in shapes:
         scale = d**-0.5
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             q, k, v, do = flash_inputs(torch, dev, g, b, h, nq, nk, d, packed, dtype)
             tag = f"flash_attention {name} {(b, h, nq, nk, d)} {dtype}"
+            plan = fa.flash_plan(dtype, d, nq, nk)
+            before = {kname: dict(fn.kernel_launches) for kname, fn in fns.items()}
             out, lse = fa.flash_attention_fwd(q, k, v, scale)
             out2, lse2 = fa.flash_attention_fwd(q, k, v, scale)
             want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale)
@@ -481,9 +517,17 @@ def phase_flash_attention(torch, fa) -> dict:
                 require(e <= band, f"{tag}: {gname} error {e:.3e} > {band:.3e}")
                 require(torch.equal(got, rep), f"{tag}: {gname} not deterministic")
                 gerr[gname] = e
+            for kname, fn in fns.items():
+                n = 2  # two runs of each, compared bitwise
+                want_k = dict(before[kname])
+                want_k[plan.kernel] += n
+                require(fn.kernel_launches == want_k,
+                        f"{tag}: {kname} launches {fn.kernel_launches}, expected {n} more on the "
+                        f"{plan.kernel} kernel")
             print(f"[flash_attention] {name} {(b, h, nq, nk, d)} {str(dtype)[6:]}: max abs error "
                   f"out {oerr:.3e} (band {oband:.3e}), lse {lerr:.3e}, dq {gerr['dq']:.3e}, "
-                  f"dk {gerr['dk']:.3e}, dv {gerr['dv']:.3e}; deterministic", flush=True)
+                  f"dk {gerr['dk']:.3e}, dv {gerr['dv']:.3e}; deterministic; "
+                  + flash_plan_line(fa, plan, b, h, nq, nk), flush=True)
             if count and not f32:
                 stats["fwd"]["max_abs_err"] = oerr
                 stats["dq"]["max_abs_err"] = gerr["dq"]
@@ -498,6 +542,8 @@ def phase_flash_attention(torch, fa) -> dict:
             lib_f = event_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale))
             lib_b = event_ms(torch, lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do,
                                                                 retain_graph=True))
+            bwd_ms = event_ms(torch, lambda: port_backward(fa, q, k, v, do, want_out, want_lse,
+                                                           scale))
             wrapper_ms = host_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, scale))
             work = flash_work(b, h, nq, nk, d, 2)
             plain = {}
@@ -520,10 +566,20 @@ def phase_flash_attention(torch, fa) -> dict:
                     stats[kname].update(ms=ms[kname], plain_ms=plain[kname], library_ms=lib,
                                         bound_ms=bms, bound_by=by)
             bb, bby = bound(*work["bwd"], BF16_FLOP_PER_S)
-            print(f"[flash_attention bwd] {name} {(b, h, nq, nk, d)} bf16: dq + dk/dv kernels "
-                  f"{ms['dq'] + ms['dkv']:.4f} ms (7 products), library backward {lib_b:.4f} ms, "
-                  f"bound of the whole backward {bb * 1e3:.1f} us ({bby}, 5 products); forward "
-                  f"wrapper's host time {wrapper_ms * 1e3:.1f} us per call", flush=True)
+            print(f"[flash_attention bwd] {name} {(b, h, nq, nk, d)} bf16: port backward "
+                  f"(flash_delta + dq + dk/dv) {bwd_ms:.4f} ms, SDPA backward {lib_b:.4f} ms "
+                  f"({bwd_ms / lib_b:.2f}x); dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} ms "
+                  f"(7 products); bound of the whole backward {bb * 1e3:.1f} us ({bby}, 5 "
+                  f"products); forward {ms['fwd']:.4f} ms, SDPA forward {lib_f:.4f} ms "
+                  f"({ms['fwd'] / lib_f:.2f}x); forward wrapper's host time "
+                  f"{wrapper_ms * 1e3:.1f} us per call", flush=True)
+            if count:
+                for kname in ("dq", "dkv"):
+                    stats[kname].update(whole_backward_ms=bwd_ms, library_backward_ms=lib_b)
+                print(f"[flash_attention] {name}: the mma.sync kernels the wgmma ones replaced "
+                      f"(recorded, not measured here): fwd {EARLIER_FLASH_MS['fwd']} ms, dq "
+                      f"{EARLIER_FLASH_MS['dq']} ms, dk/dv {EARLIER_FLASH_MS['dkv']} ms",
+                      flush=True)
             del lq, lk, lv, lib_out
     stats["dq"]["phase_launches"] = fa.flash_attention_dq.launches - counts[0]
     stats["dkv"]["phase_launches"] = fa.flash_attention_dkv.launches - counts[1]
@@ -532,6 +588,8 @@ def phase_flash_attention(torch, fa) -> dict:
 
 SCENE_SMALL = {"image_size": 64, "patch_size": 16, "dim": 64, "depth": 2, "heads": 2,
                "mlp_dim": 128, "channels": 6, "dim_head": 32}
+# the same with heads of 64, the ViT-L's head size: bf16 runs the wgmma forward
+SCENE_SMALL_D64 = dict(SCENE_SMALL, dim=128, mlp_dim=256, dim_head=64)
 
 
 # (B, H, W, Cin, Cout) of the UNet-ResNet18 b128 train step's B6 calls (layer3
@@ -803,31 +861,44 @@ def phase_conv_fused(torch, conv_fused) -> dict:
 
 def phase_scene_parity(torch, fa) -> None:
     """vit_whole_scene of a 512x512x6 scene at patch 16 (32x32 = 1,024
-    tokens, the flash route; dim 64, depth 2, 2 heads of 32), card (kernels)
-    against CPU (plain versions), same weights. Bands: f32 within 1e-4
-    absolute (f32 products and LayerNorms in another order over two layers);
-    bf16 within 5e-2 absolute (a few bf16 ulps of the final LayerNorm's
-    outputs, which reach about 4, where one ulp is 1.6e-2 to 3.1e-2)."""
+    tokens, the flash route; depth 2, 2 heads: dim 64 with heads of 32, and
+    dim 128 with heads of 64), card (kernels) against CPU (plain versions),
+    same weights; every forward on the kernel its plan names (bf16: mma.sync
+    at D 32, wgmma at D 64). Bands: f32 within 1e-4 absolute (f32 products
+    and LayerNorms in another order over two layers); bf16 within 5e-2
+    absolute at D 32 (a few bf16 ulps of the final LayerNorm's outputs,
+    which reach about 4, where one ulp is 1.6e-2 to 3.1e-2), and within two
+    bf16 ulps of the largest |output| at D 64 (the wider model's outputs
+    differ by 1.5 ulps in [4, 8) on an H100)."""
     import numpy as np
 
     from kurosiwo_torch.inference import vit_whole_scene
     from kurosiwo_torch.models.vit import ViT
 
     scene = np.random.RandomState(3).randn(512, 512, 6).astype(np.float32)
-    cpu_vit = ViT(**SCENE_SMALL, pool="cls", generator=torch.Generator().manual_seed(7))
-    gpu_vit = copy.deepcopy(cpu_vit).to("cuda")
-    for dtype, band in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-        n0 = fa.flash_attention_fwd.launches
-        got = vit_whole_scene(gpu_vit, scene, dtype=dtype, device="cuda")
-        launched = fa.flash_attention_fwd.launches - n0
-        want = vit_whole_scene(cpu_vit, scene, dtype=dtype, device="cpu")
-        err = (got.float().cpu() - want.float()).abs().max().item()
-        tag = str(dtype)[6:]
-        require(got.shape == want.shape == (1, 1024, 64), f"scene parity {tag}: shape {got.shape}")
-        require(launched == SCENE_SMALL["depth"], f"scene parity {tag}: {launched} flash launches")
-        require(err <= band, f"scene parity {tag}: error {err:.3e} > {band:.1e}")
-        print(f"[parity] scene ViT 512x512 (1,024 tokens) {tag} card vs CPU: max abs error "
-              f"{err:.3e} (band {band:.0e}), {launched} flash_attention_fwd launches", flush=True)
+    for cfg in (SCENE_SMALL, SCENE_SMALL_D64):
+        cpu_vit = ViT(**cfg, pool="cls", generator=torch.Generator().manual_seed(7))
+        gpu_vit = copy.deepcopy(cpu_vit).to("cuda")
+        for dtype, band in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            kernel = fa.flash_plan(dtype, cfg["dim_head"], 1024, 1024).kernel
+            n0 = dict(fa.flash_attention_fwd.kernel_launches)
+            got = vit_whole_scene(gpu_vit, scene, dtype=dtype, device="cuda")
+            launched = {k: n - n0[k] for k, n in fa.flash_attention_fwd.kernel_launches.items()}
+            want = vit_whole_scene(cpu_vit, scene, dtype=dtype, device="cpu")
+            err = (got.float().cpu() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            if dtype == torch.bfloat16 and cfg["dim_head"] == 64:
+                band = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)  # two bf16 ulps at max |out|
+            tag = f"{str(dtype)[6:]} D{cfg['dim_head']}"
+            require(got.shape == want.shape == (1, 1024, cfg["dim"]),
+                    f"scene parity {tag}: shape {got.shape}")
+            want_k = dict.fromkeys(launched, 0)
+            want_k[kernel] = cfg["depth"]
+            require(launched == want_k, f"scene parity {tag}: flash launches {launched}")
+            require(err <= band, f"scene parity {tag}: error {err:.3e} > {band:.1e}")
+            print(f"[parity] scene ViT 512x512 (1,024 tokens) {tag} card vs CPU: max abs error "
+                  f"{err:.3e} (band {band:.3e}, max |out| {top:.3f}), {cfg['depth']} "
+                  f"flash_attention_fwd launches on the {kernel} kernel", flush=True)
 
 
 def phase_scene_main(torch, counters, smi: str) -> dict:
@@ -850,12 +921,18 @@ def phase_scene_main(torch, counters, smi: str) -> dict:
     n = warmup + encodes
     require(out.shape == (1, 4096, 1024) and bool(torch.isfinite(out).all().item()),
             f"scene encode output {tuple(out.shape)} not finite or misshapen")
+    by_kernel = read_kernel_counters(counters)
     want = {name: 0 for name in counters}
     want.update(flash_attention_fwd=24 * n)
     require(launches == want, f"scene launches {launches}, expected 24 flash fwd per encode "
                               f"over {n} encodes")
+    want_k = dict.fromkeys(by_kernel, 0)
+    want_k["flash_attention_fwd.wgmma"] = 24 * n
+    require(by_kernel == want_k, f"scene kernel launches {by_kernel}, expected 24 wgmma B5 "
+                                 f"forwards per encode and no other bf16 B5 forward")
     print(f"[main] scene ViT-L 1024x1024 (4,096 tokens) bf16: {encodes / seconds:.3f} scenes/s "
-          f"({seconds / encodes * 1e3:.2f} ms/encode), launches {launches} over {n} encodes, "
+          f"({seconds / encodes * 1e3:.2f} ms/encode), launches {launches} over {n} encodes "
+          f"(flash_attention_fwd.wgmma {by_kernel['flash_attention_fwd.wgmma']}), "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
 
     scene = np.random.RandomState(1).randn(1000, 1000, 6).astype(np.float32)
@@ -1069,7 +1146,7 @@ def read_counters(counters) -> dict:
 
 def read_kernel_counters(counters) -> dict:
     """{"<wrapper>.<kernel>": launches} of the wrappers that count by kernel
-    (B6 and B7)."""
+    (B5, B6 and B7)."""
     return {f"{name}.{k}": n for name, fn in counters.items()
             for k, n in getattr(fn, "kernel_launches", {}).items()}
 
@@ -1229,21 +1306,27 @@ def main() -> int:
         row("short_attention_bwd (per MAE train step: 24 encoder + 8 decoder calls)",
             "kurosiwo_torch/csrc/short_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:283",
             attn["bwd"], mae_launches["short_attention_bwd"]),
-        row("flash_attention_fwd (per call at (1, 16, 4096, 64); 24 per scene encode)",
+        row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
+            "scene encode)",
             "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",
             flash["fwd"], scene_launches["flash_attention_fwd"]),
         # the backward runs on no serving path: launches is the scene main path's
         # count (0), phase_launches the kernel-vs-plain phase's
-        dict(row("flash_attention_dq (backward; no serving path runs it)",
+        dict(row("flash_attention_dq (the wgmma kernel; backward, no serving path runs it; "
+                 "whole_backward_ms: flash_delta + dq + dk/dv)",
                  "kurosiwo_torch/csrc/flash_attention.cu",
                  "kurosiwo_tpu/ops/pallas_attention.py:63", flash["dq"],
                  scene_launches["flash_attention_dq"]),
-             phase_launches=flash["dq"]["phase_launches"]),
-        dict(row("flash_attention_dkv (backward; no serving path runs it)",
+             phase_launches=flash["dq"]["phase_launches"],
+             whole_backward_ms=flash["dq"]["whole_backward_ms"],
+             library_backward_ms=flash["dq"]["library_backward_ms"]),
+        dict(row("flash_attention_dkv (the wgmma kernel; backward, no serving path runs it)",
                  "kurosiwo_torch/csrc/flash_attention.cu",
                  "kurosiwo_tpu/ops/pallas_attention.py:86", flash["dkv"],
                  scene_launches["flash_attention_dkv"]),
-             phase_launches=flash["dkv"]["phase_launches"]),
+             phase_launches=flash["dkv"]["phase_launches"],
+             whole_backward_ms=flash["dkv"]["whole_backward_ms"],
+             library_backward_ms=flash["dkv"]["library_backward_ms"]),
         row("conv3x3_bn_stats (B6, the wgmma kernel; per train step with the conv routes on: "
             "8 calls; library: F.conv2d, no statistics)", "kurosiwo_torch/csrc/conv3x3.cu",
             "kurosiwo_tpu/ops/pallas_conv_bn.py:79", cbn,

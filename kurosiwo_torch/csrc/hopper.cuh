@@ -1,7 +1,8 @@
 // Building blocks of the Hopper (sm_90a) kernels: warpgroup matrix products
 // (wgmma) on operands in 128-byte-swizzled shared memory, fed by TMA tile
-// copies whose completion is counted on mbarriers. First users: the 3x3
-// convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7).
+// copies whose completion is counted on mbarriers. Users: the 3x3
+// convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7) and the bf16 flash
+// attention kernels at D 64 and 128 (flash_attention.cu: B5).
 //
 // Shared-memory operand layout ("B128 tiles"). A tile is stored in 128-byte
 // rows of 64 bf16 values, in atoms of 8 rows (1024 bytes, 1024-byte
@@ -58,6 +59,12 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
                : "memory");
 }
 
+// one arrival, no transaction bytes (release: this thread's earlier shared
+// memory writes are visible to a thread whose wait sees the phase complete)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // spin until the barrier's phase of parity `phase` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
   uint32_t done = 0;
@@ -83,12 +90,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap& map
       : "memory");
 }
 
-// Host: the tensor map of a row-major bf16 matrix (rows x cols, 16-byte
-// aligned rows) read in boxes of box_rows x 64 columns (128 bytes) that land
-// as B128 tiles. The driver's encoder is reached through the runtime, so
-// nothing links against libcuda. Returns a CUresult (0: success).
-inline int encode_bf16_rows(CUtensorMap* map, const void* base, long long rows, int cols,
-                            int box_rows) {
+// TMA: the box of a 4-D `map` at (c0 innermost, ..., c3) elements, as
+// tma_load_2d; what lies outside the tensor in any dimension reads as 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap& map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Host: libcuda's tensor-map encoder (cuTensorMapEncodeTiled), reached
+// through the runtime so that nothing links against libcuda; null where the
+// installed CUDA does not have it.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -100,16 +116,45 @@ inline int encode_bf16_rows(CUtensorMap* map, const void* base, long long rows, 
     const cudaError_t err = cudaGetDriverEntryPoint(
         "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
 #endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      return CUDA_ERROR_NOT_FOUND;
-    }
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) encode = nullptr;
   }
+  return encode;
+}
+
+// Host: the tensor map of a row-major bf16 matrix (rows x cols, 16-byte
+// aligned rows) read in boxes of box_rows x 64 columns (128 bytes) that land
+// as B128 tiles. Returns a CUresult (0: success).
+inline int encode_bf16_rows(CUtensorMap* map, const void* base, long long rows, int cols,
+                            int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t stride[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Host: the rank-4 tensor map of a (B, H, N, D) bf16 view with unit stride
+// in D and element strides sb, sh, sn (16-byte multiples, base 16-byte
+// aligned, in any order: the head views of a packed (B, N, 3 H D) projection
+// qualify). Dimensions innermost first are (D, N, H, B); a box is box_rows
+// rows of one (batch, head) by 64 of D (128 bytes), landing as a B128 tile.
+// Rows at or past N read as 0, never as the next head's or batch's rows.
+// Returns a CUresult (0: success).
+inline int encode_bf16_heads(CUtensorMap* map, const void* base, int b, int h, int n, int d,
+                             long long sb, long long sh, long long sn, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, stride,
                 box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -148,13 +193,25 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for A fragments held in registers (the RS form reads them while
+// the product is in flight)
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16) B (16 x 128, bf16), both from
-// shared memory. TA / TB = 1: A / B is MN-major (transposed). Thread t of
-// the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and, for each
-// n8 block j, columns 8 j + 2 (t % 4) (+ 1): d[4 j + 2 h + e] is row + 8 h,
-// column + e, as an mma.sync m16n8 C fragment per warp.
+// shared memory; scale_d = 0 overwrites d instead. TA / TB = 1: A / B is
+// MN-major (transposed). Thread t of the warpgroup holds rows 16 (t / 32) +
+// (t % 32) / 4 (+ 8) and, for each n8 block j, columns 8 j + 2 (t % 4)
+// (+ 1): d[4 j + 2 h + e] is row + 8 h, column + e, as an mma.sync m16n8 C
+// fragment per warp.
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -183,7 +240,139 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64), both bf16 from shared memory
+// (descriptors a, b); scale_d = 0 overwrites d instead. Fragment layout as
+// wgmma_m64n128k16, with n8 blocks j < 8.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "},"
+      " %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16, from registers) B (16 x 64, bf16,
+// from shared memory); a is the warp's mma.sync m16n8k16 A fragment of rows
+// 16 (t / 32) .. + 16 of the warpgroup's 64 (wgmma_m64n128k16's C layout,
+// packed, is this layout: accumulator_as_a turns one into the other).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16, from registers) B (16 x 128, bf16,
+// from shared memory); a is the warp's mma.sync m16n8k16 A fragment of rows
+// 16 (t / 32) .. + 16 of the warpgroup's 64 (wgmma_m64n128k16's C layout,
+// packed, is this layout: accumulator_as_a turns one into the other).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// the A fragments (k16 steps kk, 4 registers each) of a warpgroup's f32
+// accumulator of N columns, rounded to bf16: step kk holds columns 16 kk to
+// 16 kk + 16, so the accumulator of one product feeds the next as its A
+template <int N>
+__device__ __forceinline__ void accumulator_as_a(uint32_t (&a)[N / 16][4],
+                                                 const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = ks::pack(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// ---- warp specialisation
+
+// move registers from a producer warpgroup to the consumers (every warp of
+// the warpgroup executes it; the roles' code paths never rejoin)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads') of `n` threads: wait, or
+// arrive without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- the K loop of an implicit GEMM on a ring of TMA stages

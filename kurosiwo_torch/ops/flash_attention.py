@@ -19,23 +19,78 @@ them back to (B, N, H*D) with no copy. lse is (B, H, Nq) f32.
 
 Numerics: the TPU kernel keeps the scores, p and ds in f32 through every
 product, and so do the plain versions here (B4's plain versions round p to
-v's dtype instead). The f32 kernel does the same; the bf16 kernel rounds p
-and ds to bf16 as tensor-core operands, its one deviation.
+v's dtype instead). The f32 kernel does the same; the bf16 kernels round p
+and ds to bf16 as tensor-core operands, their one deviation.
 
 A wrapper takes the plain version for a CPU tensor (any D); for a CUDA
-tensor it launches its kernel (f32 or bf16, D in {32, 64, 128}) or raises.
-``.launches`` counts kernel launches of each wrapper.
+tensor it launches the kernel that ``flash_plan`` names for the call's dtype
+and shape (f32 or bf16, D in {32, 64, 128}) or raises: bf16 at D 64 and 128
+runs the Hopper kernels (wgmma fed by TMA), bf16 at D 32 the mma.sync ones,
+f32 the CUDA-core ones. ``.launches`` counts kernel launches of each
+wrapper, ``.kernel_launches`` them by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 
 HEAD_DIMS = (32, 64, 128)
+# the kernels of csrc/flash_attention.cu, by their Kernel number there
+FLASH_KERNELS = {"simt": 0, "mma_sync": 1, "wgmma": 2}
+SMEM_LIMIT = 232448  # dynamic shared memory one block may take on an H100 (227 KB)
+
+
+class FlashPlan(NamedTuple):
+    kernel: str     # a key of FLASH_KERNELS
+    q_tile: int     # query rows of a forward or dq block: grid (ceil(Nq / q_tile), B*H)
+    k_tile: int     # key rows of a dk/dv block: grid (ceil(Nk / k_tile), B*H)
+    fwd_smem: int   # dynamic shared memory of a block, bytes
+    dq_smem: int
+    dkv_smem: int
+
+
+def _simt_smem(d: int) -> tuple[int, int, int]:
+    tile, score = 4 * 64 * (d + 1), 4 * 64 * 65
+    return 3 * tile + score, 4 * tile + score + 2 * 64 * 4, 4 * tile + 2 * score + 2 * 64 * 4
+
+
+def _mma_sync_smem(d: int) -> tuple[int, int, int]:
+    tile = 2 * 64 * (d + 8)
+    return 5 * tile, 6 * tile + 2 * 64 * 4, 6 * tile + 4 * 64 * 4
+
+
+def _wgmma_smem(d: int) -> tuple[int, int, int]:
+    """csrc/flash_attention.cu's FwdLayout, DqLayout, DkvLayout: B128 tiles
+    of 2 d bytes a row, mbarriers of 8 bytes, 1 KB of alignment slack."""
+    own, fwd_kv, tile, stages = 128 * d * 2, 128 * d * 2, 64 * d * 2, 4
+    fwd = own + 2 * 2 * fwd_kv + 8 * (1 + 4 * 2) + 1024
+    dq = 2 * own + stages * 2 * tile + 8 * (1 + 2 * stages) + 1024
+    dkv = 2 * own + stages * (2 * tile + 2 * 64 * 4) + 8 * (1 + 2 * stages) + 1024
+    return fwd, dq, dkv
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(dtype: torch.dtype, d: int, nq: int, nk: int) -> FlashPlan:
+    """The csrc/flash_attention.cu kernels of one call: f32 the CUDA-core
+    kernels, bf16 at D 64 and 128 the Hopper kernels (wgmma fed by TMA,
+    128-row blocks of 384 threads, one an SM), bf16 at D 32 the mma.sync
+    kernels (64-row blocks). nq and nk size the grids the plan's tiles
+    give. The kernel refuses a call it does not take (the wrapper raises)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_plan: no kernel takes {dtype}")
+    if d not in HEAD_DIMS or nq < 1 or nk < 1:
+        raise ValueError(f"flash_plan: no kernel takes D = {d}, Nq = {nq}, Nk = {nk}")
+    if dtype == torch.float32:
+        return FlashPlan("simt", 64, 64, *_simt_smem(d))
+    if d == 32:
+        return FlashPlan("mma_sync", 64, 64, *_mma_sync_smem(d))
+    return FlashPlan("wgmma", 128, 128, *_wgmma_smem(d))
 
 
 def flash_attention_fwd_plain(q, k, v, scale: float):
@@ -138,18 +193,32 @@ def _lib():
     lib = kernels.library("flash_attention")
     if lib.ks_flash_attention_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ks_flash_attention_fwd.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
+        lib.ks_flash_attention_fwd.argtypes = [p, p, p, i, i, i, i, i, f, i, i, p]
         lib.ks_flash_attention_fwd.restype = i
         for fn in (lib.ks_flash_attention_dq, lib.ks_flash_attention_dkv):
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
             fn.restype = i
+        lib.ks_flash_attention_smem.argtypes = [i, i, i]
+        lib.ks_flash_attention_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _shape_args(q: torch.Tensor, k: torch.Tensor, scale: float) -> tuple:
+def kernel_smem(kernel: str, which: str, d: int) -> int:
+    """The dynamic shared memory (bytes) the built kernel ``kernel`` takes
+    for ``which`` ("fwd", "dq", "dkv") at head size d, from the library
+    itself: what ``flash_plan``'s numbers are held to on the card."""
+    return _lib().ks_flash_attention_smem(FLASH_KERNELS[kernel], ("fwd", "dq", "dkv").index(which),
+                                          d)
+
+
+def _shape_args(plan: FlashPlan, q: torch.Tensor, k: torch.Tensor, scale: float) -> tuple:
     b, h, nq, d = q.shape
     return (b, h, nq, k.shape[2], d, float(scale), int(q.dtype == torch.bfloat16),
-            kernels.stream_ptr(q))
+            FLASH_KERNELS[plan.kernel], kernels.stream_ptr(q))
+
+
+def _plan_of(q: torch.Tensor, k: torch.Tensor) -> FlashPlan:
+    return flash_plan(q.dtype, q.shape[3], q.shape[2], k.shape[2])
 
 
 def flash_attention_fwd(q, k, v, scale: float):
@@ -157,19 +226,29 @@ def flash_attention_fwd(q, k, v, scale: float):
     check_layout(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale)
+    return launch_fwd(None, q, k, v, scale)
+
+
+def launch_fwd(plan: FlashPlan | None, q, k, v, scale: float):
+    """``flash_attention_fwd`` on the card through ``plan``'s kernel (None:
+    the call's own ``flash_plan``); raises when that kernel does not take
+    the call (csrc/flash_attention.cu refuses it before any launch)."""
     _check_cuda({"q": q, "k": k, "v": v})
+    plan = plan or _plan_of(q, k)
     out = _empty_like_heads(q, q.shape[2])
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.ks_flash_attention_fwd(kernels.pointers(q, k, v, out),
                                      kernels.strides((q, k, v, out), 3), lse.data_ptr(),
-                                     *_shape_args(q, k, scale))
-    kernels.check(lib, err, "flash_attention forward launch")
+                                     *_shape_args(plan, q, k, scale))
+    kernels.check(lib, err, f"flash_attention forward {plan.kernel} launch")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.kernel_launches[plan.kernel] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.kernel_launches = dict.fromkeys(FLASH_KERNELS, 0)
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:
@@ -184,18 +263,27 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     """dq (B, H, Nq, D) in q's dtype, accumulated over key tiles."""
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, do, lse, delta, scale)
+    return launch_dq(None, q, k, v, do, lse, delta, scale)
+
+
+def launch_dq(plan: FlashPlan | None, q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """``flash_attention_dq`` on the card through ``plan``'s kernel (as
+    ``launch_fwd``)."""
     _check_bwd(q, k, v, do, lse, delta)
+    plan = plan or _plan_of(q, k)
     dq = _empty_like_heads(q, q.shape[2])
     lib = _lib()
     err = lib.ks_flash_attention_dq(kernels.pointers(q, k, v, do, dq),
                                     kernels.strides((q, k, v, do, dq), 3), lse.data_ptr(),
-                                    delta.data_ptr(), *_shape_args(q, k, scale))
-    kernels.check(lib, err, "flash_attention dq launch")
+                                    delta.data_ptr(), *_shape_args(plan, q, k, scale))
+    kernels.check(lib, err, f"flash_attention dq {plan.kernel} launch")
     flash_attention_dq.launches += 1
+    flash_attention_dq.kernel_launches[plan.kernel] += 1
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.kernel_launches = dict.fromkeys(FLASH_KERNELS, 0)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale: float):
@@ -203,19 +291,28 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float):
     query tiles."""
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(q, k, v, do, lse, delta, scale)
+    return launch_dkv(None, q, k, v, do, lse, delta, scale)
+
+
+def launch_dkv(plan: FlashPlan | None, q, k, v, do, lse, delta, scale: float):
+    """``flash_attention_dkv`` on the card through ``plan``'s kernel (as
+    ``launch_fwd``)."""
     _check_bwd(q, k, v, do, lse, delta)
+    plan = plan or _plan_of(q, k)
     dk = _empty_like_heads(k, k.shape[2])
     dv = _empty_like_heads(v, v.shape[2])
     lib = _lib()
     err = lib.ks_flash_attention_dkv(kernels.pointers(q, k, v, do, dk, dv),
                                      kernels.strides((q, k, v, do, dk, dv), 3), lse.data_ptr(),
-                                     delta.data_ptr(), *_shape_args(q, k, scale))
-    kernels.check(lib, err, "flash_attention dk/dv launch")
+                                     delta.data_ptr(), *_shape_args(plan, q, k, scale))
+    kernels.check(lib, err, f"flash_attention dk/dv {plan.kernel} launch")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.kernel_launches[plan.kernel] += 1
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.kernel_launches = dict.fromkeys(FLASH_KERNELS, 0)
 
 
 def flash_attention_bwd(q, k, v, do, lse, delta, scale: float):
@@ -229,8 +326,10 @@ def flash_attention_bwd(q, k, v, do, lse, delta, scale: float):
 
 
 def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """delta = sum_d(do * out), (B, H, N) f32 like lse (``_flash_vjp_bwd``)."""
-    return (do.float() * out.float()).sum(-1).contiguous()
+    """delta = sum_d(do * out), (B, H, N) f32 like lse (``_flash_vjp_bwd``):
+    the product of the f32 values, summed in f32 (one new f32 copy of do,
+    which the product overwrites)."""
+    return do.to(torch.float32, copy=True).mul_(out).sum(-1).contiguous()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -57,14 +57,36 @@ def _check_task(task: str) -> None:
         raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP.md, A6-A10)")
 
 
+def _check_ported_keys(config: dict, train: bool) -> None:
+    """Raise on a config key that the JAX step honours and this one does
+    not, when the step is built: a step that dropped it would compute
+    another function (augmented batches, per-zone banks) or hold other
+    memory (remat, eval micro-batches)."""
+    if config.get("log_zone_metrics"):
+        raise NotImplementedError("log_zone_metrics (per-zone metric banks) is not ported yet "
+                                  "(ROADMAP.md, A1)")
+    if train and config.get("data_augmentations") and config.get("augmentations"):
+        raise NotImplementedError("data_augmentations (augment_batch in the train step) is not "
+                                  "ported yet (ROADMAP.md, A1)")
+    if train and config.get("remat"):
+        raise NotImplementedError("remat is not ported yet (ROADMAP.md, A4)")
+    if not train and int(config.get("eval_microbatch") or 0) > 0:
+        raise NotImplementedError("eval_microbatch (chunked_eval_step) is not ported yet "
+                                  "(ROADMAP.md, A4)")
+
+
 def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
                     model_config: dict, task: str = "segmentation",
                     device: str | torch.device | None = "cuda"):
     """Returns ``train_step(state, batch, metric_state, lr) -> (state,
     metric_state, loss)``. The loss/metrics tail is the fused CE+cm kernel
     when ``resolve_fused_tail`` selects it (the default for the UNet on one
-    CUDA device), else ``criterion`` plus a confusion matrix of the argmax."""
+    CUDA device), else ``criterion`` plus a confusion matrix of the argmax.
+    Raises NotImplementedError for ``log_zone_metrics``, ``remat`` and
+    ``data_augmentations`` with ``augmentations``, which it does not honour
+    yet."""
     _check_task(task)
+    _check_ported_keys(config, train=True)
     dev = resolve_device(device)
     use_fused = bool(resolve_fused_tail(config, task, model_config, device=dev))
     cw = torch.tensor(config.get("class_weights", [1.0, 1.0, 1.0]), dtype=torch.float32,
@@ -106,8 +128,11 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
     eval; samples with ``sample_weight`` 0 are dropped from the cm bank.
     Where the fused tail applies, loss and cm come from the CE+cm forward
     kernel at class weights (1, 1, 1), the same function as
-    ``create_loss(mode="val")`` plus ``confusion_matrix``."""
+    ``create_loss(mode="val")`` plus ``confusion_matrix``. Raises
+    NotImplementedError for ``log_zone_metrics`` and ``eval_microbatch`` >
+    0, which it does not honour yet."""
     _check_task(task)
+    _check_ported_keys(config, train=False)
     dev = resolve_device(device)
     use_fused = bool(resolve_fused_tail(config, task, model_config, strict=False, device=dev))
     ones = torch.ones(3, dtype=torch.float32, device=dev)

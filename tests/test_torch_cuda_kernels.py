@@ -283,6 +283,75 @@ def test_flash_attention_wrappers_raise_on_layouts_they_do_not_take(dev):
         fa.flash_attention_fwd(u, u, u, 1.0)
 
 
+@pytest.mark.parametrize("b,heads,nq,nk,d,packed", [
+    (1, 16, 4096, 4096, 64, True), (1, 4, 1024, 1024, 128, True), (2, 3, 1003, 1090, 64, False),
+    (1, 2, 130, 257, 128, False),
+])
+def test_wgmma_flash_attention_matches_plain(dev, b, heads, nq, nk, d, packed):
+    """The Hopper kernels (wgmma fed by TMA) at the scene encode's shape, D
+    128 and ragged N at D 64 and 128, bf16: every call on them (counted by
+    kernel), bands as test_flash_attention_kernels_match_plain, and two runs
+    bitwise equal (no float atomics)."""
+    from kurosiwo_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, b, heads, nq, nk, d, torch.bfloat16, 7 * nq + nk, packed)
+    scale = d**-0.5
+    assert fa.flash_plan(torch.bfloat16, d, nq, nk).kernel == "wgmma"
+    n0 = [dict(f.kernel_launches) for f in (fa.flash_attention_fwd, fa.flash_attention_dq,
+                                            fa.flash_attention_dkv)]
+    out, lse = fa.flash_attention_fwd(q, k, v, scale)
+    want_out, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale)
+    _close(out, want_out, 2e-2)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, scale)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    delta = fa.flash_delta(do, want_out)
+    args = (q, k, v, do, want_lse, delta, scale)
+    got = fa.flash_attention_bwd(*args)
+    for g_, w_ in zip(got, fa.flash_attention_bwd_plain(*args)):
+        _close(g_, w_, 2e-2)
+    assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(*args)))
+    for f, before, n in ((fa.flash_attention_fwd, n0[0], 2), (fa.flash_attention_dq, n0[1], 2),
+                         (fa.flash_attention_dkv, n0[2], 2)):
+        assert f.kernel_launches == dict(before, wgmma=before["wgmma"] + n)
+
+
+def test_flash_plan_smem_is_the_kernels_own(dev):
+    from kurosiwo_torch.ops import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa.HEAD_DIMS:
+            plan = fa.flash_plan(dtype, d, 1024, 1024)
+            assert (plan.fwd_smem, plan.dq_smem, plan.dkv_smem) == tuple(
+                fa.kernel_smem(plan.kernel, which, d) for which in ("fwd", "dq", "dkv"))
+
+
+def test_flash_wrappers_raise_and_do_not_retry(dev):
+    """A plan forced onto a call its kernel does not take raises from the C
+    entry point before any launch: no counter moves, no other kernel runs."""
+    from kurosiwo_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    fns = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)
+    before = [(f.launches, dict(f.kernel_launches)) for f in fns]
+    refused = "launch: CUDA error 1 "
+    cases = [(fa.flash_plan(torch.bfloat16, 64, 256, 256), 32, torch.bfloat16),  # wgmma at D 32
+             (fa.flash_plan(torch.bfloat16, 32, 256, 256), 64, torch.bfloat16),  # mma_sync at D 64
+             (fa.flash_plan(torch.float32, 64, 256, 256), 64, torch.bfloat16),  # simt on bf16
+             (fa.flash_plan(torch.bfloat16, 64, 256, 256), 64, torch.float32)]  # wgmma on f32
+    for plan, d, dtype in cases:
+        q, k, v, do = (torch.randn(1, 2, 256, d, device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        lse = torch.zeros(1, 2, 256, device=dev)
+        with pytest.raises(RuntimeError, match=f"forward {plan.kernel} " + refused):
+            fa.launch_fwd(plan, q, k, v, 1.0)
+        with pytest.raises(RuntimeError, match=f"dq {plan.kernel} " + refused):
+            fa.launch_dq(plan, q, k, v, do, lse, lse, 1.0)
+        with pytest.raises(RuntimeError, match=f"dk/dv {plan.kernel} " + refused):
+            fa.launch_dkv(plan, q, k, v, do, lse, lse, 1.0)
+    assert [(f.launches, f.kernel_launches) for f in fns] == before
+
+
 # ---------------------------------------------------------------- B6-B8 convs
 
 
