@@ -11,11 +11,16 @@ its lines; any failed phase exits non-zero.
    runs bitwise equal, and times (kernel, plain version, one library call)
    beside the bound of the card (3.35 TB/s HBM, 67 TFLOP/s f32 outside the
    tensor cores; H100 SXM data sheet).
-   The short-sequence attention kernel (B4), forward and backward, at the
+   The short-sequence attention kernels (B4), forward and backward, at the
    MAE ViT-L batch-64 shapes (encoder q/k/v (64, 49, 1024), decoder
    (64, 196, 1024), H 16, D 64) in f32 and bf16, and at a ragged D-32 and a
-   ChangeFormer-sized (N 3136) shape; the library yardstick is
-   F.scaled_dot_product_attention on the (B, H, N, D) view.
+   ChangeFormer-sized (N 3136) shape, each with the kernel its plan picked
+   (bf16 main shapes: the wgmma kernels), shared memory per block, blocks
+   an SM and items per block; beside them the mma.sync kernels (the route
+   of longer heads) on the same inputs, with their forward's error, and the
+   backward as the MAE step runs it (into the thirds of one qkv gradient).
+   The library yardstick is F.scaled_dot_product_attention on the (B, H, N, D) view and its autograd
+   backward, from separate leaves and from one qkv leaf.
    The flash attention kernels (B5), forward, dq and dk/dv, at the
    whole-scene encode's shape (1, 16, 4096, 64) (q, k, v as head views of one
    qkv tensor, as the ViT passes them), at a ragged (2, 4, 1003 x 1090, 32)
@@ -39,8 +44,8 @@ its lines; any failed phase exits non-zero.
 4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
    (4, 64, 64, 6), default route and with the conv kernel routes on (B6 and
    B7 launched 8 and 5 times, their f32 kernels), and one f32 and one bf16
-   MAE train step at a
-   small size, on the card (kernels) against the same steps on the CPU
+   MAE train step at a small size (B4 on its simt and wgmma kernels, 3 calls
+   each way), on the card (kernels) against the same steps on the CPU
    (plain versions), same weights, batch and masking noise; the whole-scene
    ViT encode of a 512x512 scene (1,024 tokens, the flash route) at a small
    width with heads of 32 and of 64 (the wgmma forward), f32 and bf16, card
@@ -50,7 +55,8 @@ its lines; any failed phase exits non-zero.
    f32-twin eval, then the train step with the conv kernel routes on (the
    wgmma B6 8 times and the wgmma B7 5 times a step, by their own
    counters); then
-   the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed); then
+   the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed; every B4
+   call on the wgmma kernels, 32 each way a step); then
    serving: the ViT-L encode of a 1024x1024 scene (4,096 tokens; 3 warm-up,
    10 timed; 24 wgmma B5 forwards per encode, no other), a 1000x1000 scene
    (3,969 tokens, off the flash route) and the
@@ -301,19 +307,43 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
 
 # (B, N, H, D) of the short-attention calls: the MAE ViT-L b64 encoder (24
 # calls per direction per step) and decoder (8), then a ragged D-32 shape
-# and the ChangeFormer-sized N that the router sends to the same kernel
+# and the ChangeFormer-sized N that the router sends to the same module
 ATTN_MAIN = {"encoder": ((64, 49, 16, 64), 24), "decoder": ((64, 196, 16, 64), 8)}
 ATTN_EXTRA = {"ragged D32": (2, 77, 8, 32), "N 3136": (2, 3136, 2, 64)}
 
 
 def attention_work(b: int, n: int, h: int, d: int, elem: int) -> dict:
     """Bytes each direction must move (each input read once, each output
-    written once) and the operations of its products (forward QK^T and PV;
-    backward the recomputed QK^T, dV, dP, dQ, dK)."""
+    written once) and the operations of its products. Forward: q, k, v in,
+    out and lse out (4t + lse, t one operand's bytes); QK^T and PV. Backward
+    as the wgmma kernel runs it: q, k, v, do and out in (delta is computed
+    from out inside), lse in, dq, dk, dv out (8t + lse; a kernel handed
+    delta moves 7t + lse + delta); the recomputed QK^T, dV, dP, dQ,
+    dK."""
     t = b * n * h * d * elem
     stats = b * h * n * 4
     prods = 2 * b * h * n * n * d
-    return {"fwd": (4 * t + stats, 2 * prods), "bwd": (7 * t + 2 * stats, 5 * prods)}
+    return {"fwd": (4 * t + stats, 2 * prods), "bwd": (8 * t + stats, 5 * prods)}
+
+
+def short_plan_line(sa, torch, plan, b, n, h, d) -> str:
+    """The kernel a plan picked and, for the wgmma kernels, shared memory per
+    block, blocks an SM (from the built kernels) and items per block of the
+    grid (resident blocks walking the items, or, where the forward holds one
+    item stage, one block an item)."""
+    if plan.kernel != "wgmma":
+        return f"kernel {plan.kernel}, {plan.fwd_smem} / {plan.bwd_smem} B smem"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    items = b * h
+    parts = []
+    for which in ("fwd", "bwd"):
+        smem, per_sm = sa.kernel_footprint(which, d, n, n)
+        persistent = which == "bwd" or sa.wgmma_fwd_stages(d, n, n) == 2
+        grid = min(items, per_sm * sms) if persistent else items
+        walk = f"{items / grid:.2f} items a block" if persistent else \
+            f"{grid / (per_sm * sms):.2f} waves"
+        parts.append(f"{which} {smem} B smem, {per_sm} blocks/SM, grid {grid} ({walk})")
+    return "kernel wgmma: " + "; ".join(parts)
 
 
 def phase_short_attention(torch, sa) -> dict:
@@ -322,25 +352,38 @@ def phase_short_attention(torch, sa) -> dict:
     Bands: f32 out and lse within 1e-5 (relative to max |lse|), gradients
     within 1e-4 of each tensor's max |value| (the same f32 products summed
     in another order, the forward by an online softmax); bf16 out within
-    1e-2 of max |out| (the kernel keeps p unrounded where the plain version
-    rounds p/l to bf16), lse within 1e-3, gradients within 2e-2 (both round
-    p and ds to bf16 once; a different f32 sum can round the other way).
-    Two runs bitwise equal."""
+    1e-2 of max |out| (the wgmma kernel rounds p/l to bf16 as the plain
+    version does; the mma.sync kernel keeps p unrounded), lse within 1e-3,
+    gradients within 2e-2 (both round p and ds to bf16 once; a different f32
+    sum can round the other way). Two runs bitwise equal; every call on the
+    kernel its plan names (bf16 main shapes: wgmma). bf16 times at every
+    shape but D 32: both kernels, the backward as the MAE step runs it
+    (the wrapper writing dq, dk, dv into the thirds of one qkv gradient, with
+    delta), the mma.sync kernels on the same inputs (forward, with its
+    error against the plain version; backward with attention_delta and
+    autograd's concat), SDPA's forward and
+    backward (separate leaves, and one qkv leaf through chunked views: that
+    one includes the concat)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0,
-               "max_abs_err": 0.0} for k in ("fwd", "bwd")}
+               "max_abs_err": 0.0, "mma_sync_ms": 0.0} for k in ("fwd", "bwd")}
+    tot["fwd"]["mma_sync_err"] = 0.0
+    tot["bwd"].update(step_ms=0.0, library_qkv_ms=0.0)
     shapes = [(name, shape, count) for name, (shape, count) in ATTN_MAIN.items()]
     shapes += [(name, shape, 0) for name, shape in ATTN_EXTRA.items()]
+    fns = (sa.short_attention_fwd, sa.short_attention_bwd)
     for name, (b, n, h, d), count in shapes:
         scale = d**-0.5
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
+            plan = sa.short_plan(dtype, d, n, n)
             qkv = torch.randn((b, n, 3 * h * d), device=dev, generator=g).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)
             do = torch.randn((b, n, h * d), device=dev, generator=g).to(dtype)
+            before = [dict(f.kernel_launches) for f in fns]
             out, lse = sa.short_attention_fwd(q, k, v, h, scale)
             out2, lse2 = sa.short_attention_fwd(q, k, v, h, scale)
             want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, h, scale)
@@ -355,8 +398,8 @@ def phase_short_attention(torch, sa) -> dict:
             require(torch.equal(out, out2) and torch.equal(lse, lse2),
                     f"{tag}: fwd not deterministic")
             delta = sa.attention_delta(do, want_out, h)
-            grads = sa.short_attention_bwd(q, k, v, do, want_lse, delta, h, scale)
-            again = sa.short_attention_bwd(q, k, v, do, want_lse, delta, h, scale)
+            grads = sa.short_attention_bwd(q, k, v, do, want_lse, want_out, h, scale)
+            again = sa.short_attention_bwd(q, k, v, do, want_lse, want_out, h, scale)
             want = sa.short_attention_bwd_plain(q, k, v, do, want_lse, delta, h, scale)
             gerr = 0.0
             for gname, got, ref, rep in zip(("dq", "dk", "dv"), grads, want, again):
@@ -365,46 +408,100 @@ def phase_short_attention(torch, sa) -> dict:
                 require(e <= band, f"{tag}: {gname} error {e:.3e} > {band:.3e}")
                 require(torch.equal(got, rep), f"{tag}: {gname} not deterministic")
                 gerr = max(gerr, e)
+            for f, was in zip(fns, before):
+                require(f.kernel_launches == dict(was, **{plan.kernel: was[plan.kernel] + 2}),
+                        f"{tag}: launches {f.kernel_launches}, expected 2 more on {plan.kernel}")
             print(f"[short_attention] {name} {(b, n, h * d)} D{d} {str(dtype)[6:]}: max abs error "
-                  f"out {oerr:.3e}, lse {lerr:.3e}, grads {gerr:.3e}; deterministic", flush=True)
+                  f"out {oerr:.3e}, lse {lerr:.3e}, grads {gerr:.3e}; deterministic; "
+                  + short_plan_line(sa, torch, plan, b, n, h, d), flush=True)
             if count and not f32:  # the main path's shapes and dtype
+                require(plan.kernel == "wgmma", f"{tag}: plan {plan}")
                 tot["fwd"]["max_abs_err"] = max(tot["fwd"]["max_abs_err"], oerr)
                 tot["bwd"]["max_abs_err"] = max(tot["bwd"]["max_abs_err"], gerr)
             if f32 or name == "ragged D32":
                 continue
-            # library yardstick: SDPA on the (B, H, N, D) view, fwd and its autograd bwd
+            # library yardsticks: SDPA on the (B, H, N, D) views, forward and its
+            # autograd backward from separate leaves and from one qkv leaf
             view = lambda t: t.reshape(b, n, h, d).transpose(1, 2)
             lq, lk, lv = (view(t).detach().requires_grad_(True) for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+            lqkv = qkv.detach().requires_grad_(True)
+            lib_qkv_out = F.scaled_dot_product_attention(*(view(t) for t in lqkv.chunk(3, dim=-1)),
+                                                         scale=scale)
             ldo = view(do)
+            dqkv_views = torch.empty_like(qkv).chunk(3, dim=-1)
+
+            def step_bwd():  # as the MAE step runs it: a new qkv gradient, its thirds written
+                dqkv = torch.empty_like(qkv)
+                return sa.short_attention_bwd(q, k, v, do, lse, out, h, scale,
+                                              *dqkv.chunk(3, dim=-1))
+
+            mma = sa.short_plan(dtype, 32, n, n)  # the mma.sync kernels, same inputs
+            mma_out, mma_lse = sa.launch_fwd(mma, q, k, v, h, scale)
+            mma_err = (mma_out.float() - want_out.float()).abs().max().item()
+            mma_lerr = (mma_lse - want_lse).abs().max().item()
+            print(f"[short_attention] {name} {(b, n, h * d)} bf16 forward max abs error against "
+                  f"the plain version: {plan.kernel} out {oerr:.3e}, lse {lerr:.3e}; mma.sync on "
+                  f"the same inputs out {mma_err:.3e}, lse {mma_lerr:.3e}", flush=True)
+            if count:
+                tot["fwd"]["mma_sync_err"] = max(tot["fwd"]["mma_sync_err"], mma_err)
+            del mma_out, mma_lse
+
+            def mma_bwd():  # their backward: attention_delta, two kernels, autograd's concat
+                return torch.cat(sa.launch_bwd(mma, q, k, v, do, lse, out, h, scale), -1)
+
             ms_f = event_ms(torch, lambda: sa.short_attention_fwd(q, k, v, h, scale))
-            ms_b = event_ms(torch, lambda: sa.short_attention_bwd(q, k, v, do, lse, delta, h, scale))
+            ms_b = event_ms(torch, lambda: sa.short_attention_bwd(q, k, v, do, lse, out, h, scale,
+                                                                  *dqkv_views))
+            ms_step = event_ms(torch, step_bwd)
+            mma_f = event_ms(torch, lambda: sa.launch_fwd(mma, q, k, v, h, scale))
+            mma_b = event_ms(torch, mma_bwd)
             pl_f = event_ms(torch, lambda: sa.short_attention_fwd_plain(q, k, v, h, scale), reps=3)
             pl_b = event_ms(torch, lambda: sa.short_attention_bwd_plain(q, k, v, do, lse, delta, h,
                                                                         scale), reps=3)
             lib_f = event_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale))
             lib_b = event_ms(torch, lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo,
                                                                 retain_graph=True))
+            lib_bq = event_ms(torch, lambda: torch.autograd.grad(lib_qkv_out, lqkv, ldo,
+                                                                 retain_graph=True))
             work = attention_work(b, n, h, d, 2)
-            for kdir, ms, pl, lib in (("fwd", ms_f, pl_f, lib_f), ("bwd", ms_b, pl_b, lib_b)):
+            for kdir, ms, pl, lib, mms in (("fwd", ms_f, pl_f, lib_f, mma_f),
+                                           ("bwd", ms_b, pl_b, lib_b, mma_b)):
                 nbytes, flops = work[kdir]
                 bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-                print(f"[short_attention {kdir}] {name} {(b, n, h * d)} bf16 x{count}/step: kernel "
-                      f"{ms:.4f} ms, plain {pl:.4f} ms, library {lib:.4f} ms, bound "
-                      f"{bms * 1e3:.1f} us ({by}), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+                print(f"[short_attention {kdir}] {name} {(b, n, h * d)} bf16 x{count}/step: "
+                      f"{plan.kernel} kernel {ms:.4f} ms, mma.sync {mms:.4f} ms, plain "
+                      f"{pl:.4f} ms, SDPA {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by}), "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
                 t = tot[kdir]
                 t["ms"] += count * ms
                 t["plain_ms"] += count * pl
                 t["library_ms"] += count * lib
+                t["mma_sync_ms"] += count * mms
                 t["bytes"] += count * nbytes
                 t["flops"] += count * flops
-            del lq, lk, lv, lib_out
+            tot["bwd"]["step_ms"] += count * ms_step
+            tot["bwd"]["library_qkv_ms"] += count * lib_bq
+            print(f"[short_attention bwd] {name} {(b, n, h * d)} bf16, the backward as the step "
+                  f"runs it (new qkv gradient, thirds written, delta inside): {ms_step:.4f} ms; "
+                  f"attention_delta + mma.sync + concat {mma_b:.4f} ms; SDPA backward from "
+                  f"one qkv leaf (with the concat) {lib_bq:.4f} ms, separate leaves {lib_b:.4f} "
+                  f"ms", flush=True)
+            del lq, lk, lv, lib_out, lqkv, lib_qkv_out
     for kdir, t in tot.items():
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOP_PER_S)
         print(f"[short_attention {kdir}] per MAE train step (24 encoder + 8 decoder calls, bf16): "
-              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
-              f"{t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.1f} GFLOP)", flush=True)
+              f"wgmma kernel {t['ms']:.3f} ms, mma.sync {t['mma_sync_ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} "
+              f"ms ({t['bound_by']}, {t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.1f} GFLOP)",
+              flush=True)
+    print(f"[short_attention fwd] max abs error of out at the MAE shapes: wgmma "
+          f"{tot['fwd']['max_abs_err']:.3e}, mma.sync on the same inputs "
+          f"{tot['fwd']['mma_sync_err']:.3e}", flush=True)
+    b_ = tot["bwd"]
+    print(f"[short_attention bwd] per MAE train step as the step runs it: wgmma "
+          f"{b_['step_ms']:.3f} ms (delta + mma.sync + concat {b_['mma_sync_ms']:.3f} ms); SDPA from one qkv leaf "
+          f"{b_['library_qkv_ms']:.3f} ms, separate leaves {b_['library_ms']:.3f} ms", flush=True)
     return tot
 
 
@@ -910,6 +1007,7 @@ def phase_scene_main(torch, counters, smi: str) -> dict:
     from kurosiwo_torch import bench
     from kurosiwo_torch.inference import TilePredictor, predict_scene, vit_whole_scene
     from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.ops import short_attention as sa
 
     warmup, encodes = 3, 10
     sb = bench.setup_scene(1024)
@@ -947,6 +1045,9 @@ def phase_scene_main(torch, counters, smi: str) -> dict:
     require(out.shape == (1, 63 * 63, 1024) and bool(torch.isfinite(out).all().item()),
             f"1000x1000 encode output {tuple(out.shape)}")
     require(off == want, f"1000x1000 launches {off}, expected 24 short fwd and no flash")
+    require(sa.short_attention_fwd.kernel_launches["mma_sync"] == 24,
+            f"1000x1000 B4 kernels {sa.short_attention_fwd.kernel_launches}, expected the 24 "
+            f"forwards of 3,969 tokens on mma.sync")
     print(f"[main] scene ViT-L 1000x1000 (63x63 = 3,969 tokens, no 128-multiple block: off the "
           f"flash route): one encode with upload {ms:.2f} ms, launches {off}", flush=True)
     del sb, out
@@ -1050,11 +1151,12 @@ MAE_SMALL = {"image_size": 112, "patch_size": 16, "dim": 128, "depth": 2, "heads
 MAE_LR = 1e-4
 
 
-def phase_mae_parity(torch) -> None:
+def phase_mae_parity(torch, counters) -> None:
     """One MAE train step at (4, 112, 112, 6) (49 patches, 13 kept, the
     ragged tiles of the main path's encoder), card (kernels) against CPU
     (plain versions), same weights, images and noise; in f32 (the SIMT
-    kernels) and in bf16 (the mma.sync kernels the main path runs). f32
+    kernels) and in bf16 (the wgmma kernels the main path runs: 3 B4 calls
+    each way, the encoder's 2 and the decoder's 1). f32
     bands as tests/test_torch_mae.py: loss rtol 1e-4; parameters all within
     2*lr and 99% within 0.3*lr (Adam's first update is about lr*sign(g)).
     bf16: loss rtol 2e-2 as test_bf16_mae_keeps_f32_masters_and_close_loss;
@@ -1078,7 +1180,9 @@ def phase_mae_parity(torch) -> None:
         for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
             state = create_train_state(model, cfg, {"learning_rate": MAE_LR}, task="mae")
             step = make_mae_train_step(model, accum=1, device=name)
+            zero_counters(counters)
             state, loss = step(state, {"image": images}, MAE_LR, noise=torch.from_numpy(noise))
+            by_kernel = read_kernel_counters(counters)
             res[name] = dict(loss=loss.item(),
                              params={k: v.detach().cpu() for k, v in model.named_parameters()},
                              grads={k: (torch.zeros_like(v) if v.grad is None else v.grad)
@@ -1086,6 +1190,11 @@ def phase_mae_parity(torch) -> None:
                                     for k, v in model.named_parameters()})
         c, g = res["cpu"], res["cuda"]
         tag = "bf16" if bf16 else "f32"
+        kernel = "wgmma" if bf16 else "simt"
+        want_k = dict.fromkeys(by_kernel, 0)
+        want_k.update({f"short_attention_fwd.{kernel}": 3, f"short_attention_bwd.{kernel}": 3})
+        require(by_kernel == want_k, f"MAE {tag} parity kernel launches {by_kernel}, expected 3 "
+                                     f"B4 calls each way on the {kernel} kernels")
         rtol = 2e-2 if bf16 else 1e-4
         require(abs(g["loss"] - c["loss"]) <= rtol * abs(c["loss"]),
                 f"MAE {tag} parity loss: {g['loss']} vs {c['loss']}")
@@ -1115,15 +1224,22 @@ def phase_mae_main(torch, counters, smi: str) -> dict:
     launches = read_counters(counters)
     n = warmup + steps
     require(bool(torch.isfinite(loss).item()), f"MAE loss not finite: {loss.item()}")
+    by_kernel = read_kernel_counters(counters)
     want = {name: 0 for name in counters}
     want.update(short_attention_fwd=32 * n, short_attention_bwd=32 * n)
     require(launches == want, f"MAE launches {launches}, expected 32 fwd / 32 bwd per step "
                               f"over {n} steps")
+    want_k = dict.fromkeys(by_kernel, 0)
+    want_k.update({"short_attention_fwd.wgmma": 32 * n, "short_attention_bwd.wgmma": 32 * n})
+    require(by_kernel == want_k, f"MAE kernel launches {by_kernel}, expected every B4 call on "
+                                 f"the wgmma kernels")
     print(f"[main] MAE ViT-L b{batch} bf16: {steps * batch / seconds:.2f} patches/s "
           f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches {launches} "
-          f"over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
-          flush=True)
-    return launches
+          f"over {n} steps (short_attention_fwd.wgmma {by_kernel['short_attention_fwd.wgmma']}, "
+          f"short_attention_bwd.wgmma {by_kernel['short_attention_bwd.wgmma']}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+    return {name: by_kernel[f"{name}.wgmma"]
+            for name in ("short_attention_fwd", "short_attention_bwd")}
 
 
 def bank_counts_all(metric, pixels: int) -> bool:
@@ -1146,7 +1262,7 @@ def read_counters(counters) -> dict:
 
 def read_kernel_counters(counters) -> dict:
     """{"<wrapper>.<kernel>": launches} of the wrappers that count by kernel
-    (B5, B6 and B7)."""
+    (B4, B5, B6 and B7)."""
     return {f"{name}.{k}": n for name, fn in counters.items()
             for k, n in getattr(fn, "kernel_launches", {}).items()}
 
@@ -1269,7 +1385,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_parity(torch, counters)
         phase_parity(torch, counters, routes=True)
-        phase_mae_parity(torch)
+        phase_mae_parity(torch, counters)
         phase_scene_parity(torch, fa)
         unet = phase_main_path(torch, counters, smi)
         launches, routed = unet["train"], unet["train_routes"]
@@ -1300,12 +1416,21 @@ def main() -> int:
             ce["fwd"], launches["ce_cm_fwd_nhwc"]),
         row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
             ce["bwd"], launches["ce_cm_bwd_nhwc"]),
-        row("short_attention_fwd (per MAE train step: 24 encoder + 8 decoder calls)",
-            "kurosiwo_torch/csrc/short_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:259",
-            attn["fwd"], mae_launches["short_attention_fwd"]),
-        row("short_attention_bwd (per MAE train step: 24 encoder + 8 decoder calls)",
-            "kurosiwo_torch/csrc/short_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:283",
-            attn["bwd"], mae_launches["short_attention_bwd"]),
+        dict(row("short_attention_fwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
+                 "decoder calls)", "kurosiwo_torch/csrc/short_attention.cu",
+                 "kurosiwo_tpu/ops/pallas_attention.py:259", attn["fwd"],
+                 mae_launches["short_attention_fwd"]),
+             mma_sync_ms=attn["fwd"]["mma_sync_ms"],
+             mma_sync_max_abs_err=attn["fwd"]["mma_sync_err"]),
+        dict(row("short_attention_bwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
+                 "decoder calls; step_backward_ms: as the step runs it, into the qkv gradient's "
+                 "thirds; library_qkv_backward_ms: SDPA's from one qkv leaf, with the concat)",
+                 "kurosiwo_torch/csrc/short_attention.cu",
+                 "kurosiwo_tpu/ops/pallas_attention.py:283", attn["bwd"],
+                 mae_launches["short_attention_bwd"]),
+             step_backward_ms=attn["bwd"]["step_ms"],
+             library_qkv_backward_ms=attn["bwd"]["library_qkv_ms"],
+             mma_sync_backward_ms=attn["bwd"]["mma_sync_ms"]),
         row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
             "scene encode)",
             "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",

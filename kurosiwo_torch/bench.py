@@ -278,7 +278,7 @@ def run_eval(b: Bench, steps: int, warmup: int, f32: bool = False):
 _CATEGORIES = (  # kernel-name substrings -> what the time is spent on
     ("pair_sums kernel", ("pair_partials", "pair_finalize")),
     ("ce_cm kernel", ("ce_cm_", "ce_bwd")),
-    ("short_attention kernel", ("attn_fwd", "attn_bwd")),
+    ("short_attention kernel", ("attn_fwd", "attn_bwd", "short_fwd", "short_bwd")),
     ("flash_attention kernel", ("flash_fwd", "flash_dq", "flash_dkv")),
     ("conv kernels (B6, B7)", ("conv3x3", "conv_dw", "stats_fold", "dw_fold")),
     ("convolution / matmul (cuDNN, cuBLAS)", ("conv", "cudnn", "nvjet", "xmma", "gemm", "sm90_",

@@ -2,7 +2,8 @@
 // (wgmma) on operands in 128-byte-swizzled shared memory, fed by TMA tile
 // copies whose completion is counted on mbarriers. Users: the 3x3
 // convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7) and the bf16 flash
-// attention kernels at D 64 and 128 (flash_attention.cu: B5).
+// attention kernels at D 64 and 128 (flash_attention.cu: B5) and short-
+// sequence attention kernels (short_attention.cu: B4).
 //
 // Shared-memory operand layout ("B128 tiles"). A tile is stored in 128-byte
 // rows of 64 bf16 values, in atoms of 8 rows (1024 bytes, 1024-byte
@@ -269,6 +270,45 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 32, f32) += A (64 x 16) B (16 x 32), both bf16 from shared memory;
+// fragment layout as wgmma_m64n128k16, with n8 blocks j < 4. Narrow products
+// keep an accumulator in 16 registers (short_attention.cu's backward).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 16, f32) += A (64 x 16) B (16 x 16), both bf16 from shared memory;
+// fragment layout as wgmma_m64n128k16, with n8 blocks j < 2 (a head's last
+// keys when they fill only 16 of a 64-key block).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

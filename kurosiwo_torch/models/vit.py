@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_packed
+from ..ops.attention import attention_qkv
 from ..ops.layernorm import LayerNorm
 from ..ops.nn import Dense
 
@@ -53,8 +53,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         qkv = self.to_qkv(self.norm(x, dtype), dtype)
-        q, k, v = qkv.chunk(3, dim=-1)  # strided views: the kernel reads them in place
-        out = attention_packed(q, k, v, self.heads, scale=self.dim_head**-0.5)
+        # q, k, v are its column-thirds, read in place (and on the short route
+        # the backward writes their gradients into the thirds of one tensor)
+        out = attention_qkv(qkv, self.heads, scale=self.dim_head**-0.5)
         return self.to_out(out, dtype) if self.to_out is not None else out
 
 

@@ -12,6 +12,14 @@ Routing (the JAX package's ``:55-79`` and ``:105-129``), by shape alone:
     through its plain version;
   * anything else: plain einsum attention with f32 scores, as the JAX
     package's fallback.
+
+``attention_qkv`` takes the packed qkv projection (B, N, 3*H*D) whole: on
+the short route its custom VJP (``short_attention_qkv``) writes dq, dk and
+dv into the thirds of one qkv gradient; the flash and einsum routes take
+the thirds as ``attention_packed`` does. ``attention_packed``'s short route
+(``short_attention``, separate q, k, v) is for attention whose q and k/v
+come from different projections: the change-detection transformers'
+cross-attention and reduced keys (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention
-from .short_attention import HEAD_DIMS, _heads_view, short_attention
+from .short_attention import HEAD_DIMS, _heads_view, short_attention, short_attention_qkv
 
 _FLASH_MIN_SEQ = 1024
 
@@ -39,6 +47,12 @@ def _pick_block(n: int, want: int = 256) -> int | None:
 def _flash_route(n: int, nk: int) -> bool:
     return (n >= _FLASH_MIN_SEQ and nk >= _FLASH_MIN_SEQ
             and _pick_block(n) is not None and _pick_block(nk) is not None)
+
+
+def _short_route(n: int, nk: int, d: int, inner: int) -> bool:
+    """Whether packed attention of Nq = n, Nk = nk, D = d, H*D = inner takes
+    the short-sequence kernel: not the flash route, and a D and H*D it takes."""
+    return not _flash_route(n, nk) and d in HEAD_DIMS and inner % 128 == 0
 
 
 def _einsum_attention(q, k, v, scale):
@@ -71,8 +85,18 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
         out = flash_attention(_heads_view(q, heads), _heads_view(k, heads), _heads_view(v, heads),
                               scale)
         return out.transpose(1, 2).reshape(b, n, inner)
-    if d in HEAD_DIMS and inner % 128 == 0:
+    if _short_route(n, k.shape[1], d, inner):
         return short_attention(q, k, v, heads, scale)
     out = _einsum_attention(_heads_view(q, heads), _heads_view(k, heads), _heads_view(v, heads),
                             scale)
     return out.transpose(1, 2).reshape(b, n, inner)
+
+
+def attention_qkv(qkv: torch.Tensor, heads: int, scale: float | None = None) -> torch.Tensor:
+    """Multi-head self-attention on the packed projection (B, N, 3*H*D),
+    q, k, v its column-thirds -> (B, N, H*D)."""
+    n, inner = qkv.shape[1], qkv.shape[-1] // 3
+    d = inner // heads
+    if _short_route(n, n, d, inner):
+        return short_attention_qkv(qkv, heads, d**-0.5 if scale is None else scale)
+    return attention_packed(*qkv.chunk(3, dim=-1), heads, scale)

@@ -113,16 +113,23 @@ def _close(got, want, band):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nq,nk,heads,d", [(3, 49, 49, 4, 64), (2, 77, 77, 8, 32),
                                              (2, 130, 20, 2, 64), (1, 5, 200, 1, 128),
-                                             (2, 196, 196, 16, 64)])
+                                             (2, 196, 196, 16, 64), (1, 300, 300, 2, 64)])
 def test_short_attention_kernel_matches_plain(dev, b, nq, nk, heads, d, dtype):
-    """Bands as chip_smoke.py: f32 out and lse 1e-5, grads 1e-4 of each
-    tensor's largest value (f32 sums in another order, online softmax);
-    bf16 out 1e-2, lse 1e-3, grads 2e-2 (the kernel keeps p unrounded in
-    the forward; one bf16 rounding of p and ds in both backwards)."""
+    """Each call on the kernel its plan names: f32 the simt kernels; bf16 at
+    D 64 with Nq, Nk <= 256 and at D 128 with Nk <= 128 the wgmma kernels,
+    else (D 32, (1, 300, 300) past 256 keys, (1, 5, 200) at D 128) the
+    mma.sync ones. Bands as chip_smoke.py: f32 out and lse 1e-5, grads 1e-4
+    of each tensor's largest value (f32 sums in another order, online
+    softmax); bf16 out 1e-2, lse 1e-3, grads 2e-2 (the mma.sync forward
+    divides by l at the end where the plain version rounds p/l; one bf16
+    rounding of p and ds in every backward)."""
     q, k, v, do = _attention_inputs(dev, b, nq, nk, heads, d, dtype, seed=nq + nk)
     scale = d**-0.5
     f32 = dtype == torch.float32
+    kernel = sa.short_plan(dtype, d, nq, nk).kernel
+    assert kernel == ("simt" if f32 else "wgmma" if sa.wgmma_takes(d, nq, nk) else "mma_sync")
     n0 = sa.short_attention_fwd.launches, sa.short_attention_bwd.launches
+    k0 = [f.kernel_launches[kernel] for f in (sa.short_attention_fwd, sa.short_attention_bwd)]
     out, lse = sa.short_attention_fwd(q, k, v, heads, scale)
     want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, heads, scale)
     assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (b, heads, nq)
@@ -130,16 +137,18 @@ def test_short_attention_kernel_matches_plain(dev, b, nq, nk, heads, d, dtype):
     assert (lse - want_lse).abs().max().item() <= (1e-5 * want_lse.abs().max().item() if f32
                                                    else 1e-3)
     delta = sa.attention_delta(do, want_out, heads)
-    got = sa.short_attention_bwd(q, k, v, do, want_lse, delta, heads, scale)
+    got = sa.short_attention_bwd(q, k, v, do, want_lse, want_out, heads, scale)
     want = sa.short_attention_bwd_plain(q, k, v, do, want_lse, delta, heads, scale)
     for g_, w_ in zip(got, want):
         assert g_.dtype == dtype
         _close(g_, w_, 1e-4 if f32 else 2e-2)
-    again = sa.short_attention_bwd(q, k, v, do, want_lse, delta, heads, scale)
+    again = sa.short_attention_bwd(q, k, v, do, want_lse, want_out, heads, scale)
     assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic
     assert torch.equal(out, sa.short_attention_fwd(q, k, v, heads, scale)[0])
     assert (sa.short_attention_fwd.launches, sa.short_attention_bwd.launches) == (n0[0] + 2,
                                                                                  n0[1] + 2)
+    assert [f.kernel_launches[kernel] for f in (sa.short_attention_fwd,
+                                                sa.short_attention_bwd)] == [k0[0] + 2, k0[1] + 2]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -177,6 +186,112 @@ def test_short_attention_wrappers_raise_on_layouts_they_do_not_take(dev):
     with pytest.raises(ValueError, match="16-byte"):
         u = torch.randn(2, 8, 130, device=dev).to(torch.bfloat16)[..., 2:]
         sa.short_attention_fwd(u, u, u, 2, 1.0)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,d", [(64, 49, 49, 16, 64), (64, 196, 196, 16, 64),
+                                             (2, 200, 130, 4, 64), (3, 13, 13, 2, 64),
+                                             (2, 77, 120, 4, 128), (2, 40, 40, 2, 128),
+                                             (2, 70, 70, 2, 128), (2, 256, 128, 2, 128)])
+def test_wgmma_short_attention_matches_plain(dev, b, nq, nk, heads, d):
+    """The Hopper kernels (wgmma fed by TMA) at the MAE ViT-L b64 encoder and
+    decoder shapes (resident blocks walking the items; the decoder's 196
+    keys end in a 16-key block), a ragged Nq != Nk shape, the small MAE's 13
+    tokens and D 128, where (2, 256, 128) holds one item stage in the
+    forward (one block an item) and one of K and V in the backward: bands as
+    test_short_attention_kernel_matches_plain (bf16), two runs bitwise equal
+    (no float atomics), every call on the wgmma kernels. Self-attention
+    shapes read q, k, v as the thirds of one qkv tensor and write dq, dk, dv
+    into the thirds of one gradient."""
+    q, k, v, do = _attention_inputs(dev, b, nq, nk, heads, d, torch.bfloat16, seed=3 * nq + nk)
+    if nq == nk:
+        q, k, v = torch.cat([q, k, v], -1).chunk(3, dim=-1)
+    scale = d**-0.5
+    plan = sa.short_plan(torch.bfloat16, d, nq, nk)
+    assert plan.kernel == "wgmma"
+    n0 = [dict(f.kernel_launches) for f in (sa.short_attention_fwd, sa.short_attention_bwd)]
+    out, lse = sa.launch_fwd(plan, q, k, v, heads, scale)
+    want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, heads, scale)
+    _close(out, want_out, 1e-2)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    out2, lse2 = sa.launch_fwd(plan, q, k, v, heads, scale)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want = sa.short_attention_bwd_plain(q, k, v, do, want_lse,
+                                        sa.attention_delta(do, want_out, heads), heads, scale)
+    views = [None] * 3
+    if nq == nk:
+        dqkv = torch.full((b, nq, 3 * heads * d), float("nan"), device=dev, dtype=torch.bfloat16)
+        views = dqkv.chunk(3, dim=-1)
+    got = sa.launch_bwd(plan, q, k, v, do, want_lse, want_out, heads, scale, *views)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 2e-2)
+    again = sa.launch_bwd(plan, q, k, v, do, want_lse, want_out, heads, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for f, before in zip((sa.short_attention_fwd, sa.short_attention_bwd), n0):
+        assert f.kernel_launches == dict(before, wgmma=before["wgmma"] + 2)
+
+
+def test_short_plan_footprint_is_the_kernels_own(dev):
+    for d, nq, nk in ((64, 49, 49), (64, 196, 196), (64, 200, 130), (64, 13, 13),
+                      (128, 77, 120), (128, 40, 40), (128, 70, 70), (128, 256, 128)):
+        plan = sa.short_plan(torch.bfloat16, d, nq, nk)
+        smem, blocks = sa.kernel_footprint("fwd", d, nq, nk)
+        assert smem == plan.fwd_smem and blocks >= 1
+        smem, blocks = sa.kernel_footprint("bwd", d, nq, nk)
+        assert smem == plan.bwd_smem and blocks >= 1
+    assert sa.kernel_footprint("bwd", 64, 49, 49)[1] == 2  # the encoder's: two an SM
+
+
+def test_short_wrappers_raise_and_do_not_retry(dev):
+    """A plan forced onto a call its kernel does not take raises from the C
+    entry point before any launch: no counter moves, no other kernel runs."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    fns = (sa.short_attention_fwd, sa.short_attention_bwd)
+    before = [(f.launches, dict(f.kernel_launches)) for f in fns]
+    refused = "launch: CUDA error 1 "
+    wgmma = sa.short_plan(torch.bfloat16, 64, 49, 49)
+    cases = [(wgmma, 64, 300, torch.bfloat16),  # wgmma past 256 keys
+             (wgmma, 32, 49, torch.bfloat16),  # wgmma at D 32
+             (wgmma, 128, 130, torch.bfloat16),  # wgmma at D 128 past 128 keys
+             (wgmma, 64, 49, torch.float32),  # wgmma on f32
+             (sa.short_plan(torch.float32, 64, 49, 49), 64, 49, torch.bfloat16),  # simt on bf16
+             (sa.short_plan(torch.bfloat16, 32, 49, 49), 64, 49, torch.float32)]  # mma_sync on f32
+    for plan, d, n, dtype in cases:
+        heads = 256 // d
+        q, k, v, do = (torch.randn(2, n, 256, device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        lse = torch.zeros(2, heads, n, device=dev)
+        with pytest.raises(RuntimeError, match=f"forward {plan.kernel} " + refused):
+            sa.launch_fwd(plan, q, k, v, heads, 1.0)
+        with pytest.raises(RuntimeError, match=f"backward {plan.kernel} " + refused):
+            sa.launch_bwd(plan, q, k, v, do, lse, q, heads, 1.0)
+    assert [(f.launches, f.kernel_launches) for f in fns] == before
+
+
+def test_short_attention_qkv_on_the_card(dev):
+    """The packed-qkv custom VJP on the wgmma kernels: no split or concat
+    node between the output and the qkv leaf (the backward writes dq, dk, dv
+    into the thirds of one gradient), and dqkv within the bf16 band of the
+    plain version's on the same card inputs."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, n, heads, d = 4, 49, 4, 64
+    qkv = torch.randn(b, n, 3 * heads * d, device=dev, generator=g).to(torch.bfloat16)
+    do = torch.randn(b, n, heads * d, device=dev, generator=g).to(torch.bfloat16)
+    leaf = qkv.clone().requires_grad_(True)
+    n0 = dict(sa.short_attention_bwd.kernel_launches)
+    out = sa.short_attention_qkv(leaf, heads)
+    node = out.grad_fn
+    assert "ShortAttentionQKV" in type(node).__name__
+    assert [type(f).__name__ for f, _ in node.next_functions if f is not None] == \
+        ["AccumulateGrad"]
+    out.backward(do)
+    assert sa.short_attention_bwd.kernel_launches == dict(n0, wgmma=n0["wgmma"] + 1)
+    q, k, v = qkv.chunk(3, dim=-1)
+    want_out, want_lse = sa.short_attention_fwd_plain(q, k, v, heads, d**-0.5)
+    want = sa.short_attention_bwd_plain(q, k, v, do, want_lse,
+                                        sa.attention_delta(do, want_out, heads), heads, d**-0.5)
+    _close(out.detach(), want_out, 1e-2)
+    for got, ref in zip(leaf.grad.chunk(3, dim=-1), want):
+        _close(got, ref, 2e-2)
 
 
 # ---------------------------------------------------------------- B5 flash

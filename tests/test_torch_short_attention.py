@@ -66,7 +66,7 @@ def test_short_attention_fwd_bwd_match_pallas_f32(b, nq, nk, heads, d):
     np.testing.assert_allclose(got_lse.numpy(), lse, atol=1e-5, rtol=0)
     got_delta = tsa.attention_delta(tdo, got_out, heads)
     np.testing.assert_allclose(got_delta.numpy(), delta, atol=1e-5, rtol=0)
-    got = tsa.short_attention_bwd(tq, tk, tv, tdo, got_lse, got_delta, heads, scale)
+    got = tsa.short_attention_bwd(tq, tk, tv, tdo, got_lse, got_out, heads, scale)
     for g, want, name in zip(got, grads, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), want, atol=1e-4, rtol=0, err_msg=name)
 
@@ -95,11 +95,87 @@ def test_short_attention_bf16_matches_pallas(b, nq, nk, heads, d):
     assert got_out.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
     np.testing.assert_allclose(got_out.float().numpy(), out, atol=1e-2 * np.abs(out).max())
     np.testing.assert_allclose(got_lse.numpy(), lse, atol=1e-4, rtol=0)
-    got = tsa.short_attention_bwd(tq, tk, tv, tdo, got_lse, torch.from_numpy(delta), heads, scale)
+    # JAX's delta is sum_d(do * out) of its own bf16 out: hand the wrapper that out
+    jout = torch.from_numpy(out).to(torch.bfloat16)
+    np.testing.assert_allclose(tsa.attention_delta(tdo, jout, heads).numpy(), delta, atol=1e-5,
+                               rtol=0)  # the same f32 products, summed in another order
+    got = tsa.short_attention_bwd(tq, tk, tv, tdo, got_lse, jout, heads, scale)
     for g, want, name in zip(got, grads, ("dq", "dk", "dv")):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), want, atol=1e-2 * np.abs(want).max(),
                                    err_msg=name)
+
+
+def _grad_views(b, nq, nk, hd):
+    """dq, dk, dv as views the wrapper writes into: the column-thirds of one
+    (B, N, 3*H*D) qkv gradient where Nq == Nk, else strided views of wider
+    buffers."""
+    if nq == nk:
+        buf = torch.full((b, nq, 3 * hd), float("nan"))
+        return buf, buf.chunk(3, dim=-1)
+    bq, bk = torch.full((b, nq, 2 * hd), float("nan")), torch.full((b, nk, 3 * hd), float("nan"))
+    return None, (bq[..., hd:], bk[..., :hd], bk[..., 2 * hd:])
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,d", CASES)
+def test_short_attention_bwd_from_out_into_views_matches_pallas(b, nq, nk, heads, d):
+    """The backward wrapper takes the forward's out (delta is computed from
+    it) and writes dq, dk and dv into the caller's views, against
+    _short_bwd_local in interpret mode fed JAX's own delta."""
+    q, k, v, do = _inputs(b, nq, nk, heads, d, seed=3 * nq + nk)
+    scale = d**-0.5
+    out, lse, _, grads = _jax_fwd_bwd(q, k, v, do, heads, scale, jnp.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    buf, views = _grad_views(b, nq, nk, heads * d)
+    got = tsa.short_attention_bwd(tq, tk, tv, tdo, torch.from_numpy(lse), torch.from_numpy(out),
+                                  heads, scale, *views)
+    for g, view, want, name in zip(got, views, grads, ("dq", "dk", "dv")):
+        assert g is view
+        np.testing.assert_allclose(view.numpy(), want, atol=1e-4, rtol=0, err_msg=name)
+    if buf is not None:
+        np.testing.assert_allclose(buf.numpy(), np.concatenate(grads, -1), atol=1e-4, rtol=0)
+
+
+def _jax_qkv_vjp(q, k, v, do, heads):
+    """JAX's custom-VJP short attention (Pallas kernels in interpret mode):
+    out and the concatenation of its dq, dk, dv."""
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    fn = lambda a, b_, c: jpa.short_attention(a, b_, c, heads, None, True)
+    out, vjp = jax.vjp(fn, jq, jk, jv)
+    return np.asarray(out), np.concatenate([np.asarray(g) for g in vjp(jdo)], -1)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,d", [c for c in CASES if c[1] == c[2]])
+def test_short_attention_qkv_matches_pallas_vjp(b, nq, nk, heads, d):
+    """short_attention_qkv on the packed projection: out and its dqkv (the
+    three gradients written into the thirds of one tensor) against the
+    concatenation of JAX's custom-VJP dq, dk, dv, f32 on the CPU."""
+    q, k, v, do = _inputs(b, nq, nk, heads, d, seed=5 * nq + d)
+    want_out, want_dqkv = _jax_qkv_vjp(q, k, v, do, heads)
+    qkv = torch.from_numpy(np.concatenate([q, k, v], -1)).requires_grad_(True)
+    out = tsa.short_attention_qkv(qkv, heads)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=1e-5, rtol=0)
+    out.backward(torch.from_numpy(do))
+    assert qkv.grad.shape == qkv.shape and qkv.grad.is_contiguous()
+    np.testing.assert_allclose(qkv.grad.numpy(), want_dqkv, atol=1e-4, rtol=0)
+
+
+def test_attention_qkv_routes_by_shape(monkeypatch):
+    """attention_qkv sends short-route shapes to short_attention_qkv (one
+    autograd node on the whole projection) and the others through the
+    thirds, as attention_packed does."""
+    calls = []
+    real = tattn.short_attention_qkv
+    monkeypatch.setattr(tattn, "short_attention_qkv", lambda *a: calls.append(1) or real(*a))
+    rs = np.random.RandomState(1)
+    for n, heads, d, short in ((16, 2, 64, True), (16, 3, 16, False)):
+        x = rs.randn(2, n, 3 * heads * d).astype(np.float32)
+        qkv = torch.from_numpy(x).requires_grad_(True)
+        out = tattn.attention_qkv(qkv, heads)
+        want = tattn.attention_packed(*torch.from_numpy(x).chunk(3, dim=-1), heads)
+        np.testing.assert_allclose(out.detach().numpy(), want.numpy(), atol=1e-6, rtol=0)
+        assert ("ShortAttentionQKV" in type(out.grad_fn).__name__) == short
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("n,heads,d", [(16, 2, 64), (16, 3, 16), (10, 2, 48), (49, 16, 64)])
