@@ -11,6 +11,12 @@ its lines; any failed phase exits non-zero.
    runs bitwise equal, and times (kernel, plain version, one library call)
    beside the bound of the card (3.35 TB/s HBM, 67 TFLOP/s f32 outside the
    tensor cores; H100 SXM data sheet).
+   The CE + confusion-matrix kernels (B2 NHWC, B1 PHASE) at the main
+   shape in f32 and bf16 on the unit their plan picked (the vector unit:
+   16-byte words of 8 pixels or 4 phase cells), with its grid, blocks an SM
+   and registers a thread; then a ragged (3, 18, 22) (NHWC's 4-pixel tail,
+   PHASE's scalar unit), an all-ignore batch and a logits view off the
+   16-byte grid (the scalar unit).
    The short-sequence attention kernels (B4), forward and backward, at the
    MAE ViT-L batch-64 shapes (encoder q/k/v (64, 49, 1024), decoder
    (64, 196, 1024), H 16, D 64) in f32 and bf16, and at a ragged D-32 and a
@@ -54,7 +60,7 @@ its lines; any failed phase exits non-zero.
    bf16 UNet train steps (3 warm-up, 10 timed), then the bf16 eval and the
    f32-twin eval, then the train step with the conv kernel routes on (the
    wgmma B6 8 times and the wgmma B7 5 times a step, by their own
-   counters); then
+   counters; every CE+cm launch of the three on the vector unit); then
    the MAE ViT-L batch-64 bf16 train step (3 warm-up, 10 timed; every B4
    call on the wgmma kernels, 32 each way a step); then
    serving: the ViT-L encode of a 1024x1024 scene (4,096 tokens; 3 warm-up,
@@ -226,46 +232,98 @@ def phase_pair_sums(torch, batchnorm) -> dict:
     return tot
 
 
+# B1/B2's bf16 times at the main shape before the vector units (one pixel a
+# thread, a second launch for the fold), recorded from an earlier run of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W; printed for reference,
+# never measured here
+EARLIER_CE_CM_MS = {"nhwc": {"fwd": 0.0498, "bwd": 0.0545},
+                    "phase": {"fwd": 0.0760, "bwd": 0.0874}}
+# (name, (B, H, W), offset of the logits in their buffer, all labels ignored):
+# the checks beside the main shape, in f32 and bf16. (3, 18, 22) leaves NHWC a
+# 4-pixel tail and sends PHASE (W/2 odd) to the scalar unit; the offset view
+# sits off the 16-byte grid (the scalar unit)
+CE_CM_EXTRA = [("ragged", (3, 18, 22), 0, False), ("all-ignore", (4, IMAGE, IMAGE), 0, True),
+               ("misaligned view", (4, IMAGE, IMAGE), 1, False)]
+
+
+def ce_cm_inputs(torch, dev, g, layout, dtype, b, h, w, offset=0, ignore_all=False):
+    shape = (b, h, w, 3) if layout == "nhwc" else (b, h // 2, w // 2, 12)
+    buf = torch.randn(b * h * w * 3 + offset, device=dev, generator=g).to(dtype)
+    labels = torch.randint(0, 4, (b, h, w), device=dev, generator=g, dtype=torch.int32)
+    if ignore_all:
+        labels.fill_(3)
+    return buf[offset:].view(shape), labels
+
+
+def ce_cm_check(torch, fused_tail, layout, logits, labels, cw, tag) -> tuple[float, float, str]:
+    """One forward and one backward against the plain versions, twice each
+    (bitwise equal), one launch each on the unit the call's plan names.
+    Returns (loss error, dlogits error, unit)."""
+    nhwc = layout == "nhwc"
+    fwd = fused_tail.ce_cm_fwd_nhwc if nhwc else fused_tail.ce_cm_fwd_phase
+    bwd = fused_tail.ce_cm_bwd_nhwc if nhwc else fused_tail.ce_cm_bwd_phase
+    plain_f = fused_tail.ce_cm_forward_plain if nhwc else fused_tail.ce_cm_phase_forward_plain
+    plain_b = fused_tail.ce_cm_backward_plain if nhwc else fused_tail.ce_cm_phase_backward_plain
+    b, h, w = labels.shape
+    plan = fused_tail.ce_cm_plan(b * h * w, h, w, fused_tail.NHWC if nhwc else fused_tail.PHASE,
+                                 logits.dtype, fused_tail.alignment(logits, labels))
+    before = [dict(f.kernel_launches) for f in (fwd, bwd)]
+    loss, cm, tw = fwd(logits, labels, cw)
+    loss2, cm2, tw2 = fwd(logits, labels, cw)
+    rl, rcm, rtw = plain_f(logits, labels, cw)
+    lerr = abs(loss.item() - rl.item())
+    require(lerr <= 1e-5 * abs(rl.item()), f"ce_cm {tag}: loss error {lerr:.3e}")
+    require(abs(tw.item() - rtw.item()) <= 1e-5 * rtw.item(), f"ce_cm {tag}: weight sum")
+    require(torch.equal(cm, rcm), f"ce_cm {tag}: cm {cm.tolist()} != {rcm.tolist()}")
+    require(torch.equal(loss, loss2) and torch.equal(cm, cm2) and torch.equal(tw, tw2),
+            f"ce_cm {tag} forward not deterministic")
+    gs = (1.0 / tw).reshape(1)
+    d = bwd(logits, labels, cw, gs)
+    d2 = bwd(logits, labels, cw, gs)
+    rd = plain_b(logits, labels, cw, gs)
+    derr = (d.float() - rd.float()).abs().max().item()
+    band = (1e-5 if logits.dtype == torch.float32 else 1e-2) * rd.float().abs().max().item()
+    require(d.dtype == logits.dtype and d.shape == logits.shape, f"ce_cm {tag}: dlogits layout")
+    require(derr <= band, f"ce_cm {tag}: dlogits error {derr:.3e} > {band:.3e}")
+    require(torch.equal(d, d2), f"ce_cm {tag} backward not deterministic")
+    for f, was in zip((fwd, bwd), before):
+        require(f.kernel_launches == dict(was, **{plan.kernel: was[plan.kernel] + 2}),
+                f"ce_cm {tag}: launches {f.kernel_launches}, expected 2 more on {plan.kernel}")
+    return lerr, derr, plan.kernel
+
+
 def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
-    """CE+cm forward and backward at the main path's logits shape. Bands:
-    loss and weight sum rtol 1e-5 (f32 sums in another order), cm exact,
-    dlogits within 1e-5 (f32) or 1e-2 (bf16, one rounding) of max |dlogits|."""
+    """CE+cm forward and backward at the main path's logits shape, in f32 and
+    bf16 on the vector unit, then CE_CM_EXTRA. Bands: loss and weight sum
+    rtol 1e-5 (f32 sums in another order), cm exact, dlogits within 1e-5
+    (f32) or 1e-2 (bf16, one rounding) of max |dlogits|."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     nhwc = layout == "nhwc"
-    shape = (BATCH, IMAGE, IMAGE, 3) if nhwc else (BATCH, IMAGE // 2, IMAGE // 2, 12)
+    lay = fused_tail.NHWC if nhwc else fused_tail.PHASE
     fwd = fused_tail.ce_cm_fwd_nhwc if nhwc else fused_tail.ce_cm_fwd_phase
     bwd = fused_tail.ce_cm_bwd_nhwc if nhwc else fused_tail.ce_cm_bwd_phase
     plain_f = fused_tail.ce_cm_forward_plain if nhwc else fused_tail.ce_cm_phase_forward_plain
     plain_b = fused_tail.ce_cm_backward_plain if nhwc else fused_tail.ce_cm_phase_backward_plain
-    labels = torch.randint(0, 4, (BATCH, IMAGE, IMAGE), device=dev, generator=g,
-                           dtype=torch.int32)
     cw = torch.tensor(CW, device=dev)
     out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
+    n = BATCH * IMAGE * IMAGE
     for dtype in (torch.float32, torch.bfloat16):
-        logits = torch.randn(shape, device=dev, generator=g).to(dtype)
-        loss, cm, tw = fwd(logits, labels, cw)
-        loss2, cm2, tw2 = fwd(logits, labels, cw)
-        rl, rcm, rtw = plain_f(logits, labels, cw)
-        lerr = abs(loss.item() - rl.item())
-        require(lerr <= 1e-5 * abs(rl.item()), f"ce_cm {layout} {dtype}: loss error {lerr:.3e}")
-        require(abs(tw.item() - rtw.item()) <= 1e-5 * rtw.item(), f"ce_cm {layout}: weight sum")
-        require(torch.equal(cm, rcm), f"ce_cm {layout} {dtype}: cm {cm.tolist()} != {rcm.tolist()}")
-        require(torch.equal(loss, loss2) and torch.equal(cm, cm2) and torch.equal(tw, tw2),
-                f"ce_cm {layout} forward not deterministic")
-        gs = (1.0 / tw).reshape(1)
-        d = bwd(logits, labels, cw, gs)
-        d2 = bwd(logits, labels, cw, gs)
-        rd = plain_b(logits, labels, cw, gs)
-        derr = (d.float() - rd.float()).abs().max().item()
-        band = (1e-5 if dtype == torch.float32 else 1e-2) * rd.float().abs().max().item()
-        require(d.dtype == dtype and d.shape == logits.shape, f"ce_cm {layout}: dlogits layout")
-        require(derr <= band, f"ce_cm {layout} {dtype}: dlogits error {derr:.3e} > {band:.3e}")
-        require(torch.equal(d, d2), f"ce_cm {layout} backward not deterministic")
+        logits, labels = ce_cm_inputs(torch, dev, g, layout, dtype, BATCH, IMAGE, IMAGE)
+        shape = tuple(logits.shape)
+        lerr, derr, unit = ce_cm_check(torch, fused_tail, layout, logits, labels, cw,
+                                       f"{layout} {dtype}")
+        require(unit == "vector", f"ce_cm {layout} {dtype}: main shape on the {unit} unit")
         out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], lerr)
         out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], derr)
+        plan = fused_tail.ce_cm_plan(n, IMAGE, IMAGE, lay, dtype, 16)
+        grids = [fused_tail.ce_cm_grid(f, lay, dtype, plan, n, IMAGE, IMAGE) for f in (1, 0)]
+        print(f"[ce_cm {layout} plan] {shape} {str(dtype)[6:]}: {plan.kernel} unit of "
+              f"{plan.unit} px, {plan.units} units + {plan.tail} tail px; "
+              + "; ".join(f"{k} grid {gb} ({ps} blocks/SM), {rg} registers/thread"
+                          for k, (gb, ps, rg) in zip(("fwd", "bwd"), grids)), flush=True)
         if dtype != torch.bfloat16:
             continue
         # library yardstick: F.cross_entropy(weight, ignore_index=3) + bincount, on the
@@ -279,6 +337,7 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
             cmv = torch.bincount(lab64 * 4 + flat.detach().argmax(-1), minlength=16)
             return lv, cmv
 
+        gs = (1.0 / fwd(logits, labels, cw)[2]).reshape(1)
         lib_loss, _ = lib_fwd()
         fwd_ms = event_ms(torch, lambda: fwd(logits, labels, cw))
         bwd_ms = event_ms(torch, lambda: bwd(logits, labels, cw, gs))
@@ -286,7 +345,6 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
         plain_bwd_ms = event_ms(torch, lambda: plain_b(logits, labels, cw, gs))
         lib_fwd_ms = event_ms(torch, lib_fwd)
         lib_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(lib_loss, flat, retain_graph=True))
-        n = labels.numel()
         in_bytes = logits.numel() * logits.element_size() + n * 4
         fb, fby = bound(in_bytes + 18 * 4, 40 * n)
         bb, bby = bound(in_bytes + logits.numel() * logits.element_size(), 30 * n)
@@ -296,10 +354,22 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
                           bound_ms=bb, bound_by=bby)
         for k in ("fwd", "bwd"):
             o = out[k]
-            print(f"[ce_cm {layout} {k}] {tuple(shape)} bf16: kernel {o['ms']:.4f} ms, plain "
+            print(f"[ce_cm {layout} {k}] {shape} bf16: kernel {o['ms']:.4f} ms "
+                  f"({o['bound_ms'] / o['ms'] * 100:.1f}% of the bound), plain "
                   f"{o['plain_ms']:.4f} ms, library {o['library_ms']:.4f} ms, bound "
                   f"{o['bound_ms'] * 1e3:.1f} us", flush=True)
         del flat, lib_loss
+    for name, (b, h, w), offset, ignore_all in CE_CM_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits, labels = ce_cm_inputs(torch, dev, g, layout, dtype, b, h, w, offset,
+                                          ignore_all)
+            tag = f"{layout} {name} {(b, h, w)} {str(dtype)[6:]}"
+            lerr, derr, unit = ce_cm_check(torch, fused_tail, layout, logits, labels, cw, tag)
+            print(f"[ce_cm {layout}] {name} {(b, h, w)} {str(dtype)[6:]}: {unit} unit, loss "
+                  f"error {lerr:.3e}, dlogits error {derr:.3e}", flush=True)
+    earlier = EARLIER_CE_CM_MS[layout]
+    print(f"[ce_cm {layout}] before the vector units (recorded, not measured here): fwd "
+          f"{earlier['fwd']:.4f} ms, bwd {earlier['bwd']:.4f} ms", flush=True)
     print(f"[ce_cm {layout}] max abs error: loss {out['fwd']['max_abs_err']:.3e}, "
           f"dlogits {out['bwd']['max_abs_err']:.3e}; cm exact; deterministic", flush=True)
     return out
@@ -1124,8 +1194,13 @@ def phase_parity(torch, counters, routes: bool = False) -> None:
     require(routed == ((8, 5) if routes else (0, 0)),
             f"parity train step launched B6 {routed[0]}, B7 {routed[1]} times")
     simt = (by_kernel["conv3x3_bn_stats.simt"], by_kernel["conv3x3_dw.simt"])
-    require(simt == routed and sum(by_kernel.values()) == sum(routed),
-            f"parity train step (f32) launched B6/B7 kernels {by_kernel}")
+    conv_k = {k: v for k, v in by_kernel.items() if k.startswith("conv3x3")}
+    require(simt == routed and sum(conv_k.values()) == sum(routed),
+            f"parity train step (f32) launched B6/B7 kernels {conv_k}")
+    ce_k = {k: v for k, v in by_kernel.items() if k.startswith("ce_cm")}
+    require(ce_k == dict.fromkeys(ce_k, 0) | {"ce_cm_fwd_nhwc.vector": 1,
+                                              "ce_cm_bwd_nhwc.vector": 1},
+            f"parity train step launched CE+cm units {ce_k}, expected one vector each way")
     params = {k for k, _ in cpu_model.named_parameters()}
     for key in ("loss", "eloss"):
         require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), f"parity {key}: {g[key]} vs {c[key]}")
@@ -1267,6 +1342,14 @@ def read_kernel_counters(counters) -> dict:
             for k, n in getattr(fn, "kernel_launches", {}).items()}
 
 
+def require_ce_units(counters, want: dict, tag: str) -> None:
+    """Every CE+cm launch of a main-path run on the vector unit: ``want``
+    {wrapper: launches}, every other CE+cm wrapper and unit 0."""
+    got = {k: v for k, v in read_kernel_counters(counters).items() if k.startswith("ce_cm")}
+    expect = dict.fromkeys(got, 0) | {f"{name}.vector": n for name, n in want.items()}
+    require(got == expect, f"{tag}: CE+cm launches by unit {got}, expected {expect}")
+
+
 def phase_main_path(torch, counters, smi: str) -> dict:
     from kurosiwo_torch import bench
 
@@ -1283,6 +1366,7 @@ def phase_main_path(torch, counters, smi: str) -> dict:
     want = {name: 0 for name in counters}
     want.update(pair_sums=60 * n, ce_cm_fwd_nhwc=n, ce_cm_bwd_nhwc=n)
     require(launches == want, f"train launches {launches}, expected 60/1/1 per step over {n} steps")
+    require_ce_units(counters, {"ce_cm_fwd_nhwc": n, "ce_cm_bwd_nhwc": n}, "train")
     require(bank_counts_all(metric, n * valid), "train cm bank does not count every valid pixel")
     out["train"] = launches
     print(f"[main] train b{BATCH} bf16: {steps * BATCH / seconds:.2f} patches/s "
@@ -1302,6 +1386,7 @@ def phase_main_path(torch, counters, smi: str) -> dict:
         want = {name: 0 for name in counters}
         want.update(ce_cm_fwd_nhwc=2 * n)
         require(launches == want, f"eval {tag} launches {launches}")
+        require_ce_units(counters, {"ce_cm_fwd_nhwc": 2 * n}, f"eval {tag}")
         require(bank_counts_all(metric, n * valid), f"eval {tag} cm bank count")
         out[f"eval_{tag}"] = launches
         print(f"[main] eval b{BATCH} {tag}: {steps * BATCH / seconds:.2f} patches/s "
@@ -1325,9 +1410,11 @@ def phase_main_path(torch, counters, smi: str) -> dict:
                               f"5 B7 and 1/1 CE+cm per step over {n} steps")
     by_kernel = read_kernel_counters(counters)
     want_k = dict.fromkeys(by_kernel, 0)
-    want_k.update({"conv3x3_bn_stats.wgmma": 8 * n, "conv3x3_dw.wgmma": 5 * n})
+    want_k.update({"conv3x3_bn_stats.wgmma": 8 * n, "conv3x3_dw.wgmma": 5 * n,
+                   "ce_cm_fwd_nhwc.vector": n, "ce_cm_bwd_nhwc.vector": n})
     require(by_kernel == want_k, f"routed train kernel launches {by_kernel}, expected the "
-                                 f"wgmma B6 8 and the wgmma B7 5 times per step over {n} steps")
+                                 f"wgmma B6 8 and the wgmma B7 5 times and the CE+cm vector "
+                                 f"unit once each way per step over {n} steps")
     out["train_routes_kernels"] = by_kernel
     require(bank_counts_all(metric, n * valid), "routed train cm bank count")
     out["train_routes"] = launches
@@ -1359,6 +1446,8 @@ def main() -> int:
     counters = {"pair_sums": batchnorm.pair_sums,
                 "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
                 "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc,
+                "ce_cm_fwd_phase": fused_tail.ce_cm_fwd_phase,
+                "ce_cm_bwd_phase": fused_tail.ce_cm_bwd_phase,
                 "short_attention_fwd": sa.short_attention_fwd,
                 "short_attention_bwd": sa.short_attention_bwd,
                 "flash_attention_fwd": fa.flash_attention_fwd,
@@ -1376,6 +1465,7 @@ def main() -> int:
         phase = phase_ce_cm(torch, fused_tail, "phase")
         print(f"[ce_cm phase] PHASE instantiation (no port path launches it yet): fwd "
               f"{phase['fwd']['ms']:.4f} ms, bwd {phase['bwd']['ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
         attn = phase_short_attention(torch, sa)
         flash = phase_flash_attention(torch, fa)
         torch.cuda.empty_cache()
@@ -1406,9 +1496,9 @@ def main() -> int:
 
     table = {"kernels": [
         row("ce_cm_fwd_phase (no port path launches it)", "kurosiwo_torch/csrc/ce_cm.cu",
-            "kurosiwo_tpu/ops/pallas_tail.py:305", phase["fwd"], 0),
+            "kurosiwo_tpu/ops/pallas_tail.py:305", phase["fwd"], launches["ce_cm_fwd_phase"]),
         row("ce_cm_bwd_phase (no port path launches it)", "kurosiwo_torch/csrc/ce_cm.cu",
-            "kurosiwo_tpu/ops/pallas_tail.py:345", phase["bwd"], 0),
+            "kurosiwo_tpu/ops/pallas_tail.py:345", phase["bwd"], launches["ce_cm_bwd_phase"]),
         row("pair_sums (per train step: 30 fwd + 30 bwd calls)",
             "kurosiwo_torch/csrc/pair_sums.cu", "kurosiwo_tpu/ops/pallas_bn.py:48", pair,
             launches["pair_sums"]),

@@ -12,6 +12,11 @@ Counterpart of ``kurosiwo_tpu/ops/pallas_tail.py``:
   PHASE instantiation over ``ops/phase.py``'s layout. No path of the port
   launches it yet: the port's UNet has no phase-space head.
 
+On the card each call takes the unit that ``ce_cm_plan`` names: 16-byte
+loads of 8 pixels (NHWC) or 4 phase cells (PHASE) where shape and pointers
+allow, one pixel otherwise. The forward is one launch, its cross-block fold
+included; the grid is every block the card holds at once.
+
 Loss math is ``ops/losses.cross_entropy_loss`` (f32 logsumexp on upcast
 logits, torch's weight-sum denominator clamped at 1e-12); the cm is
 ``ops/metrics.confusion_matrix`` of the first-max argmax, as f32 counts
@@ -21,6 +26,9 @@ metric bank and the class weights are constants.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -29,8 +37,12 @@ from .phase import depth_to_space, space_to_depth
 
 IGNORE_INDEX = 3
 NHWC, PHASE = 0, 1
-_TARGET_BLOCKS = 132 * 8
-_THREADS = 256
+# the units of csrc/ce_cm.cu, by their number there
+CE_CM_KERNELS = {"scalar": 0, "vector": 1}
+VECTOR_BYTES = 16  # the vector unit's loads and stores
+_PARTS = 11  # a forward block's partials: num, den, 9 cm cells
+_MAX_BLOCKS_PER_SM = 8  # 256-thread blocks an H100 SM holds at most (2048 threads)
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +86,42 @@ def ce_cm_phase_backward_plain(z, labels, cw, gscale):
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+
+class CECMPlan(NamedTuple):
+    kernel: str  # the unit, a key of CE_CM_KERNELS
+    unit: int    # pixels a thread takes at a time
+    units: int   # whole units of the call
+    tail: int    # pixels past the last whole unit, one a thread, in the same launch
+
+
+@functools.lru_cache(maxsize=None)
+def ce_cm_plan(n: int, h: int, w: int, layout: int, dtype: torch.dtype, align: int) -> CECMPlan:
+    """The csrc/ce_cm.cu unit of a call over n = B*H*W labels, whose logits,
+    labels (and dlogits) share ``align`` bytes of alignment. The vector unit
+    reads 16-byte words: 8 consecutive pixels in NHWC (any n >= 8; the n mod
+    8 last pixels are the tail), 4 consecutive phase cells (16 pixels of two
+    label rows) in PHASE, which needs W % 8 == 0. Other calls take the same
+    kernel with a unit of one pixel (element loads). The C entry points
+    refuse a unit that does not fit the call (the wrapper raises)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ce_cm_plan: no kernel takes {dtype}")
+    if layout not in (NHWC, PHASE) or min(n, h, w) < 1 or n % (h * w) \
+            or (layout == PHASE and (h % 2 or w % 2)):
+        raise ValueError(f"ce_cm_plan: no kernel takes n = {n}, H = {h}, W = {w}, "
+                         f"layout {layout}")
+    if align % VECTOR_BYTES or (n < 8 if layout == NHWC else w % 8):
+        return CECMPlan("scalar", 1, n, 0)
+    unit = 8 if layout == NHWC else 16
+    return CECMPlan("vector", unit, n // unit, n % unit)
+
+
+def alignment(*ts: torch.Tensor) -> int:
+    """The tensors' common alignment in bytes, at most VECTOR_BYTES."""
+    return min(min(t.data_ptr() & -t.data_ptr(), VECTOR_BYTES) for t in ts)
+
+
+# ---------------------------------------------------------------------------
 # kernel launches
 
 def _lib():
@@ -82,11 +130,43 @@ def _lib():
     lib = kernels.library("ce_cm")
     if lib.ks_ce_cm_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ks_ce_cm_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, p]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ks_ce_cm_fwd.argtypes = [p, p, p, p, i, p, ll, i, i, i, i, i, p]
         lib.ks_ce_cm_fwd.restype = i
         lib.ks_ce_cm_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
         lib.ks_ce_cm_bwd.restype = i
+        lib.ks_ce_cm_grid.argtypes = [i, i, i, i, ll, i, i, ip, ip, ip]
+        lib.ks_ce_cm_grid.restype = i
     return lib
+
+
+def ce_cm_grid(fwd: bool, layout: int, dtype: torch.dtype, plan: CECMPlan, n: int, h: int,
+               w: int) -> tuple[int, int, int]:
+    """(blocks, blocks one SM holds, registers a thread) of the built kernel
+    that ``plan`` names, on the current card: the grid its launch takes."""
+    import ctypes
+
+    out = [ctypes.c_int(0) for _ in range(3)]
+    lib = _lib()
+    err = lib.ks_ce_cm_grid(int(fwd), layout, int(dtype == torch.bfloat16),
+                            CE_CM_KERNELS[plan.kernel], n, h, w, *map(ctypes.byref, out))
+    kernels.check(lib, err, "ce_cm grid")
+    return tuple(v.value for v in out)
+
+
+def _workspace(device: torch.device) -> torch.Tensor:
+    """The forward's int32 workspace on the current stream: word 0 the
+    ticket, then _PARTS words for each block the card can hold at once.
+    Zeroed once; the last block of each launch sets the ticket back to 0, so
+    the launches of one stream share it and another stream has its own."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        ws = torch.zeros(1 + _PARTS * _MAX_BLOCKS_PER_SM * sms, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def _check_inputs(logits, labels, cw, layout):
@@ -107,78 +187,86 @@ def _check_inputs(logits, labels, cw, layout):
     n = b * h * w
     if n == 0:
         raise ValueError("ce_cm: empty input")
-    return n, h, w, max(1, min(_TARGET_BLOCKS, -(-n // _THREADS)))
+    return n, h, w
 
 
 def _forward_cuda(logits, labels, cw, layout):
-    n, h, w, nblk = _check_inputs(logits, labels, cw, layout)
-    dev = logits.device
-    part_f = torch.empty((nblk, 2), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nblk, 9), dtype=torch.int32, device=dev)
-    out = torch.empty((18,), dtype=torch.float32, device=dev)
+    n, h, w = _check_inputs(logits, labels, cw, layout)
+    plan = ce_cm_plan(n, h, w, layout, logits.dtype, alignment(logits, labels))
+    ws = _workspace(logits.device)
+    out = torch.empty((18,), dtype=torch.float32, device=logits.device)
     lib = _lib()
     err = lib.ks_ce_cm_fwd(
-        logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), part_f.data_ptr(),
-        part_i.data_ptr(), out.data_ptr(), n, h, w, layout,
-        int(logits.dtype == torch.bfloat16), nblk, kernels.stream_ptr(logits),
+        logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), ws.data_ptr(),
+        (ws.numel() - 1) // _PARTS, out.data_ptr(), n, h, w, layout,
+        int(logits.dtype == torch.bfloat16), CE_CM_KERNELS[plan.kernel],
+        kernels.stream_ptr(logits),
     )
-    kernels.check(lib, err, "ce_cm forward launch")
-    return out[0], out[2:].reshape(4, 4), out[1]
+    kernels.check(lib, err, f"ce_cm forward {plan.kernel} launch")
+    return (out[0], out[2:].reshape(4, 4), out[1]), plan
 
 
 def _backward_cuda(logits, labels, cw, gscale, layout):
-    n, h, w, nblk = _check_inputs(logits, labels, cw, layout)
+    n, h, w = _check_inputs(logits, labels, cw, layout)
     if gscale.dtype != torch.float32 or gscale.numel() != 1 or gscale.device != logits.device:
         raise TypeError("ce_cm backward takes a one-element f32 gscale on the logits' device")
     d = torch.empty_like(logits)
+    plan = ce_cm_plan(n, h, w, layout, logits.dtype, alignment(logits, labels, d))
     lib = _lib()
     err = lib.ks_ce_cm_bwd(
         logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), gscale.data_ptr(), d.data_ptr(),
-        n, h, w, layout, int(logits.dtype == torch.bfloat16), nblk, kernels.stream_ptr(logits),
+        n, h, w, layout, int(logits.dtype == torch.bfloat16), CE_CM_KERNELS[plan.kernel],
+        kernels.stream_ptr(logits),
     )
-    kernels.check(lib, err, "ce_cm backward launch")
-    return d
+    kernels.check(lib, err, f"ce_cm backward {plan.kernel} launch")
+    return d, plan
 
 
 # ---------------------------------------------------------------------------
 # counted wrappers: a CPU tensor takes the plain version, a CUDA tensor the
-# kernel; `.launches` counts kernel launches (forward: the partials launch
-# and its fixed-order reduce, counted as one)
+# kernel; `.launches` counts kernel launches (the forward is one launch, its
+# fold included), `.kernel_launches` them by the plan's unit
+
+def _counted(fn, plan):
+    fn.launches += 1
+    fn.kernel_launches[plan.kernel] += 1
+
 
 def ce_cm_fwd_nhwc(logits, labels, cw):
     if logits.device.type == "cpu":
         return ce_cm_forward_plain(logits, labels, cw)
-    out = _forward_cuda(logits, labels, cw, NHWC)
-    ce_cm_fwd_nhwc.launches += 1
+    out, plan = _forward_cuda(logits, labels, cw, NHWC)
+    _counted(ce_cm_fwd_nhwc, plan)
     return out
 
 
 def ce_cm_bwd_nhwc(logits, labels, cw, gscale):
     if logits.device.type == "cpu":
         return ce_cm_backward_plain(logits, labels, cw, gscale)
-    d = _backward_cuda(logits, labels, cw, gscale, NHWC)
-    ce_cm_bwd_nhwc.launches += 1
+    d, plan = _backward_cuda(logits, labels, cw, gscale, NHWC)
+    _counted(ce_cm_bwd_nhwc, plan)
     return d
 
 
 def ce_cm_fwd_phase(z, labels, cw):
     if z.device.type == "cpu":
         return ce_cm_phase_forward_plain(z, labels, cw)
-    out = _forward_cuda(z, labels, cw, PHASE)
-    ce_cm_fwd_phase.launches += 1
+    out, plan = _forward_cuda(z, labels, cw, PHASE)
+    _counted(ce_cm_fwd_phase, plan)
     return out
 
 
 def ce_cm_bwd_phase(z, labels, cw, gscale):
     if z.device.type == "cpu":
         return ce_cm_phase_backward_plain(z, labels, cw, gscale)
-    d = _backward_cuda(z, labels, cw, gscale, PHASE)
-    ce_cm_bwd_phase.launches += 1
+    d, plan = _backward_cuda(z, labels, cw, gscale, PHASE)
+    _counted(ce_cm_bwd_phase, plan)
     return d
 
 
 for _f in (ce_cm_fwd_nhwc, ce_cm_bwd_nhwc, ce_cm_fwd_phase, ce_cm_bwd_phase):
     _f.launches = 0
+    _f.kernel_launches = dict.fromkeys(CE_CM_KERNELS, 0)
 del _f
 
 _FWD = {NHWC: ce_cm_fwd_nhwc, PHASE: ce_cm_fwd_phase}

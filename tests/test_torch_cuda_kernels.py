@@ -46,35 +46,6 @@ def test_pair_sums_kernel_matches_plain(dev, shape, dtype):
     assert batchnorm.pair_sums.launches == n0 + 4
 
 
-@pytest.mark.parametrize("layout", ["nhwc", "phase"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ce_cm_kernels_match_plain(dev, layout, dtype):
-    g = torch.Generator(device=dev).manual_seed(1)
-    b, h, w = 3, 18, 22
-    shape = (b, h, w, 3) if layout == "nhwc" else (b, h // 2, w // 2, 12)
-    logits = torch.randn(shape, device=dev, generator=g).to(dtype)
-    labels = torch.randint(0, 4, (b, h, w), device=dev, generator=g, dtype=torch.int32)
-    cw = torch.tensor(CW, device=dev)
-    fwd = fused_tail.ce_cm_fwd_nhwc if layout == "nhwc" else fused_tail.ce_cm_fwd_phase
-    bwd = fused_tail.ce_cm_bwd_nhwc if layout == "nhwc" else fused_tail.ce_cm_bwd_phase
-    plain_f = (fused_tail.ce_cm_forward_plain if layout == "nhwc"
-               else fused_tail.ce_cm_phase_forward_plain)
-    plain_b = (fused_tail.ce_cm_backward_plain if layout == "nhwc"
-               else fused_tail.ce_cm_phase_backward_plain)
-    loss, cm, tw = fwd(logits, labels, cw)
-    rl, rcm, rtw = plain_f(logits, labels, cw)
-    torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
-    torch.testing.assert_close(tw, rtw, rtol=1e-5, atol=0)
-    assert torch.equal(cm, rcm)
-    gs = (1.0 / tw).reshape(1)
-    d = bwd(logits, labels, cw, gs)
-    rd = plain_b(logits, labels, cw, gs)
-    assert d.dtype == dtype and d.shape == logits.shape
-    tol = (1e-5 if dtype == torch.float32 else 1e-2) * rd.float().abs().max()
-    assert (d.float() - rd.float()).abs().max() <= tol
-    assert torch.equal(d, bwd(logits, labels, cw, gs))
-
-
 def test_fused_ce_cm_autograd_on_the_card(dev):
     g = torch.Generator(device=dev).manual_seed(2)
     logits = torch.randn(2, 16, 16, 3, device=dev, generator=g, requires_grad=True)
@@ -87,6 +58,171 @@ def test_fused_ce_cm_autograd_on_the_card(dev):
     torch.testing.assert_close(loss.cpu(), rl, rtol=1e-5, atol=0)
     assert torch.equal(cm.cpu(), rcm)
     torch.testing.assert_close(logits.grad.cpu(), ref.grad, rtol=0, atol=1e-6)
+
+
+def _ce_fns(layout):
+    if layout == "nhwc":
+        return (fused_tail.ce_cm_fwd_nhwc, fused_tail.ce_cm_bwd_nhwc,
+                fused_tail.ce_cm_forward_plain, fused_tail.ce_cm_backward_plain)
+    return (fused_tail.ce_cm_fwd_phase, fused_tail.ce_cm_bwd_phase,
+            fused_tail.ce_cm_phase_forward_plain, fused_tail.ce_cm_phase_backward_plain)
+
+
+def _ce_inputs(dev, layout, dtype, b, h, w, seed, ignore_all=False, offset=0):
+    """Logits (a contiguous view ``offset`` elements into its buffer, so a
+    non-zero offset leaves it off the 16-byte grid), int32 labels, weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, h, w, 3) if layout == "nhwc" else (b, h // 2, w // 2, 12)
+    numel = b * h * w * 3
+    buf = torch.randn(numel + offset, device=dev, generator=g).to(dtype)
+    logits = buf[offset:].view(shape)
+    labels = torch.randint(0, 4, (b, h, w), device=dev, generator=g, dtype=torch.int32)
+    if ignore_all:
+        labels.fill_(3)
+    return logits, labels, torch.tensor(CW, device=dev)
+
+
+def _ce_check(layout, dtype, logits, labels, cw, kernel):
+    """Kernel against plain: loss and weight sum rtol 1e-5 (f32 sums in
+    another order), cm exact, dlogits within 1e-5 (f32) or 1e-2 (bf16, one
+    rounding) of max |dlogits|; repeats bitwise equal; one launch each way
+    on the plan's unit."""
+    fwd, bwd, plain_f, plain_b = _ce_fns(layout)
+    b, h, w = labels.shape
+    lay = fused_tail.NHWC if layout == "nhwc" else fused_tail.PHASE
+    plan = fused_tail.ce_cm_plan(b * h * w, h, w, lay, dtype, fused_tail.alignment(logits, labels))
+    assert plan.kernel == kernel
+    n0 = [(f.launches, f.kernel_launches[kernel]) for f in (fwd, bwd)]
+    loss, cm, tw = fwd(logits, labels, cw)
+    rl, rcm, rtw = plain_f(logits, labels, cw)
+    torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(tw, rtw, rtol=1e-5, atol=0)
+    assert torch.equal(cm, rcm)
+    gs = (1.0 / tw).reshape(1)
+    d = bwd(logits, labels, cw, gs)
+    rd = plain_b(logits, labels, cw, gs)
+    assert d.dtype == dtype and d.shape == logits.shape
+    tol = (1e-5 if dtype == torch.float32 else 1e-2) * rd.float().abs().max()
+    assert (d.float() - rd.float()).abs().max() <= tol
+    assert [(f.launches, f.kernel_launches[kernel]) for f in (fwd, bwd)] == \
+        [(a + 1, k + 1) for a, k in n0]
+    again = fwd(logits, labels, cw)
+    assert all(torch.equal(x, y) for x, y in zip((loss, cm, tw), again))
+    assert torch.equal(d, bwd(logits, labels, cw, gs))
+    return loss, cm, tw, d
+
+
+# (B, H, W, unit of the NHWC call, unit of the PHASE call): the main shape;
+# the odd shapes (NHWC's vector unit with a 4-pixel tail, PHASE's scalar
+# unit, as W/2 is odd); a W % 8 == 0 PHASE shape with one unit per phase row
+CE_SHAPES = [((128, 224, 224), "vector", "vector"), ((3, 18, 22), "vector", "scalar"),
+             ((1, 12, 10), "vector", "scalar"), ((2, 6, 8), "vector", "vector"),
+             ((1, 2, 2), "scalar", "scalar")]
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "phase"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nhwc_kernel,phase_kernel", CE_SHAPES,
+                         ids=["x".join(map(str, c[0])) for c in CE_SHAPES])
+def test_ce_cm_kernels_match_plain(dev, shape, nhwc_kernel, phase_kernel, layout, dtype):
+    logits, labels, cw = _ce_inputs(dev, layout, dtype, *shape, seed=sum(shape))
+    _ce_check(layout, dtype, logits, labels, cw,
+              nhwc_kernel if layout == "nhwc" else phase_kernel)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "phase"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_cm_all_ignored_batch(dev, layout, dtype):
+    """No pixel counts: weight sum clamped to 1e-12, loss 0, cm 0, dlogits 0."""
+    logits, labels, cw = _ce_inputs(dev, layout, dtype, 4, 64, 64, seed=5, ignore_all=True)
+    loss, cm, tw, d = _ce_check(layout, dtype, logits, labels, cw, "vector")
+    assert loss.item() == 0.0 and tw.item() == pytest.approx(1e-12) and not cm.any()
+    assert not d.float().any()
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "phase"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_cm_misaligned_view_takes_the_scalar_unit(dev, layout, dtype):
+    logits, labels, cw = _ce_inputs(dev, layout, dtype, 2, 32, 32, seed=6, offset=1)
+    assert fused_tail.alignment(logits) < 16
+    _ce_check(layout, dtype, logits, labels, cw, "scalar")
+
+
+def test_ce_cm_ticket_resets_over_ten_calls(dev):
+    """The forward's last block folds the partials and sets the stream's
+    ticket back to 0: ten calls in a row, of two sizes (two grids), agree
+    bit for bit with the first."""
+    big = _ce_inputs(dev, "nhwc", torch.bfloat16, 16, 224, 224, seed=7)
+    small = _ce_inputs(dev, "nhwc", torch.bfloat16, 1, 40, 40, seed=8)
+    first = [fused_tail.ce_cm_fwd_nhwc(*x) for x in (big, small)]
+    for i in range(10):
+        got = fused_tail.ce_cm_fwd_nhwc(*(big if i % 2 else small))
+        want = first[0 if i % 2 else 1]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ws = fused_tail._workspace(big[0].device)
+    torch.cuda.synchronize()
+    assert ws[0].item() == 0
+
+
+def test_ce_cm_on_two_streams(dev):
+    """Each stream has its own ticket: calls queued on two streams at once
+    give the results of the same calls on the default stream."""
+    inputs = [_ce_inputs(dev, "nhwc", torch.bfloat16, 32, 224, 224, seed=9 + i) for i in range(2)]
+    want = [fused_tail.ce_cm_fwd_nhwc(*x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(5):
+        for i, (s, x) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(fused_tail.ce_cm_fwd_nhwc(*x))
+    torch.cuda.synchronize()
+    for w_, runs in zip(want, got):
+        for run in runs:
+            assert all(torch.equal(a, b) for a, b in zip(run, w_))
+    keys = {(dev.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(fused_tail._WORKSPACES)
+
+
+def test_ce_cm_entry_points_refuse_a_unit_that_does_not_fit(dev):
+    """The vector unit on a pointer off the 16-byte grid, or on a PHASE call
+    with W % 8 != 0, is refused before any launch."""
+    lib = fused_tail._lib()
+    logits, labels, cw = _ce_inputs(dev, "nhwc", torch.bfloat16, 2, 16, 16, seed=10, offset=1)
+    ws = fused_tail._workspace(logits.device)
+    out = torch.empty(18, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    vector = fused_tail.CE_CM_KERNELS["vector"]
+    err = lib.ks_ce_cm_fwd(logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), ws.data_ptr(),
+                           (ws.numel() - 1) // 11, out.data_ptr(), labels.numel(), 16, 16,
+                           fused_tail.NHWC, 1, vector, stream)
+    assert err != 0
+    z, lab, _ = _ce_inputs(dev, "phase", torch.bfloat16, 1, 12, 12, seed=11)
+    d = torch.empty_like(z)
+    gs = torch.ones(1, device=dev)
+    err = lib.ks_ce_cm_bwd(z.data_ptr(), lab.data_ptr(), cw.data_ptr(), gs.data_ptr(),
+                           d.data_ptr(), lab.numel(), 12, 12, fused_tail.PHASE, 1, vector, stream)
+    assert err != 0
+    # a workspace smaller than the grid
+    logits, labels, cw = _ce_inputs(dev, "nhwc", torch.bfloat16, 128, 224, 224, seed=12)
+    err = lib.ks_ce_cm_fwd(logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), ws.data_ptr(),
+                           1, out.data_ptr(), labels.numel(), 224, 224, fused_tail.NHWC, 1,
+                           vector, stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "phase"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_cm_grid_fills_the_card(dev, layout, dtype):
+    """At the main shape the grid is every block the card holds at once."""
+    lay = fused_tail.NHWC if layout == "nhwc" else fused_tail.PHASE
+    n = 128 * 224 * 224
+    plan = fused_tail.ce_cm_plan(n, 224, 224, lay, dtype, 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for fwd in (True, False):
+        blocks, per_sm, regs = fused_tail.ce_cm_grid(fwd, lay, dtype, plan, n, 224, 224)
+        assert 1 <= per_sm <= 8 and 0 < regs <= 255
+        assert blocks == per_sm * sms
 
 
 def test_kernel_wrappers_raise_on_layouts_they_do_not_take(dev):
