@@ -42,9 +42,12 @@ its lines; any failed phase exits non-zero.
    (128, 28, 28, 384)->128 and a ragged (2, 9, 11, 128)->128; each with
    the kernel its wrapper's plan picked (bf16 routed calls: the wgmma
    kernels), its grid and TFLOP/s; B8 (bias + ReLU epilogue, no port path)
-   at (128, 224, 224, 16)->16 and (128, 112, 112, 32)->32. Library
-   yardsticks: F.conv2d (no statistics), torch.nn.grad.conv2d_weight,
-   F.conv2d with bias and relu. Every device time is taken behind a sleep
+   at (128, 224, 224, 16)->16 and (128, 112, 112, 32)->32 and a ragged
+   (3, 21, 37, 32)->16, bf16 on the slab kernel (TMA halo slabs, wgmma, TMA
+   stores) beside the mma.sync kernel it replaced. Library yardsticks:
+   F.conv2d (no statistics),
+   torch.nn.grad.conv2d_weight, F.conv2d with bias and relu. Every device
+   time is taken behind a sleep
    kernel, so the host's launch overhead does not stand in for a short
    kernel's time.
 4. Slice parity: one f32 train step and one eval step of UNet-ResNet18 at
@@ -174,7 +177,7 @@ def phase_build(kernels) -> None:
     detail = ", ".join(f"{k}.cu {v:.1f}s" for k, v in sorted(per_source.items())) or "cached"
     print(f"[build] {total:.1f}s wall ({detail}) into {kernels.build_dir()}", flush=True)
     for name in ("pair_sums", "ce_cm", "short_attention", "flash_attention", "conv3x3",
-                 "conv_dw"):
+                 "conv_dw", "conv_fused"):
         kernels.library(name)
 
 
@@ -776,6 +779,8 @@ CONV_DW_RAGGED = ((2, 9, 11, 128, 128), 0)
 # NVIDIA H100 80GB HBM3 at 700 W; printed for reference, never measured here
 EARLIER_MS = {"conv3x3_bn_stats": 1.907, "conv3x3_dw": 1.585}
 CONV_FUSED_SHAPES = [(BATCH, 224, 224, 16, 16), (BATCH, 112, 112, 32, 32)]
+# a last band of 5 of the 8 rows, half bands of 4 x 37 pixels (no multiple of 64)
+CONV_FUSED_RAGGED = (3, 21, 37, 32, 16)
 ROUTES = {"conv_bn_kernel": True, "dw_kernel": True}
 
 
@@ -972,57 +977,109 @@ def phase_conv_dw(torch, conv_dw) -> dict:
 
 def phase_conv_fused(torch, conv_fused) -> dict:
     """B8 at the two small-channel decoder shapes, f32 and bf16, ReLU on and
-    off, against the plain version (bands of conv_close); two runs bitwise
-    equal. bf16 times with ReLU, one call at each shape; the library
-    yardstick is F.conv2d with bias, then relu."""
+    off, and at a ragged bf16 shape (a last band shorter than R, half bands
+    of 148 pixels: m64 tiles across output rows; edge pixels 64 times
+    larger, so a halo read from the wrong place shows), against the plain
+    version (bands of conv_close); two runs bitwise equal; bf16 on the slab
+    kernel and f32 on the CUDA-core kernel, by their counters. bf16 times
+    with ReLU, one call at each shape, in turn in this call: the slab
+    kernel, the mma.sync kernel it replaced (same inputs, its error too),
+    the library yardstick F.conv2d with bias, then relu, and the plain
+    version. The slab plan's grid is held to the kernel's own occupancy
+    (the blocks the card holds at once, no second wave). max_abs_err and
+    mma_sync_err are the main shapes'; the ragged shape's (64x edge pixels)
+    are ragged_max_abs_err and ragged_mma_sync_err."""
     import torch.nn.functional as F
 
     from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
-    tot = _new_stats()
-    for b, h, w, cin, cout in CONV_FUSED_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    tot = dict(_new_stats(), mma_sync_ms=0.0, mma_sync_err=0.0, copy_ms=0.0,
+               ragged_max_abs_err=0.0, ragged_mma_sync_err=0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, w, cin, cout in CONV_FUSED_SHAPES + [CONV_FUSED_RAGGED]:
+        main = (b, h, w, cin, cout) != CONV_FUSED_RAGGED
+        for dtype in (torch.float32, torch.bfloat16) if main else (torch.bfloat16,):
             bf16 = dtype == torch.bfloat16
-            x = torch.randn((b, h, w, cin), device=dev, generator=g).to(dtype)
+            x = torch.randn((b, h, w, cin), device=dev, generator=g)
+            if not main:
+                for edge in (x[:, 0], x[:, -1], x[:, :, 0], x[:, :, -1]):
+                    edge *= 64
+            x = x.to(dtype)
             wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (3 * cin**0.5)
             wt = wt.to(dtype)
             bias = 0.1 * torch.randn(cout, device=dev, generator=g)
             scale = conv3x3_plain_f32(x.abs(), wt.abs()) + bias.abs()
+            plan = conv_fused.conv3x3_fused_plan(dtype, b, h, w, cin, cout,
+                                                 x.data_ptr() % 16 == 0, sms)
+            require(plan.kernel == ("slab" if bf16 else "simt"),
+                    f"conv3x3_fused {(b, h, w, cin)}->{cout}: plan {plan}")
+            per_sm = conv_fused.slab_blocks_per_sm(w, cin, cout, plan.rows) if bf16 else 0
+            require(not bf16 or plan.grid == min(b * -(-h // plan.rows), sms * per_sm),
+                    f"conv3x3_fused {(b, h, w, cin)}->{cout}: grid {plan.grid}, not the "
+                    f"{sms} x {per_sm} blocks the card holds at once")
             for relu in (True, False):
                 tag = f"conv3x3_fused {(b, h, w, cin)}->{cout} {str(dtype)[6:]} relu={relu}"
+                k0 = conv_fused.conv3x3_fused.kernel_launches[plan.kernel]
                 got = conv_fused.conv3x3_fused(x, wt, bias, relu)
                 require(torch.equal(got, conv_fused.conv3x3_fused(x, wt, bias, relu)),
                         f"{tag}: not deterministic")
+                require(conv_fused.conv3x3_fused.kernel_launches[plan.kernel] == k0 + 2,
+                        f"{tag}: the {plan.kernel} kernel did not launch")
                 want = conv_fused.conv3x3_fused_plain(x, wt, bias, relu)
                 require(got.dtype == dtype and got.shape == (b, h, w, cout), f"{tag}: layout")
                 err = conv_close(torch, got, want, scale, bf16, tag)
-                print(f"[conv_fused] {tag}: max abs error {err:.3e}; deterministic", flush=True)
-                del got, want
+                print(f"[conv_fused] {tag}: kernel {plan.kernel}, max abs error {err:.3e}; "
+                      f"deterministic", flush=True)
+                key = "max_abs_err" if main else "ragged_max_abs_err"
+                if bf16:
+                    tot[key] = max(tot[key], err)
                 if not (bf16 and relu):
                     continue
-                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                mma_plan = plan._replace(kernel="mma_sync")
+                mma_err = conv_close(torch, conv_fused.launch_fused(mma_plan, x, wt, bias),
+                                     want, scale, True, tag + " mma_sync")
+                key = "mma_sync_err" if main else "ragged_mma_sync_err"
+                tot[key] = max(tot[key], mma_err)
+                desc = (f"slab kernel (bands of {plan.rows} rows, {conv_fused.SLABS} slabs in "
+                        f"flight, {plan.smem} shared bytes, grid {plan.grid} for "
+                        f"{b * -(-h // plan.rows)} bands, {per_sm} block(s) an SM at once)")
+                if not main:
+                    print(f"[conv_fused] {tag}: {desc}; mma.sync max abs error {mma_err:.3e}",
+                          flush=True)
+                    continue
                 ms = event_ms(torch, lambda: conv_fused.conv3x3_fused(x, wt, bias, True))
-                plain = event_ms(torch, lambda: conv_fused.conv3x3_fused_plain(x, wt, bias, True),
-                                 reps=3, calls=2)
+                mma = event_ms(torch, lambda: conv_fused.launch_fused(mma_plan, x, wt, bias))
                 xc = x.permute(0, 3, 1, 2)
                 wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 bc = bias.to(dtype)
                 lib = event_ms(torch, lambda: torch.relu(F.conv2d(xc, wc, bc, padding=1)))
+                plain = event_ms(torch, lambda: conv_fused.conv3x3_fused_plain(x, wt, bias, True),
+                                 reps=3, calls=2)
+                # the same bytes moved by a plain device copy (Cin = Cout: x into a y-sized
+                # buffer): the rate this card reaches for a stream in and a stream out
+                ybuf = torch.empty_like(x)
+                copy = event_ms(torch, lambda: ybuf.copy_(x))
+                del ybuf
                 nbytes = (x.numel() + wt.numel() + b * h * w * cout) * 2 + cout * 4
                 flops = 2.0 * b * h * w * 9 * cin * cout
                 bms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-                print(f"[conv_fused] {tag}: kernel {ms:.4f} ms "
-                      f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain:.4f} ms, library "
-                      f"(F.conv2d + relu) {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by})",
-                      flush=True)
+                print(f"[conv_fused] {tag}: {desc} {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                      f"{bms / ms:.0%} of the bound), the mma.sync kernel it replaced {mma:.4f} ms "
+                      f"(max abs error {mma_err:.3e}), library (F.conv2d + relu) {lib:.4f} ms, "
+                      f"plain {plain:.4f} ms, bound {bms * 1e3:.1f} us ({by}); a copy of x into "
+                      f"a y-sized buffer {copy:.4f} ms", flush=True)
                 _add_timing(tot, 1, ms, plain, lib, nbytes, flops)
+                tot["mma_sync_ms"] += mma
+                tot["copy_ms"] += copy
             del x, wt, scale
     _finish(tot, BF16_FLOP_PER_S)
-    print(f"[conv_fused] both shapes, one call each (bf16, ReLU): kernel {tot['ms']:.3f} ms, "
-          f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
-          f"{tot['bound_ms']:.3f} ms ({tot['bytes'] / 1e9:.3f} GB)", flush=True)
+    print(f"[conv_fused] both shapes, one call each (bf16, ReLU): slab kernel {tot['ms']:.3f} ms, "
+          f"mma.sync {tot['mma_sync_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"({tot['bytes'] / 1e9:.3f} GB), copies of the same bytes {tot['copy_ms']:.3f} ms",
+          flush=True)
     return tot
 
 
@@ -1549,9 +1606,14 @@ def main() -> int:
         row("conv3x3_dw (B7, the wgmma kernel; per train step with the conv routes on: 5 calls)",
             "kurosiwo_torch/csrc/conv_dw.cu", "kurosiwo_tpu/ops/pallas_dw.py:48", cdw,
             unet["train_routes_kernels"]["conv3x3_dw.wgmma"]),
-        row("conv3x3_fused (B8; no port path launches it; one call at each of "
-            "(128,224,224,16)->16 and (128,112,112,32)->32)", "kurosiwo_torch/csrc/conv3x3.cu",
-            "kurosiwo_tpu/ops/pallas_conv.py:40", cfu, routed["conv3x3_fused"]),
+        dict(row("conv3x3_fused (B8, the slab kernel: TMA halo slabs, resident weights, wgmma, "
+                 "TMA stores; no port path launches it; one call at each of (128,224,224,16)->16 "
+                 "and (128,112,112,32)->32; mma_sync_ms: the mma.sync kernel it replaced, same "
+                 "inputs)", "kurosiwo_torch/csrc/conv_fused.cu",
+                 "kurosiwo_tpu/ops/pallas_conv.py:40", cfu, routed["conv3x3_fused"]),
+             mma_sync_ms=cfu["mma_sync_ms"], mma_sync_max_abs_err=cfu["mma_sync_err"],
+             ragged_max_abs_err=cfu["ragged_max_abs_err"],
+             ragged_mma_sync_max_abs_err=cfu["ragged_mma_sync_err"]),
     ]}
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)

@@ -6,7 +6,8 @@
 //    kurosiwo_tpu/ops/pallas_conv_bn.py::conv3x3_bn_stats (:35; its inner
 //    `kernel`, launched at :115).
 //  * B8 (ks_conv3x3_bias_act): y = [relu](conv + bias) in x's dtype for any
-//    channel count. Replaces kurosiwo_tpu/ops/pallas_conv.py::_conv_kernel
+//    channel count: f32, and the bf16 calls that conv_fused.cu's slab kernel
+//    does not take. Replaces kurosiwo_tpu/ops/pallas_conv.py::_conv_kernel
 //    (conv3x3_fused, launched at :85).
 //
 // GEMM: M = output pixels (B*H*W), N = Cout, K = 9*Cin, walked in chunks of
@@ -39,9 +40,10 @@
 //    rows whose shifted pixel left the image (the halo) are zeroed in
 //    shared memory before the product. One barrier per 64-deep chunk, at
 //    most one wgmma group in flight.
-//  * tc_conv3x3 (the prologue variant and B8 in bf16): mma.sync m16n8k16
-//    with f32 accumulators, fragments by ldmatrix from padded tiles, two
-//    shared buffers with the next chunk's loads staged in registers.
+//  * tc_conv3x3 (the prologue variant, and B8 in bf16 off the slab kernel):
+//    mma.sync m16n8k16 with f32 accumulators, fragments by ldmatrix from
+//    padded tiles, two shared buffers with the next chunk's loads staged in
+//    registers.
 //  * simt_conv3x3 (f32): CUDA-core FMA (64x64 tiles, 4x4 per thread), so
 //    f32 results match the CPU's f32 with TF32 off.
 // The prologue runs in f32 on the loaded A vector of a pixel inside the

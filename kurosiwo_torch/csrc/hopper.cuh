@@ -1,7 +1,8 @@
 // Building blocks of the Hopper (sm_90a) kernels: warpgroup matrix products
 // (wgmma) on operands in 128-byte-swizzled shared memory, fed by TMA tile
 // copies whose completion is counted on mbarriers. Users: the 3x3
-// convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7) and the bf16 flash
+// convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7, conv_fused.cu: B8,
+// which also stores its output tiles by TMA) and the bf16 flash
 // attention kernels at D 64 and 128 (flash_attention.cu: B5) and short-
 // sequence attention kernels (short_attention.cu: B4).
 //
@@ -102,6 +103,36 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap& map
       : "memory");
 }
 
+// TMA: the box of a 4-D `map` at (c0 innermost, ..., c3) elements from
+// shared memory at src into the tensor; what lies outside the tensor is not
+// written. The store joins the thread's open bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap& map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// close this thread's bulk group of stores (an empty group when it has none)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read their shared
+// memory (the source may then be written again) ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... or are still writing to the tensor
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Host: libcuda's tensor-map encoder (cuTensorMapEncodeTiled), reached
 // through the runtime so that nothing links against libcuda; null where the
 // installed CUDA does not have it.
@@ -158,6 +189,48 @@ inline int encode_bf16_heads(CUtensorMap* map, const void* base, int b, int h, i
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, stride,
                 box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Host: the rank-4 tensor map of a contiguous NHWC bf16 tensor (B, H, W, C),
+// C % 8 == 0 and the base 16-byte aligned. Dimensions innermost first are
+// (C, W, H, B); a box is box_h rows of box_w pixels of one image, all C
+// channels, landing as [box_h][box_w][C]. Pixels of C * 2 = 32, 64 or 128
+// bytes land with TMA's swizzle of that width: the 16-byte chunk at byte
+// offset o moves to chunk bits o[4..] XOR o[7..] (1, 2 or 3 bits;
+// swizzled() below), so eight consecutive pixels' chunks of one column fall
+// in eight different bank groups. Other C land unswizzled. The box
+// lands 1024-byte aligned; a store reads it from shared memory in the same
+// layout. Returns a CUresult (0: success).
+inline int encode_bf16_nhwc(CUtensorMap* map, const void* base, int b, int h, int w, int c,
+                            int box_w, int box_h) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t pixel = static_cast<cuuint64_t>(c) * 2;
+  const cuuint64_t stride[3] = {pixel, pixel * w, pixel * w * h};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(c), static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  CUtensorMapSwizzle mode = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (pixel == 32) mode = CU_TENSOR_MAP_SWIZZLE_32B;
+  if (pixel == 64) mode = CU_TENSOR_MAP_SWIZZLE_64B;
+  if (pixel == 128) mode = CU_TENSOR_MAP_SWIZZLE_128B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, mode, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Host: the XOR mask of that swizzle for rows of `row_bytes` (0:
+// unswizzled) ...
+inline uint32_t swizzle_mask(int row_bytes) {
+  return row_bytes == 32 ? 1 : row_bytes == 64 ? 3 : row_bytes == 128 ? 7 : 0;
+}
+
+// ... and where byte `off` of an unswizzled box lies in the swizzled one
+// (off from a 1024-byte aligned base)
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
 // ---- wgmma
@@ -339,6 +412,60 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16, from registers) B (16 x N, bf16, from
+// shared memory) for the narrow N 16, 32 and 48 (the small-channel conv's
+// Cout); A as wgmma_m64n64k16_rs.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23},"
+      " {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 

@@ -107,13 +107,14 @@ class ConvPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def conv3x3_plan(dtype: torch.dtype, m: int, cin: int, cout: int,
                  epilogue: str = "stats") -> ConvPlan:
-    """The csrc/conv3x3.cu kernel of one call over m = B*H*W output pixels;
-    ``epilogue`` is "stats" (B6), "prologue" (B6 with its relu(scale*x +
-    bias) prologue) or "bias" (B8). f32 takes the CUDA-core kernel; bf16 B6
-    without the prologue at Cin % 64 == 0 and Cout % 128 == 0 (every routed
-    call) the wgmma kernel; the rest of bf16 the mma.sync kernel. The
-    kernel refuses a call it does not take (the wrapper raises)."""
-    if epilogue not in ("stats", "prologue", "bias"):
+    """The csrc/conv3x3.cu kernel of one B6 call over m = B*H*W output
+    pixels; ``epilogue`` is "stats" or "prologue" (with its relu(scale*x +
+    bias) prologue). f32 takes the CUDA-core kernel; bf16 without the
+    prologue at Cin % 64 == 0 and Cout % 128 == 0 (every routed call) the
+    wgmma kernel; the rest of bf16 the mma.sync kernel. The kernel refuses a
+    call it does not take (the wrapper raises). B8 has its own plan
+    (conv_fused.conv3x3_fused_plan)."""
+    if epilogue not in ("stats", "prologue"):
         raise ValueError(f"conv3x3_plan: unknown epilogue {epilogue!r}")
     if dtype == torch.float32:
         kernel = "simt"
@@ -133,7 +134,8 @@ def check_aligned(what: str, **tensors: torch.Tensor) -> None:
 
 
 def lib():
-    """``csrc/conv3x3.cu`` (B6 and B8), its argument types set once."""
+    """``csrc/conv3x3.cu`` (B6, and B8 off the slab kernel), its argument
+    types set once."""
     lib = kernels.library("conv3x3")
     if lib.ks_conv3x3_bn_stats.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -1,6 +1,8 @@
-"""The launch plans of the 3x3 conv kernels (``conv_bn.conv3x3_plan`` for B6
-and B8, ``conv_dw.conv3x3_dw_plan`` for B7): pure functions of dtype and
-shape that the wrappers pass to csrc/conv3x3.cu and csrc/conv_dw.cu, so the
+"""The launch plans of the 3x3 conv kernels (``conv_bn.conv3x3_plan`` for B6,
+``conv_dw.conv3x3_dw_plan`` for B7, and B8's kind here;
+test_torch_conv_fused_plan.py holds the rest of B8's plan): pure functions
+of dtype and shape that the wrappers pass to csrc/conv3x3.cu and
+csrc/conv_dw.cu, so the
 CPU can pin which kernel each call takes, how B6's statistics partials are
 sized and how B7 splits K. The routed shapes come from the UNet-ResNet18 of
 the b128 train step itself (its ConvBNAct layers with both routes on).
@@ -11,7 +13,7 @@ import torch
 
 from kurosiwo_torch import bench
 from kurosiwo_torch.models.factory import initialize_segmentation_model
-from kurosiwo_torch.ops import conv_bn, conv_dw
+from kurosiwo_torch.ops import conv_bn, conv_dw, conv_fused
 from kurosiwo_torch.ops.conv_dw import DwPlan
 from kurosiwo_torch.ops.nn import ConvBNAct
 
@@ -76,14 +78,21 @@ def test_f32_and_the_prologue_do_not_take_the_wgmma_kernel(routed):
             conv_bn.ConvPlan("mma_sync", -(-m // 128))
 
 
-@pytest.mark.parametrize("dtype,kernel", [(BF16, "mma_sync"), (F32, "simt")])
-@pytest.mark.parametrize("shape", [(128, 224, 224, 16, 16), (128, 112, 112, 32, 32),
-                                   (2, 14, 14, 256, 256)])
-def test_b8_never_takes_the_wgmma_kernel(shape, dtype, kernel):
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("shape,bf16_kernel", [((128, 224, 224, 16, 16), "slab"),
+                                               ((128, 112, 112, 32, 32), "slab"),
+                                               ((2, 14, 14, 256, 256), "mma_sync")])
+def test_b8_never_takes_the_wgmma_kernel(shape, bf16_kernel, dtype):
+    """B8 has its own plan (conv_fused.conv3x3_fused_plan) and never takes
+    B6's wgmma_conv3x3: bf16 at the small channel counts takes the slab
+    kernel, B6's channels the mma.sync kernel, f32 the CUDA-core kernel,
+    each off the mma.sync and simt kernels in their pixel tiles."""
     b, h, w, cin, cout = shape
-    plan = conv_bn.conv3x3_plan(dtype, b * h * w, cin, cout, "bias")
-    assert plan.kernel == kernel
-    assert plan.tiles == -(-b * h * w // conv_bn.PIXEL_TILE[kernel])
+    plan = conv_fused.conv3x3_fused_plan(dtype, b, h, w, cin, cout, True)
+    kernel = bf16_kernel if dtype == BF16 else "simt"
+    assert plan.kernel == kernel != "wgmma"
+    if kernel != "slab":
+        assert plan.grid == -(-b * h * w // conv_bn.PIXEL_TILE[kernel])
 
 
 @pytest.mark.parametrize("cin,cout,kernel", [(64, 128, "wgmma"), (256, 384, "wgmma"),

@@ -774,6 +774,132 @@ def test_conv3x3_fused_kernel_matches_plain(dev, shape, cout, relu, dtype):
         assert got.float().min().item() < 0
 
 
+def _fused_inputs(dev, shape, cout, seed, offset=0):
+    """bf16 x (a view ``offset`` elements into its buffer) whose edge pixels
+    are 64 times larger, so a halo read from the wrong place shows; w scaled
+    to keep y near 1; f32 bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, device=dev, generator=g)
+    for edge in (x[:, 0], x[:, -1], x[:, :, 0], x[:, :, -1]):
+        edge *= 64
+    buf = torch.empty(x.numel() + offset, device=dev, dtype=torch.bfloat16)
+    x = buf[offset:].view(shape).copy_(x)
+    w = (torch.randn((3, 3, shape[-1], cout), device=dev, generator=g) / (3 * shape[-1]**0.5))
+    return x, w.to(torch.bfloat16), 0.1 * torch.randn(cout, device=dev, generator=g)
+
+
+# the slab kernel (bf16): H no multiple of the band's R (a short last band),
+# W = 254 (the 256-pixel halo box's edge), W whose half band is no multiple
+# of 64 pixels (tiles across rows), Cin and Cout of 48 and 64 (two consumer
+# warpgroups), more bands than the grid (the persistent walk wraps)
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape,cout", [((3, 21, 37, 32), 16), ((1, 10, 254, 16), 16),
+                                        ((2, 9, 10, 48), 48), ((2, 9, 10, 64), 64),
+                                        ((2, 12, 30, 16), 64), ((2, 13, 20, 64), 32),
+                                        ((64, 50, 60, 32), 16)])
+def test_slab_conv3x3_matches_plain(dev, shape, cout, relu):
+    from kurosiwo_torch.ops import conv_fused
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    b, h, w, cin = shape
+    x, wt, bias = _fused_inputs(dev, shape, cout, sum(shape) + cout)
+    plan = conv_fused.conv3x3_fused_plan(torch.bfloat16, b, h, w, cin, cout, True,
+                                         conv_fused.sm_count(x.device.index))
+    assert plan.kernel == "slab"
+    if shape[0] == 64:
+        assert b * -(-h // plan.rows) > plan.grid
+    k0 = conv_fused.conv3x3_fused.kernel_launches["slab"]
+    got = conv_fused.conv3x3_fused(x, wt, bias, relu)
+    assert torch.equal(got, conv_fused.conv3x3_fused(x, wt, bias, relu))  # deterministic
+    assert conv_fused.conv3x3_fused.kernel_launches["slab"] == k0 + 2
+    want = conv_fused.conv3x3_fused_plain(x, wt, bias, relu)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, cout)
+    conv_band(got, want, conv3x3_plain_f32(x.abs(), wt.abs()) + bias.abs(), True)
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 20, 22, 16), 16), ((3, 21, 37, 32), 16),
+                                        ((2, 9, 10, 48), 48)])
+def test_slab_and_mma_sync_agree(dev, shape, cout):
+    """The slab kernel and the mma.sync kernel it replaced, on the same
+    inputs: each within the band of the plain version, and of each other."""
+    from kurosiwo_torch.ops import conv_fused
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    b, h, w, cin = shape
+    x, wt, bias = _fused_inputs(dev, shape, cout, 3 * cin + cout)
+    plan = conv_fused.conv3x3_fused_plan(torch.bfloat16, b, h, w, cin, cout, True,
+                                         conv_fused.sm_count(x.device.index))
+    slab = conv_fused.launch_fused(plan, x, wt, bias)
+    mma = conv_fused.launch_fused(plan._replace(kernel="mma_sync"), x, wt, bias)
+    scale = conv3x3_plain_f32(x.abs(), wt.abs()) + bias.abs()
+    want = conv_fused.conv3x3_fused_plain(x, wt, bias)
+    conv_band(slab, want, scale, True)
+    conv_band(mma, want, scale, True)
+    conv_band(slab, mma, scale, True)
+
+
+def test_a_view_off_the_16_byte_grid_takes_mma_sync(dev):
+    from kurosiwo_torch.ops import conv_fused
+    from kurosiwo_torch.ops.conv_bn import conv3x3_plain_f32
+
+    x, wt, bias = _fused_inputs(dev, (2, 11, 13, 32), 32, 5, offset=1)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    before = dict(conv_fused.conv3x3_fused.kernel_launches)
+    got = conv_fused.conv3x3_fused(x, wt, bias)
+    assert conv_fused.conv3x3_fused.kernel_launches == dict(before, mma_sync=before["mma_sync"] + 1)
+    conv_band(got, conv_fused.conv3x3_fused_plain(x, wt, bias),
+              conv3x3_plain_f32(x.abs(), wt.abs()) + bias.abs(), True)
+
+
+def test_slab_smem_is_the_kernels_own(dev):
+    from kurosiwo_torch.ops import conv_fused
+
+    for b, h, w, cin, cout in [(128, 224, 224, 16, 16), (128, 112, 112, 32, 32),
+                               (3, 21, 37, 32, 16), (1, 10, 254, 16, 16), (2, 9, 10, 64, 64)]:
+        plan = conv_fused.conv3x3_fused_plan(torch.bfloat16, b, h, w, cin, cout, True)
+        assert plan.smem == conv_fused.slab_smem_of_kernel(w, cin, cout, plan.rows) > 0
+    assert conv_fused.slab_smem_of_kernel(254, 64, 64, 2) == 0  # does not fit: refused
+
+
+@pytest.mark.parametrize("shape,cout", [((128, 224, 224, 16), 16), ((128, 112, 112, 32), 32),
+                                        ((64, 50, 60, 32), 16), ((2, 9, 10, 16), 16),
+                                        ((2, 9, 10, 48), 48), ((2, 9, 10, 64), 64),
+                                        ((4, 17, 100, 64), 32), ((1, 10, 254, 16), 16)])
+def test_slab_grid_is_the_blocks_the_card_holds(dev, shape, cout):
+    """The plan's grid (one block an SM, at most one a band) is the blocks
+    the card holds at once by the kernel's own occupancy (threads,
+    registers and shared memory): no block waits for a second wave, and no
+    SM that could hold another block is left with one."""
+    from kurosiwo_torch.ops import conv_fused
+
+    b, h, w, cin = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = conv_fused.conv3x3_fused_plan(torch.bfloat16, b, h, w, cin, cout, True, sms)
+    per_sm = conv_fused.slab_blocks_per_sm(w, cin, cout, plan.rows)
+    assert plan.kernel == "slab" and per_sm >= 1
+    assert plan.grid == min(b * -(-h // plan.rows), sms * per_sm)
+
+
+def test_slab_refuses_a_plan_that_does_not_fit(dev):
+    """A slab plan the kernel does not take raises before any launch (the C
+    entry point refuses it): no counter moves, and no other kernel is
+    tried."""
+    from kurosiwo_torch.ops import conv_fused
+
+    slab = conv_fused.FusedPlan("slab", 8, 0, 4)
+    before = dict(conv_fused.conv3x3_fused.kernel_launches)
+    refused = "slab launch: CUDA error 1 "
+    for shape, cout, plan, offset in [((2, 9, 10, 40), 24, slab, 0),      # Cin 40, Cout 24
+                                      ((2, 9, 10, 16), 16, slab._replace(rows=7), 0),  # odd R
+                                      ((1, 4, 255, 16), 16, slab, 0),     # W + 2 > 256
+                                      ((2, 9, 254, 64), 64, slab, 0),     # no fit in 227 KB
+                                      ((2, 9, 10, 16), 16, slab, 1)]:     # x off 16 bytes
+        x, wt, bias = _fused_inputs(dev, shape, cout, 1, offset)
+        with pytest.raises(RuntimeError, match=refused):
+            conv_fused.launch_fused(plan, x, wt, bias)
+    assert conv_fused.conv3x3_fused.kernel_launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route", ["conv_bn_kernel", "dw_kernel"])
 def test_conv_routes_autograd_on_the_card(dev, route, dtype):

@@ -52,7 +52,7 @@ def test_kernel_sources_ship_with_the_package():
 
     names = {p.name for p in kernels.sources()}
     assert {"pair_sums.cu", "ce_cm.cu", "short_attention.cu", "flash_attention.cu",
-            "conv3x3.cu", "conv_dw.cu"} <= names
+            "conv3x3.cu", "conv_dw.cu", "conv_fused.cu"} <= names
     for src in kernels.sources():
         text = src.read_text()
         assert "Replaces the TPU kernel" in text or "Replaces the TPU kernels" in text
