@@ -72,7 +72,33 @@ its lines; any failed phase exits non-zero.
    UNet-ResNet18 sliding-window map of a 2048x2048x6 scene (121 tiles of
    224, overlap 32, batch 32). Launch counters are zeroed before each and
    read after.
-6. The kernel table as one JSON line, then the result line
+6. The segmentation engine (run right after the UNet main path), in a
+   temporary directory: the port's load_config(method="unet",
+   backbone="resnet18") on configs/ (b128, 224x224, bf16 on f32
+   parameters, Adam, cosine lr, the f32 eval twin, AOI banks on) over
+   synthetic splits of 320 samples; 2 epochs (2 train steps and 3 val
+   batches each), a resume to 3 epochs from ``latest``, and an eval-only
+   engine on the saved best. Required: finite losses; 60 pair_sums and one
+   CE+cm launch each way per train step, two CE+cm forwards per eval batch,
+   all on the vector unit; the train and val banks (and the AOI banks)
+   count every valid pixel, padding left out; the checkpoint pointers name
+   written slots; the resume starts at epoch 2 and ``latest`` holds 3
+   epochs of steps; the final state is best_segmentation's; the eval-only
+   test banks have the trained engine's totals and mIoU (within 0.01);
+   ``latest`` restored on the card equals the file mapped to the CPU. These
+   short epochs' times include the loader's start-up. Then the timed
+   epoch: 20 steps (2,560 synthetic samples) of the trained engine, with
+   the loader alone on the same split, and the same 20 steps from 4
+   decoded batches held in memory (no loader running). It prints each epoch's seconds,
+   patches/s and the share of host time spent waiting on the loader
+   (without the smoke's own pixel counting), the loader alone, the train
+   step's rate from phase 5, the card's busy time a step (torch.profiler)
+   and so its idle share of the timed epoch, and the peak memory.
+7. The CLI: ``python -m kurosiwo_torch --method unet --backbone resnet18
+   --seed 7`` in a subprocess and a temporary directory, on the shipped
+   configs (b128, one epoch, the default synthetic splits, AOI banks on):
+   exit 0 and a ``Test Mean IOU:`` line.
+8. The kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1430,7 +1456,7 @@ def phase_main_path(torch, counters, smi: str) -> dict:
           f"({seconds / steps * 1e3:.2f} ms/step), loss {loss.item():.5f}, launches {launches} "
           f"over {n} steps, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]",
           flush=True)
-    default_rate = steps * BATCH / seconds
+    default_rate = out["train_rate"] = steps * BATCH / seconds
     for f32 in (False, True):
         torch.cuda.reset_peak_memory_stats()
         zero_counters(counters)
@@ -1481,6 +1507,289 @@ def phase_main_path(torch, counters, smi: str) -> dict:
           f"(by kernel {by_kernel}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{smi}]", flush=True)
     return out
+
+# the engine phase's synthetic splits: 320 samples each, so an epoch is 2
+# train steps of b128 (64 samples dropped) and 3 val or test batches, the
+# last padded with 64 zero-weight samples; these short epochs check the
+# engine, and their times include the loader's start-up (the first batch is
+# decoded before any step). The timed epoch has ENGINE_LONG_SAMPLES: 20
+# steps, where the start-up is one batch in 20.
+ENGINE_SAMPLES = 320
+ENGINE_LONG_SAMPLES = 2560
+ENGINE_SEED = 11
+
+
+class CountingLoader:
+    """A Loader that also counts the valid pixels of the samples it yields
+    (labels other than 3, padding samples left out), one total an epoch, and
+    the host seconds that counting took (``count_s``), so the epoch's times
+    can leave it out."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.valid, self.count_s = [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def num_samples(self):
+        return self.loader.num_samples()
+
+    def __iter__(self):
+        n, seconds = 0, 0.0
+        for batch in self.loader:
+            t0 = time.perf_counter()
+            n += int(((batch["mask"] != 3) & (batch["sample_weight"][:, None, None] > 0)).sum())
+            seconds += time.perf_counter() - t0
+            yield batch
+        self.valid.append(n)
+        self.count_s.append(seconds)
+
+
+class Tee:
+    """A stdout that keeps what is written and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
+    """The segmentation engine at full width, in a temporary directory: the
+    port's load_config(method="unet", backbone="resnet18") on the
+    repository's configs (b128, 224x224, bf16 on f32 parameters, Adam,
+    cosine lr, the f32 eval twin, AOI banks on) over synthetic splits of
+    ENGINE_SAMPLES; 2 epochs, then a resume to 3, then an eval-only engine
+    on the saved best. ``step_rate`` is the main path's train step rate in
+    this run (bench.run_train), printed beside the epoch rates."""
+    import contextlib
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.config import create_checkpoint_directory, load_config
+    from kurosiwo_torch.data.pipeline import Loader, prepare_loaders
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training import engine as eng
+    from kurosiwo_torch.training.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent
+    train_summaries, eval_summaries = [], []
+    run_train_epoch, run_eval = eng.TaskEngine.run_train_epoch, eng.TaskEngine.run_eval
+
+    def recording_train(self, loader, epoch):
+        train_summaries.append(run_train_epoch(self, loader, epoch))
+        return train_summaries[-1]
+
+    def recording_eval(self, loader, settype="Val"):
+        t0 = time.perf_counter()
+        out = run_eval(self, loader, settype)
+        eval_summaries.append((settype, out[3], time.perf_counter() - t0))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            eng.TaskEngine.run_train_epoch = recording_train
+            eng.TaskEngine.run_eval = recording_eval
+            cfg = load_config(method="unet", backbone="resnet18", config_root=root / "configs",
+                              overrides={"synthetic_size": ENGINE_SAMPLES, "epochs": 2})
+            mcfg = cfg["model_config"]
+            require(cfg["batch_size"] == BATCH and cfg["mixed_precision"]
+                    and cfg["log_AOI_metrics"],
+                    f"engine config: batch {cfg['batch_size']}, mixed_precision "
+                    f"{cfg['mixed_precision']}, log_AOI_metrics {cfg['log_AOI_metrics']}")
+            cfg["checkpoint_path"] = create_checkpoint_directory(cfg, mcfg)
+            ckpt_dir = Path(cfg["checkpoint_path"])
+
+            # the loader alone: one train epoch, no step
+            t0 = time.perf_counter()
+            n = sum(len(b["mask"]) for b in Loader("train", cfg, ENGINE_SEED))
+            loader_rate = n / (time.perf_counter() - t0)
+
+            train, val, test = (CountingLoader(x) for x in prepare_loaders(cfg, ENGINE_SEED))
+            steps = len(train)
+            zero_counters(counters)
+            engine = eng.train_task(initialize_segmentation_model(cfg, mcfg, seed=ENGINE_SEED),
+                                    train, val, test, cfg, mcfg, "segmentation")
+            launches = read_counters(counters)
+            want = {name: 0 for name in counters}
+            n_train, n_eval = 2 * steps, 2 * len(val)
+            want.update(pair_sums=60 * n_train, ce_cm_fwd_nhwc=n_train + 2 * n_eval,
+                        ce_cm_bwd_nhwc=n_train)
+            require(launches == want, f"engine launches {launches}, expected 60 pair_sums and "
+                                      f"1/1 CE+cm per train step ({n_train}) and 2 CE+cm "
+                                      f"forwards per eval batch ({n_eval})")
+            require_ce_units(counters, {"ce_cm_fwd_nhwc": n_train + 2 * n_eval,
+                                        "ce_cm_bwd_nhwc": n_train}, "engine")
+            for e, s in enumerate(train_summaries):
+                require(math.isfinite(s["mean_loss"]), f"engine epoch {e} loss {s['mean_loss']}")
+                require(s["batches"] == steps, f"engine epoch {e} ran {s['batches']} steps")
+                require(s["cm"].sum() == train.valid[e],
+                        f"engine epoch {e} train bank {s['cm'].sum()} of {train.valid[e]} pixels")
+            for e, (settype, s, _) in enumerate(eval_summaries):
+                require(settype == "Val" and s["cm"].sum() == val.valid[e],
+                        f"engine epoch {e} {settype} bank {s['cm'].sum()} of {val.valid[e]}")
+                require(sum(b.sum() for b in s["aoi_banks"].values()) == val.valid[e],
+                        f"engine epoch {e} AOI banks")
+            ptrs = {}
+            for name in ("best_segmentation", "latest"):
+                ptr = json.loads((ckpt_dir / f"{name}.ptr.json").read_text())
+                slot = ckpt_dir / ptr["slot"]
+                require(slot.is_file() and slot.stat().st_size > 0, f"{name} points at {slot}")
+                ptrs[name] = ptr
+            require((ckpt_dir / "best_segmentation.txt").is_file(), "no best_segmentation.txt")
+            # the epochs' times without the smoke's own pixel counting
+            epochs = [(s["epoch_time_s"] - train.count_s[e], s["data_wait_s"] - train.count_s[e],
+                       v[2] - val.count_s[e])
+                      for e, (s, v) in enumerate(zip(train_summaries, eval_summaries))]
+
+            # resume to 3 epochs from latest
+            cfg3 = dict(cfg, epochs=3, resume_checkpoint=True)
+            train_summaries.clear()
+            eval_summaries.clear()
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                engine = eng.train_task(initialize_segmentation_model(cfg3, mcfg, seed=1),
+                                        train, val, test, cfg3, mcfg, "segmentation")
+            require("Resumed from latest checkpoint at epoch 2" in "".join(tee.text),
+                    "the resume did not start from latest at epoch 2")
+            require(len(train_summaries) == 1, f"the resume ran {len(train_summaries)} epochs")
+            epochs.append((train_summaries[0]["epoch_time_s"] - train.count_s[2],
+                           train_summaries[0]["data_wait_s"] - train.count_s[2],
+                           eval_summaries[0][2] - val.count_s[2]))
+            ckpt = CheckpointManager(ckpt_dir, engine.device)
+            latest_cpu, extra = ckpt.load("latest", map_location="cpu")
+            require(latest_cpu["step"] == 3 * steps and extra["epoch"] == 2,
+                    f"latest holds step {latest_cpu['step']}, epoch {extra['epoch']}")
+            best_cpu, best = ckpt.load("best_segmentation", map_location="cpu")
+            final = engine.model.state_dict()
+            require(all(torch.equal(final[k].cpu(), v) for k, v in best_cpu["model"].items()),
+                    "the final engine's state is not best_segmentation's")
+            _, _, miou, test_summary = eng.TaskEngine.run_eval(engine, test, "Test")
+
+            # eval-only on the saved best, from another initial model
+            zero_counters(counters)
+            evaluated = eng.evaluate_task(initialize_segmentation_model(cfg, mcfg, seed=2), cfg,
+                                          mcfg, "segmentation")
+            _, _, eval_miou, eval_summary = eng.TaskEngine.run_eval(evaluated, test, "Test")
+            launches = read_counters(counters)
+            require(launches == {name: 0 for name in counters} | {"ce_cm_fwd_nhwc": 2 * len(test)},
+                    f"eval-only launches {launches}")
+            require(eval_summary["cm"].sum() == test_summary["cm"].sum() == test.valid[-1],
+                    "eval-only test bank totals")
+            require(abs(eval_miou - miou) <= 0.01, f"eval-only mIoU {eval_miou} vs {miou}")
+
+            # latest on the card, against the same file mapped to the CPU
+            ckpt.restore("latest", engine.state)
+            card = {"model": engine.model.state_dict(),
+                    "optimizer": engine.state.optimizer.state_dict()["state"]}
+            for k, v in latest_cpu["model"].items():
+                require(torch.equal(card["model"][k].cpu(), v), f"latest {k} card vs CPU map")
+            for i, st in latest_cpu["optimizer"]["state"].items():
+                for k, v in st.items():
+                    got = card["optimizer"][i][k]
+                    require(torch.equal(got.cpu(), v), f"latest optimizer {i}.{k} card vs CPU")
+                    require((k == "step") == (got.device.type == "cpu"),
+                            f"restored optimizer {k} on {got.device}")
+
+            # the timed epoch: ENGINE_LONG_SAMPLES, the loader alone, then one
+            # train epoch of the trained engine, plain loaders (no counting)
+            long_cfg = dict(cfg, synthetic_size=ENGINE_LONG_SAMPLES)
+            held, n = [], 0
+            t0 = time.perf_counter()
+            for b in Loader("train", long_cfg, ENGINE_SEED):
+                n += len(b["mask"])
+                if len(held) < 4:
+                    held.append(b)
+            long_loader_rate = n / (time.perf_counter() - t0)
+            long = run_train_epoch(engine, Loader("train", long_cfg, ENGINE_SEED), 3)
+            long_steps = ENGINE_LONG_SAMPLES // BATCH
+            require(long["batches"] == long_steps and math.isfinite(long["mean_loss"]),
+                    f"the timed epoch ran {long['batches']} steps, loss {long['mean_loss']}")
+            # the same number of steps with no loader running: 4 decoded
+            # batches held in memory, each taken 5 times
+            unloaded = run_train_epoch(engine, held * (long_steps // len(held)), 3)
+            require(unloaded["batches"] == long_steps and math.isfinite(unloaded["mean_loss"]),
+                    f"the unloaded epoch ran {unloaded['batches']} steps")
+
+            # the card's busy time a train step (torch.profiler over two more
+            # short epochs; a step's kernels do not depend on the epoch's length)
+            prof = bench.profile(lambda: run_train_epoch(engine, train, 3), 2, engine.device,
+                                 1e3 * epochs[-1][0])
+        finally:
+            eng.TaskEngine.run_train_epoch, eng.TaskEngine.run_eval = run_train_epoch, run_eval
+            os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for e, (seconds, wait, val_s) in enumerate(epochs):
+        print(f"[engine] check epoch {e} ({steps} steps of b{BATCH}, the loader's start-up "
+              f"included): train {seconds:.3f} s, {steps * BATCH / seconds:.2f} patches/s, waiting "
+              f"on the loader {wait:.3f} s ({100 * wait / seconds:.1f}% of the epoch's host "
+              f"time); val eval {val_s:.3f} s ({val.num_samples() / val_s:.2f} patches/s, "
+              f"{len(val)} batches) [{smi}]", flush=True)
+    print(f"[engine] loader alone, {steps}-step epoch: {loader_rate:.2f} patches/s; val mIoU best "
+          f"{best['metric']:.3f} (epoch {best['epoch']}), test mIoU {miou:.3f}, eval-only "
+          f"{eval_miou:.3f}; peak {peak:.2f} GiB [{smi}]", flush=True)
+    long_s, long_wait = long["epoch_time_s"], long["data_wait_s"]
+    busy = prof["kernel_ms"] / steps * long_steps
+    print(f"[engine] timed epoch ({long_steps} steps of b{BATCH}, {ENGINE_LONG_SAMPLES} synthetic "
+          f"samples): train {long_s:.3f} s, {long_steps * BATCH / long_s:.2f} patches/s, waiting "
+          f"on the loader {long_wait:.3f} s ({100 * long_wait / long_s:.1f}% of the epoch's host "
+          f"time); the loader alone {long_loader_rate:.2f} patches/s; the train step alone "
+          f"{step_rate:.2f} patches/s (bench.run_train, this run) [{smi}]", flush=True)
+    print(f"[engine] the same {long_steps} steps from 4 decoded batches held in memory (no loader "
+          f"running): {unloaded['epoch_time_s']:.3f} s, "
+          f"{long_steps * BATCH / unloaded['epoch_time_s']:.2f} patches/s, "
+          f"{1e3 * (unloaded['epoch_time_s'] - unloaded['data_wait_s']) / long_steps:.1f} ms a step "
+          f"outside the wait (timed epoch: "
+          f"{1e3 * (long_s - long_wait) / long_steps:.1f}) [{smi}]", flush=True)
+    print(f"[engine] device busy {prof['kernel_ms'] / steps:.2f} ms a step (torch.profiler, 2 "
+          f"{steps}-step epochs): {busy:.1f} ms of the {1e3 * long_s:.1f} ms timed epoch (idle "
+          f"{100 * max(0.0, 1 - busy / (1e3 * long_s)):.1f}%) [{smi}]", flush=True)
+    return {"epochs": epochs, "loader_rate": loader_rate, "peak_gib": peak}
+
+
+def phase_cli(smi: str) -> float:
+    """``python -m kurosiwo_torch --method unet --backbone resnet18`` in a
+    subprocess and a temporary directory: the shipped configs (b128, 1
+    epoch, the default synthetic splits of 256/64/64, AOI banks on); it
+    reuses the kernels already built."""
+    import os
+    import re
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kurosiwo_torch", "--method", "unet", "--backbone",
+             "resnet18", "--seed", "7", "--config_root", str(root / "configs")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+    found = re.search(r"^Test Mean IOU:\s+(\S+)$", proc.stdout, re.M)
+    if proc.returncode or not found:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", flush=True)
+    require(proc.returncode == 0, f"the CLI exited {proc.returncode}")
+    require(found is not None, "the CLI printed no 'Test Mean IOU:' line")
+    miou = float(found.group(1))
+    require(math.isfinite(miou) and 0.0 <= miou <= 100.0, f"the CLI's test mIoU {miou}")
+    print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
+          f"{seconds:.1f} s, Test Mean IOU {miou:.4f} [{smi}]", flush=True)
+    return miou
 
 
 def main() -> int:
@@ -1537,6 +1846,9 @@ def main() -> int:
         unet = phase_main_path(torch, counters, smi)
         launches, routed = unet["train"], unet["train_routes"]
         torch.cuda.empty_cache()
+        phase_engine(torch, counters, smi, unet["train_rate"])
+        torch.cuda.empty_cache()
+        phase_cli(smi)
         mae_launches = phase_mae_main(torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = phase_scene_main(torch, counters, smi)

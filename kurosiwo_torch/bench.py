@@ -44,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import configure_backends, resolve_device
 from .inference import encode_scene, pad_scene, vit_whole_scene
 from .models.factory import build_mae, initialize_segmentation_model
 from .models.vit import ViT
@@ -118,12 +118,6 @@ class Bench:
     generator: torch.Generator | None = None  # the MAE step's masking noise
 
 
-def _backends() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
-
-
 def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
           model: str = "unet") -> Bench:
     """Model, train state and a device-resident batch for the UNet step
@@ -136,7 +130,7 @@ def setup(batch: int | None = None, overrides: dict | None = None, device="cuda"
     if model != "unet":
         raise NotImplementedError(f"bench model {model!r} is not ported (unet, mae)")
     dev = resolve_device(device)
-    _backends()
+    configure_backends()
     batch = batch or 128
     cfg = build_config("unet", batch)
     cfg.update(overrides or {})
@@ -150,7 +144,7 @@ def setup_mae(batch: int | None = None, device="cuda", seed: int = 0) -> Bench:
     """The MAE leg's model, train state, device-resident images (default
     batch 64) and masking-noise generator."""
     dev = resolve_device(device)
-    _backends()
+    configure_backends()
     batch = batch or 64
     size = MAE_MODEL_CONFIG["image_size"]
     net = build_mae(MAE_CONFIG, MAE_MODEL_CONFIG, device=dev, seed=seed)
@@ -173,7 +167,7 @@ def setup_scene(size: int = 1024, device="cuda", seed: int = 0) -> SceneBench:
     """The scene leg's ViT-L encoder (random weights from ``seed``) and
     ``RandomState(0)`` scene, on the host and on the device."""
     dev = resolve_device(device)
-    _backends()
+    configure_backends()
     vit = ViT(**SCENE_VIT, pool="cls", dtype=torch.bfloat16,
               generator=torch.Generator().manual_seed(seed)).to(dev)
     scene = np.random.RandomState(0).randn(size, size, SCENE_VIT["channels"]).astype(np.float32)

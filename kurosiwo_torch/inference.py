@@ -14,8 +14,8 @@ single-device part of ``kurosiwo_tpu/inference.py``.
   * ``load_variables``: the fresh-init route (``checkpoint=""``).
 
 Not here yet: ``vit_whole_scene_cp`` (context parallelism over four cards,
-ROADMAP A12), the orbax and torch ``.pt`` checkpoint routes (A4, A13) and the
-raster CLI ``main`` (A11, waiting for A4's host modules).
+ROADMAP A12), the orbax and torch ``.pt`` checkpoint routes of the JAX
+package and the reference (A13) and the raster CLI ``main`` (A11).
 """
 
 from __future__ import annotations
@@ -210,4 +210,4 @@ def load_variables(checkpoint: str, model: torch.nn.Module) -> dict[str, torch.T
     if p.suffix in (".pt", ".pth"):
         raise NotImplementedError(
             "torch .pt checkpoints are not ported yet (ROADMAP.md, A13)")
-    raise NotImplementedError("orbax checkpoints are not ported yet (ROADMAP.md, A4)")
+    raise NotImplementedError("orbax checkpoints are not ported yet (ROADMAP.md, A13)")

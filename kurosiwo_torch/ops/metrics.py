@@ -1,7 +1,8 @@
 """Metric bank as a confusion matrix; counterpart of
 ``kurosiwo_tpu/ops/metrics.py`` (own copies of ``derive`` and
 ``collapse_water_cm``). The bank stays on the device during training and is
-read on the host only by ``summarize``.
+read on the host only by ``summarize``. Per-AOI banks live on the host
+(``HostAOIMetrics``), fed by the eval step's per-sample matrices.
 """
 
 from __future__ import annotations
@@ -27,6 +28,21 @@ def confusion_matrix(predictions: torch.Tensor, labels: torch.Tensor,
     n2 = num_classes * num_classes
     cell = torch.where(labs != ignore_index, labs * num_classes + preds, n2)
     return torch.bincount(cell, minlength=n2 + 1)[:n2].reshape(num_classes, num_classes)
+
+
+def per_sample_confusion(predictions: torch.Tensor, labels: torch.Tensor,
+                         num_classes: int = NUM_CLASSES + 1,
+                         ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """(B, C, C) int64 confusion matrices, one per sample, as one batched
+    bincount (``confusion_matrix`` of each sample)."""
+    b = predictions.shape[0]
+    preds = predictions.reshape(b, -1).long()
+    labs = labels.reshape(b, -1).long()
+    n2 = num_classes * num_classes
+    rows = torch.arange(b, device=preds.device)[:, None] * n2
+    cell = torch.where(labs != ignore_index, rows + labs * num_classes + preds, b * n2)
+    counts = torch.bincount(cell.reshape(-1), minlength=b * n2 + 1)
+    return counts[:b * n2].reshape(b, num_classes, num_classes)
 
 
 _WATER_GROUP = np.asarray([0, 1, 1, 3])  # class collapse {1,2} -> 1
@@ -110,6 +126,26 @@ class MetricState:
     def summarize(self) -> dict[str, Any]:
         cm = self.cm.cpu().numpy()
         out = derive(cm)
+        out["cm"] = cm
         out["water_fscore"] = derive(collapse_water_cm(cm))["fscore"]
         out["val_loss"] = float(self.loss_sum) / max(float(self.count), 1e-12)
         return out
+
+
+class HostAOIMetrics:
+    """Per-AOI metric banks (reference: segmentation_trainer.py:293-308).
+    Activation ids are arbitrary ints, so the banks are a host dict fed by
+    the eval step's per-sample confusion matrices."""
+
+    def __init__(self):
+        self.banks: dict[int, np.ndarray] = {}
+
+    def update(self, per_sample_cm: np.ndarray, activations: np.ndarray) -> None:
+        for cm_i, act in zip(per_sample_cm, activations):
+            a = int(act)
+            if a not in self.banks:
+                self.banks[a] = np.zeros_like(cm_i, dtype=np.int64)
+            self.banks[a] += cm_i.astype(np.int64)
+
+    def summarize(self) -> dict[int, dict[str, Any]]:
+        return {a: derive(cm) for a, cm in sorted(self.banks.items())}

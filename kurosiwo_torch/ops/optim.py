@@ -37,8 +37,9 @@ class AdamBF16Moments(torch.optim.Optimizer):
     whole tree. The moments of a parameter group live in one flat bf16
     buffer each (``state[p]["exp_avg"]`` and ``["exp_avg_sq"]`` are views of
     them), so a step is a few passes over flat tensors and one multi-tensor
-    parameter update, not a loop of launches per parameter. Saving and
-    restoring this state is not ported yet (checkpoints, ROADMAP.md A4).
+    parameter update, not a loop of launches per parameter.
+    ``load_state_dict`` copies the restored moments back into the flat
+    buffers, so a checkpoint round trip is bitwise.
     """
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
@@ -54,6 +55,21 @@ class AdamBF16Moments(torch.optim.Optimizer):
                                  v.split([p.numel() for p in ps])):
                 self.state[p] = {"exp_avg": mv.view_as(p), "exp_avg_sq": vv.view_as(p)}
             self._flat.append((m, v))
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        # the base class puts the moments into new tensors of the parameters'
+        # dtype (f32, exact for bf16 values); copy them into the flat bf16
+        # buffers and point the state at their views again
+        super().load_state_dict(state_dict)
+        with torch.no_grad():
+            for group, (m, v) in zip(self.param_groups, self._flat):
+                ps = group["params"]
+                sizes = [p.numel() for p in ps]
+                for p, mv, vv in zip(ps, m.split(sizes), v.split(sizes)):
+                    mv, vv = mv.view_as(p), vv.view_as(p)
+                    mv.copy_(self.state[p]["exp_avg"])
+                    vv.copy_(self.state[p]["exp_avg_sq"])
+                    self.state[p] = {"exp_avg": mv, "exp_avg_sq": vv}
 
     @torch.no_grad()
     def step(self, closure=None):

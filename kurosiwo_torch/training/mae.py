@@ -2,8 +2,8 @@
 ``kurosiwo_tpu/training/mae.py::make_mae_train_step``.
 
 The epoch loop of the JAX ``train()`` (SSLLoader, schedule, checkpoints) is
-not ported yet (ROADMAP.md, A4/A8); ``ops/schedules.mae_warmup_cosine`` gives
-its learning rate.
+not ported yet (ROADMAP.md, A8); ``ops/schedules.mae_warmup_cosine`` gives
+its learning rate and ``training/checkpoint.py`` will hold its checkpoints.
 """
 
 from __future__ import annotations

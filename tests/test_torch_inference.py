@@ -131,7 +131,7 @@ def test_load_variables_routes(base_config, tmp_path):
     pt.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="A13"):
         tinf.load_variables(str(pt), model)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="orbax.*A13"):
         tinf.load_variables(str(tmp_path), model)
 
 

@@ -1,6 +1,7 @@
 """Package rules of the port: kurosiwo_torch and chip_smoke.py import
-neither JAX nor the JAX package (an AST scan), entry points run on the card
-unless the caller asks for the CPU, and the kernel build stays lazy."""
+neither JAX nor the JAX package, nor json5 or orbax, which the card's
+machine does not have (an AST scan), entry points run on the card unless
+the caller asks for the CPU, and the kernel build stays lazy."""
 
 import ast
 import importlib
@@ -14,7 +15,7 @@ import kurosiwo_torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kurosiwo_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kurosiwo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kurosiwo_tpu", "json5", "pyjson5", "orbax")
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -232,3 +233,23 @@ def test_scene_bench_rejects_train_options():
     for argv in (["--model", "scene", "--eval"], ["--model", "scene", "--set", "a=1"]):
         with pytest.raises(SystemExit):
             bench.main(argv)
+
+
+def test_engine_and_cli_without_device_raise_on_a_cpu_box(monkeypatch, tmp_path):
+    from kurosiwo_torch import __main__ as cli
+    from kurosiwo_torch.bench import MODEL_CONFIG, build_config
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training.engine import TaskEngine, evaluate_task, train_task
+
+    cfg = dict(build_config("unet", 2), checkpoint_path=str(tmp_path / "run"))
+    model = initialize_segmentation_model(cfg, MODEL_CONFIG, device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TaskEngine(model, cfg, MODEL_CONFIG, "segmentation", 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_task(model, [], [], [], cfg, MODEL_CONFIG, "segmentation")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_task(model, cfg, MODEL_CONFIG, "segmentation")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--config_root", str(ROOT / "configs")])

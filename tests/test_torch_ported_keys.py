@@ -28,14 +28,14 @@ def build(step: str, model, cfg: dict):
 
 # (step, overrides, the key named in the error, its ROADMAP item): the JAX
 # train step reads augmentations (steps.py:137, :178-182), remat (:144) and
-# the zone banks (:231); the eval step the zone banks (:310) and
-# eval_microbatch (:281)
+# the zone banks (:231); the eval step the zone banks (:310). The eval
+# step's eval_microbatch (:281) is ported: tests/test_torch_engine.py::
+# test_chunked_eval_matches_jax_chunked_eval_step holds it to JAX's.
 REFUSED = [
     ("train", {"data_augmentations": True}, "data_augmentations", "A1"),
     ("train", {"log_zone_metrics": True}, "log_zone_metrics", "A1"),
     ("eval", {"log_zone_metrics": True}, "log_zone_metrics", "A1"),
     ("train", {"remat": True}, "remat", "A4"),
-    ("eval", {"eval_microbatch": 4}, "eval_microbatch", "A4"),
 ]
 
 
