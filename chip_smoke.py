@@ -88,18 +88,40 @@ its lines; any failed phase exits non-zero.
    ``latest`` restored on the card equals the file mapped to the CPU. These
    short epochs' times include the loader's start-up. Then the timed
    epoch: 20 steps (2,560 synthetic samples) of the trained engine, with
-   the loader alone on the same split, and the same 20 steps from 4
+   the loader alone on the same split (both after the loader's start-up),
+   and the same 20 steps from 4
    decoded batches held in memory (no loader running). It prints each epoch's seconds,
    patches/s and the share of host time spent waiting on the loader
    (without the smoke's own pixel counting), the loader alone, the train
    step's rate from phase 5, the card's busy time a step (torch.profiler)
    and so its idle share of the timed epoch, and the peak memory.
+   The packed feed: a synthetic split of 2,560 samples at 224^2 packed in
+   float16 (1.80 GB) into a temporary directory and read from the warm
+   page cache; the 20-step b128 epoch of one engine, the loader alone and
+   the step's host time outside the wait, from the decoded source and from
+   the pack, by the Loader's decode processes and by decode threads (the
+   A/B's other arm, ``ThreadRows`` here); batch 0 bitwise equal across the
+   arms and to the plain decode stacked; the same steps with no loader
+   running; the card's busy time a step, its idle share and peak memory.
+   The augmentations: augment_batch's applies on the card against the
+   CPU's with the card's draws at b8 224^2 (the shipped config, and every
+   operation at p = 1), then the b128 augmented train step beside the plain
+   one. The other losses (iou, dice, focal, ce+dice) and the zone banks: a
+   small f32 train and eval step, card against CPU, then the b128 train
+   step and the f32-twin eval step with their launches and rates.
 7. The CLI: ``python -m kurosiwo_torch --method unet --backbone resnet18
    --seed 7`` in a subprocess and a temporary directory, on the shipped
    configs (b128, one epoch, the default synthetic splits, AOI banks on):
-   exit 0 and a ``Test Mean IOU:`` line.
+   exit 0 and a ``Test Mean IOU:`` line. Then ROADMAP C14: the same run
+   twice with ``deterministic: false`` (cuDNN's autotuner) and twice with
+   ``deterministic: true``, printing the first-step loss, the train and val
+   metrics and the test mIoU; the deterministic pair must agree.
 8. The kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
+
+``--only engine,feed,augment,losses,c14`` runs the device and build phases
+and then only those phases: a partial run, which prints no kernel table and
+no result line.
 """
 
 from __future__ import annotations
@@ -1238,6 +1260,37 @@ def adam_step_close(got: dict, want: dict, lr: float) -> tuple[float, float]:
     return d.max().item(), (d <= 3e-4).float().mean().item()
 
 
+def card_and_cpu_steps(torch, counters, cfg: dict) -> dict:
+    """One f32 train step and one eval step of the UNet at (4, 64, 64, 6) on
+    the CPU and on the card from the same weights and batch: their losses,
+    banks and states, the card train step's launches, the valid pixels and
+    the parameter names."""
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.training.state import create_train_state
+    from kurosiwo_torch.training.steps import make_eval_step, make_train_step
+
+    mc = bench.MODEL_CONFIG
+    batch = bench.host_batch(4, 64, seed=1)
+    cpu_model = initialize_segmentation_model(cfg, mc, device="cpu", seed=3)
+    out = {"valid": int((batch["mask"] != 3).sum()),
+           "params": {k for k, _ in cpu_model.named_parameters()}}
+    for name, model in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        state = create_train_state(model, cfg, mc)
+        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, device=name)
+        zero_counters(counters)
+        state, ms, loss = step(state, batch, MetricState.create(name), 1e-3)
+        out["launched"], out["by_kernel"] = read_counters(counters), read_kernel_counters(counters)
+        ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, device=name)
+        ems, eloss, _ = ev(state, batch, MetricState.create(name))
+        out[name] = dict(loss=loss.item(), cm=ms.cm.cpu(), eloss=eloss.item(), ecm=ems.cm.cpu(),
+                         zones=ms.zones.cpu(), ezones=ems.zones.cpu(),
+                         state={k: v.detach().cpu() for k, v in model.state_dict().items()})
+    return out
+
+
 def phase_parity(torch, counters, routes: bool = False) -> None:
     """f32 train + eval step, card (kernels) against CPU (plain versions);
     with ``routes`` the conv kernel routes are on (B6 and B7 in f32, TF32
@@ -1246,33 +1299,13 @@ def phase_parity(torch, counters, routes: bool = False) -> None:
     cells within 0.1% of the valid pixels; parameters all within 2*lr and 99%
     within 3e-4; batch statistics atol 1e-4."""
     from kurosiwo_torch import bench
-    from kurosiwo_torch.models.factory import initialize_segmentation_model
-    from kurosiwo_torch.ops.losses import create_loss
-    from kurosiwo_torch.ops.metrics import MetricState
-    from kurosiwo_torch.training.state import create_train_state
-    from kurosiwo_torch.training.steps import make_eval_step, make_train_step
 
     cfg = dict(bench.build_config("unet", 4), mixed_precision=False, fused_tail=True)
     if routes:
         cfg.update(ROUTES)
-    mc = bench.MODEL_CONFIG
-    batch = bench.host_batch(4, 64, seed=1)
-    valid = int((batch["mask"] != 3).sum())
-    cpu_model = initialize_segmentation_model(cfg, mc, device="cpu", seed=3)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    res = {}
-    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
-        state = create_train_state(model, cfg, mc)
-        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, device=name)
-        zero_counters(counters)
-        state, ms, loss = step(state, batch, MetricState.create(name), 1e-3)
-        launched = read_counters(counters)
-        by_kernel = read_kernel_counters(counters)
-        ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, device=name)
-        ems, eloss, _ = ev(state, batch, MetricState.create(name))
-        res[name] = dict(loss=loss.item(), cm=ms.cm.cpu(), eloss=eloss.item(), ecm=ems.cm.cpu(),
-                         state={k: v.detach().cpu() for k, v in model.state_dict().items()})
-    c, g = res["cpu"], res["cuda"]
+    res = card_and_cpu_steps(torch, counters, cfg)
+    c, g, valid, params = res["cpu"], res["cuda"], res["valid"], res["params"]
+    launched, by_kernel = res["launched"], res["by_kernel"]
     routed = (launched["conv3x3_bn_stats"], launched["conv3x3_dw"])
     require(routed == ((8, 5) if routes else (0, 0)),
             f"parity train step launched B6 {routed[0]}, B7 {routed[1]} times")
@@ -1284,7 +1317,6 @@ def phase_parity(torch, counters, routes: bool = False) -> None:
     require(ce_k == dict.fromkeys(ce_k, 0) | {"ce_cm_fwd_nhwc.vector": 1,
                                               "ce_cm_bwd_nhwc.vector": 1},
             f"parity train step launched CE+cm units {ce_k}, expected one vector each way")
-    params = {k for k, _ in cpu_model.named_parameters()}
     for key in ("loss", "eloss"):
         require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]), f"parity {key}: {g[key]} vs {c[key]}")
     for key in ("cm", "ecm"):
@@ -1536,8 +1568,15 @@ class CountingLoader:
         return self.loader.num_samples()
 
     def __iter__(self):
+        return self._counted(iter(self.loader))
+
+    def ring_batches(self, pin: bool = False):
+        """The Loader's ring batches (the engine's upload path), counted."""
+        return self._counted(self.loader.ring_batches(pin))
+
+    def _counted(self, batches):
         n, seconds = 0, 0.0
-        for batch in self.loader:
+        for batch in batches:
             t0 = time.perf_counter()
             n += int(((batch["mask"] != 3) & (batch["sample_weight"][:, None, None] > 0)).sum())
             seconds += time.perf_counter() - t0
@@ -1615,7 +1654,10 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
 
             # the loader alone: one train epoch, no step
             t0 = time.perf_counter()
-            n = sum(len(b["mask"]) for b in Loader("train", cfg, ENGINE_SEED))
+            n = 0
+            for b in Loader("train", cfg, ENGINE_SEED).ring_batches():
+                n += len(b["mask"])
+                b.release()
             loader_rate = n / (time.perf_counter() - t0)
 
             train, val, test = (CountingLoader(x) for x in prepare_loaders(cfg, ENGINE_SEED))
@@ -1704,17 +1746,24 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
                     require((k == "step") == (got.device.type == "cpu"),
                             f"restored optimizer {k} on {got.device}")
 
-            # the timed epoch: ENGINE_LONG_SAMPLES, the loader alone, then one
-            # train epoch of the trained engine, plain loaders (no counting)
+            # the timed epoch: ENGINE_LONG_SAMPLES, the loader alone (its
+            # start-up, the decode processes and the page-locked ring, done
+            # before the clock starts), then one train epoch of the trained
+            # engine from the same loader, no counting
             long_cfg = dict(cfg, synthetic_size=ENGINE_LONG_SAMPLES)
+            long_loader = Loader("train", long_cfg, ENGINE_SEED)
+            long_loader._start()
+            long_loader._ring.pin()
             held, n = [], 0
             t0 = time.perf_counter()
-            for b in Loader("train", long_cfg, ENGINE_SEED):
+            for b in long_loader.ring_batches(pin=True):
                 n += len(b["mask"])
                 if len(held) < 4:
-                    held.append(b)
+                    held.append({k: v.copy() for k, v in b.items()})
+                b.release()
             long_loader_rate = n / (time.perf_counter() - t0)
-            long = run_train_epoch(engine, Loader("train", long_cfg, ENGINE_SEED), 3)
+            long = run_train_epoch(engine, long_loader, 3)
+            long_loader.close()
             long_steps = ENGINE_LONG_SAMPLES // BATCH
             require(long["batches"] == long_steps and math.isfinite(long["mean_loss"]),
                     f"the timed epoch ran {long['batches']} steps, loss {long['mean_loss']}")
@@ -1760,13 +1809,358 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
     return {"epochs": epochs, "loader_rate": loader_rate, "peak_gib": peak}
 
 
-def phase_cli(smi: str) -> float:
-    """``python -m kurosiwo_torch --method unet --backbone resnet18`` in a
-    subprocess and a temporary directory: the shipped configs (b128, 1
-    epoch, the default synthetic splits of 256/64/64, AOI banks on); it
-    reuses the kernels already built."""
+# the packed-feed phase: a synthetic train split of PACK_SAMPLES packed in
+# float16, and the 20-step b128 epoch fed from the decoded source and from
+# the pack, by decode processes (the Loader's) and by decode threads
+PACK_SAMPLES = 2560
+PACK_RECORD_BYTES = 702472  # 3 x 224 x 224 x 2 float16, mask and valid int8, clz, activation
+FEED_SEED = 11
+
+
+class ThreadRows:
+    """The other arm of the loader's A/B: decode threads in this process
+    writing the same ring rows that the Loader's decode processes write."""
+
+    def __init__(self, decoder, ring, workers: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.decoder, self.ring = decoder, ring
+        self.pool = ThreadPoolExecutor(max_workers=workers)
+
+    def fill(self, slot: int, ids):
+        futures = [self.pool.submit(self.decoder.fill, self.ring.arrays[slot], row, int(i))
+                   for row, i in enumerate(ids)]
+        return lambda: [f.result() for f in futures]
+
+    def close(self) -> None:
+        self.pool.shutdown()
+
+
+def feed_arm(torch, engine, cfg: dict, threads: bool) -> dict:
+    """One arm of the feed: a fresh train Loader (decode threads or
+    processes) started and page-locked, the loader alone over one epoch
+    (batch 0 kept), then one engine epoch of the same split."""
+    from kurosiwo_torch.data.pipeline import Loader
+
+    cls = type("ThreadLoader", (Loader,), {"worker_class": ThreadRows}) if threads else Loader
+    loader = cls("train", cfg, FEED_SEED)
+    try:
+        t0 = time.perf_counter()
+        loader._start()
+        loader._ring.pin()
+        start_s = time.perf_counter() - t0
+        first, n = None, 0
+        t0 = time.perf_counter()
+        for b in loader.ring_batches(pin=True):
+            if first is None:
+                first = {k: v.copy() for k, v in b.items()}
+            n += len(b["mask"])
+            b.release()
+        alone = n / (time.perf_counter() - t0)
+        summary = engine.run_train_epoch(loader, 0)
+    finally:
+        loader.close()
+    steps = summary["batches"]
+    require(steps == PACK_SAMPLES // BATCH and math.isfinite(summary["mean_loss"]),
+            f"feed epoch ran {steps} steps, loss {summary['mean_loss']}")
+    return {"start_s": start_s, "alone": alone, "first": first, "epoch_s": summary["epoch_time_s"],
+            "wait_s": summary["data_wait_s"], "steps": steps}
+
+
+def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
+    """A synthetic split of PACK_SAMPLES at 224^2 packed in float16 (the
+    port's pack_split) into a temporary directory, read back from the warm
+    page cache (it was just written; a cold read is not measured); then,
+    for the decoded source and the pack, the 20-step b128 epoch of one
+    engine, the loader alone, the step's host time outside the wait, by
+    decode processes and by decode threads (the pack's arms in the order
+    processes, threads, threads, processes). Batch 0 must be bitwise the
+    same in both arms of a source, and the pack's that of the plain decode
+    stacked. Then the card's busy time a step and its idle share of each
+    epoch, and the peak memory."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.config import load_config
+    from kurosiwo_torch.data.pipeline import Loader, epoch_rng
+    from kurosiwo_torch.data.shards import ShardReader, pack_split
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.training.engine import TaskEngine, device_prefetch
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="kurosiwo-pack-"))
+    try:
+        cfg = load_config(method="unet", backbone="resnet18", config_root=root / "configs",
+                          overrides={"synthetic_size": PACK_SAMPLES})
+        mcfg = cfg["model_config"]
+        t0 = time.perf_counter()
+        source = Loader("train", cfg, FEED_SEED)
+        packed = pack_split(source, tmp / "train", img_dtype="float16", workers=8)
+        pack_s = time.perf_counter() - t0
+        shards = sorted((tmp / "train").glob("shard_*.bin"))
+        nbytes = sum(f.stat().st_size for f in shards)
+        require(packed == PACK_SAMPLES and nbytes == PACK_SAMPLES * PACK_RECORD_BYTES,
+                f"packed {packed} samples in {nbytes} bytes")
+        packed_cfg = dict(cfg, packed_shards=str(tmp))
+
+        torch.cuda.reset_peak_memory_stats()
+        engine = TaskEngine(initialize_segmentation_model(cfg, mcfg, seed=FEED_SEED), cfg, mcfg,
+                            "segmentation", steps_per_epoch=PACK_SAMPLES // BATCH)
+        held = [b for _, b in zip(range(2), source)]
+        source.close()
+        engine.run_train_epoch(held, 0)  # warm-up
+        # the same steps with no loader running: 2 decoded batches held in
+        # memory, each taken 10 times
+        unloaded = engine.run_train_epoch(held * (PACK_SAMPLES // BATCH // 2), 0)
+        arms = {}
+        order = [("pack", False), ("pack", True), ("pack", True), ("pack", False),
+                 ("decoded", False), ("decoded", True)]
+        for src, threads in order:
+            arm = feed_arm(torch, engine, packed_cfg if src == "pack" else cfg, threads)
+            arms.setdefault((src, threads), []).append(arm)
+
+        # batch 0 of every arm of a source is the same; the pack's is the
+        # plain decode of its records, stacked
+        for src in ("pack", "decoded"):
+            a, b = arms[(src, False)][0]["first"], arms[(src, True)][0]["first"]
+            require(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a),
+                    f"{src}: batch 0 of the decode processes differs from the threads'")
+        reader = ShardReader(tmp / "train")
+        plain = Loader("train", packed_cfg, FEED_SEED)
+        require(plain.shard_reader is not None and len(reader) == PACK_SAMPLES, "pack not used")
+        ids = epoch_rng(FEED_SEED, "train").permutation(PACK_SAMPLES)[:BATCH]
+        samples = [plain.decoder.process(plain.records[int(i)]) for i in ids]
+        want = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        got = arms[("pack", False)][0]["first"]
+        require(got.keys() == want.keys() and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want),
+            "pack: batch 0 is not the plain decode of its records")
+
+        # the card's busy time a train step, from one device-resident batch
+        batch = next(device_prefetch(held[:1], engine.device))
+        ms = MetricState.create(engine.device)
+
+        def one():
+            engine._train_step(engine.state, batch, ms, 1e-3, engine.generator)
+
+        prof = bench.profile(one, 5, engine.device, 1e3 * BATCH / step_rate)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    busy = prof["kernel_ms"]
+    print(f"[feed] packed {PACK_SAMPLES} synthetic 224^2 samples in float16: {nbytes} bytes "
+          f"({nbytes / PACK_SAMPLES:.0f} a record) in {pack_s:.1f} s; read back from the warm "
+          f"page cache (just written; a cold read is not measured) [{smi}]", flush=True)
+    out = {}
+    for (src, threads), runs in arms.items():
+        for r in runs:
+            rate = r["steps"] * BATCH / r["epoch_s"]
+            host = 1e3 * (r["epoch_s"] - r["wait_s"]) / r["steps"]
+            idle = 100 * max(0.0, 1 - busy * r["steps"] / (1e3 * r["epoch_s"]))
+            print(f"[feed] {src} source, decode {'threads' if threads else 'processes'}: "
+                  f"{r['steps']}-step b{BATCH} epoch {r['epoch_s']:.3f} s, {rate:.2f} patches/s, "
+                  f"waiting {r['wait_s']:.3f} s ({100 * r['wait_s'] / r['epoch_s']:.1f}%), "
+                  f"the step's host time outside the wait {host:.1f} ms a step, card idle "
+                  f"{idle:.1f}%; the loader alone {r['alone']:.2f} patches/s (start-up "
+                  f"{r['start_s']:.2f} s, not in it) [{smi}]", flush=True)
+            out.setdefault(f"{src}_{'threads' if threads else 'processes'}", []).append(
+                {"patches_s": rate, "alone": r["alone"], "host_ms": host, "idle": idle})
+    print(f"[feed] the same {unloaded['batches']} steps with no loader running (2 batches "
+          f"held in memory): {unloaded['epoch_time_s']:.3f} s, "
+          f"{unloaded['batches'] * BATCH / unloaded['epoch_time_s']:.2f} patches/s, "
+          f"{1e3 * (unloaded['epoch_time_s'] - unloaded['data_wait_s']) / unloaded['batches']:.1f}"
+          f" ms a step outside the wait [{smi}]", flush=True)
+    print(f"[feed] device busy {busy:.2f} ms a step (torch.profiler, 5 steps); the train step "
+          f"alone {step_rate:.2f} patches/s (bench.run_train, this run); peak "
+          f"{peak:.2f} GiB; batch 0 bitwise equal across arms and to the plain decode [{smi}]",
+          flush=True)
+    return out
+
+
+def _host(x):
+    """A nest of draws (dicts, lists, tensors) with every tensor on the CPU."""
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_host(v) for v in x]
+    return x.cpu()
+
+
+AUG_EVERY = {  # every operation of the pipeline at p = 1
+    "RandomResizedCrop": {"value": 224, "scale": [0.2, 1.0], "p": 1.0},
+    "GaussianBlur": {"sigma_limit": [0.1, 2.0], "p": 1.0},
+    "HorizontalFlip": {"p": 1.0},
+    "VerticalFlip": {"p": 1.0},
+    "ElasticTransform": {"alpha": "1.0", "sigma": 50, "alpha_affine": 50, "p": 1.0},
+    "GaussNoise": {"p": 1.0},
+    "MultNoise": {"p": 1.0},
+    "Cutout": {"p": 1.0},
+}
+
+
+def aug_batch(b: int, seed: int) -> dict:
+    """A b x 224^2 batch with a border of invalid pixels in each sample and
+    one sample whose valid mask is almost empty (a crop may lose it)."""
+    import numpy as np
+
+    from kurosiwo_torch import bench
+
+    batch = bench.host_batch(b, seed=seed)
+    rs = np.random.RandomState(seed)
+    for i in range(b):
+        batch["valid"][i, :rs.randint(0, 40)] = 0
+    batch["valid"][0] = 0
+    batch["valid"][0, 5:9, 5:9] = 1
+    batch["mask"] = np.where(batch["valid"] == 1, batch["mask"], 3).astype(np.int32)
+    return batch
+
+
+def phase_augment(torch, counters, smi: str) -> None:
+    """augment_batch's applies on the card against the CPU's with the same
+    draws (drawn on the card), at b8 224^2: the shipped
+    configs/augmentations/augmentation.json and every operation at p = 1.
+    Images within 1e-4, masks equal; then the b128 augmented train step's
+    rate beside the plain step's (in the order plain, augmented, augmented,
+    plain), and augment_batch alone at b128 (CUDA events)."""
+    from pathlib import Path
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.config import load_json5
+    from kurosiwo_torch.data import augment
+
+    root = Path(__file__).resolve().parent
+    shipped = load_json5(root / "configs" / "augmentations" / "augmentation.json")["augmentations"]
+    host = aug_batch(8, 3)
+    for name, aug in (("shipped", shipped), ("every operation at p=1", AUG_EVERY)):
+        cfg = {"augmentations": aug}
+        card = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        g = torch.Generator("cuda").manual_seed(0)
+        draws = augment.draw_augmentations(g, card, cfg)
+        got = augment.apply_augmentations(card, cfg, draws)
+        want = augment.apply_augmentations({k: torch.from_numpy(v) for k, v in host.items()},
+                                           cfg, _host(draws))
+        img_err = max((got[k].cpu() - want[k]).abs().max().item() for k in ("post", "pre1", "pre2"))
+        mask_diff = sum(int((got[k].cpu() != want[k]).sum()) for k in ("mask", "valid"))
+        kept = int((want["valid"].sum(dim=(1, 2)) > 0).sum())
+        require(img_err <= 1e-4 and mask_diff == 0,
+                f"augment {name}: card vs CPU images {img_err:.2e}, {mask_diff} mask pixels differ")
+        require(all(torch.isfinite(got[k]).all() for k in ("post", "pre1", "pre2")),
+                f"augment {name}: non-finite images")
+        print(f"[augment] {name} ({', '.join(draws)}), b8 224^2, card vs CPU with the card's "
+              f"draws: images max abs err {img_err:.2e}, mask pixels differing {mask_diff}, "
+              f"samples with valid pixels {kept}/8 [{smi}]", flush=True)
+
+    big = {k: torch.from_numpy(v).cuda() for k, v in aug_batch(BATCH, 4).items()}
+    g = torch.Generator("cuda").manual_seed(1)
+    aug_ms = event_ms(torch, lambda: augment.augment_batch(g, big, {"augmentations": shipped}),
+                      reps=3, calls=5)
+    del big
+    plain = bench.setup(BATCH)
+    augmented = bench.setup(BATCH, overrides={"data_augmentations": True,
+                                              "augmentations": shipped})
+    rates = {}
+    for tag, b in (("plain", plain), ("augmented", augmented), ("augmented", augmented),
+                   ("plain", plain)):
+        zero_counters(counters)
+        seconds, loss, metric = bench.run_train(b, 10, 3)
+        launches = read_counters(counters)
+        require(bool(torch.isfinite(loss).item()), f"{tag} train loss {loss.item()}")
+        want = {name: 0 for name in counters} | {"pair_sums": 60 * 13, "ce_cm_fwd_nhwc": 13,
+                                                 "ce_cm_bwd_nhwc": 13}
+        require(launches == want, f"{tag} train launches {launches}")
+        rates.setdefault(tag, []).append(10 * BATCH / seconds)
+    del plain, augmented
+    torch.cuda.empty_cache()
+    print(f"[augment] b{BATCH} bf16 train step, shipped augmentations (RandomResizedCrop p=1, "
+          f"HorizontalFlip p=0.5): {', '.join(f'{r:.2f}' for r in rates['augmented'])} "
+          f"patches/s; the plain step in the same run {', '.join(f'{r:.2f}' for r in rates['plain'])}"
+          f"; augment_batch alone {aug_ms:.3f} ms a b{BATCH} batch (CUDA events) [{smi}]",
+          flush=True)
+
+
+# the losses of create_loss other than cross entropy, and the zone banks
+LOSS_CONFIGS = [("iou", {"loss_function": "iou"}), ("dice", {"loss_function": "dice"}),
+                ("focal", {"loss_function": "focal"}), ("ce+dice", {"loss_function": "ce+dice"}),
+                ("zones", {"log_zone_metrics": True})]
+
+
+def phase_losses_zones(torch, counters, smi: str) -> None:
+    """For each loss (iou, dice, focal, ce+dice) and for log_zone_metrics:
+    one f32 train and eval step at (4, 64, 64, 6), card against CPU, with
+    phase_parity's bands (the zone banks also summing to the main bank, and
+    their cells within 0.1% of the valid pixels); then the b128 bf16 train
+    step and the f32-twin eval step on the card: 60 pair_sums a train step,
+    no CE+cm kernel (these configs turn the fused tail off), and their
+    rates."""
+    from kurosiwo_torch import bench
+
+    for name, over in LOSS_CONFIGS:
+        cfg = dict(bench.build_config("unet", 4), mixed_precision=False, **over)
+        res = card_and_cpu_steps(torch, counters, cfg)
+        c, g, valid = res["cpu"], res["cuda"], res["valid"]
+        for key in ("loss", "eloss"):
+            require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]),
+                    f"{name} {key}: card {g[key]} vs CPU {c[key]}")
+        for key in ("cm", "ecm"):
+            require(torch.equal(g[key].sum(1), c[key].sum(1)), f"{name} {key} row sums")
+            require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid, f"{name} {key} cells")
+        for key, cm in (("zones", "cm"), ("ezones", "ecm")):
+            if name == "zones":
+                for r in (c, g):
+                    require(torch.equal(r[key].sum(0), r[cm]) and (r[key].sum((1, 2)) > 0).all(),
+                            f"zone banks ({key}) do not sum to the main bank")
+                require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid, f"{key} cells")
+            else:
+                require(not g[key].any() and not c[key].any(), f"{name}: zone banks filled")
+        pmax, pshare = adam_step_close({k: g["state"][k] for k in res["params"]},
+                                       {k: c["state"][k] for k in res["params"]}, 1e-3)
+        require(pmax <= 2e-3 + 1e-6 and pshare >= 0.99, f"{name} params: max {pmax}, {pshare}")
+        print(f"[losses] {name} f32 (4,64,64,6) card vs CPU: loss {g['loss']:.6f} vs "
+              f"{c['loss']:.6f}, eval loss {g['eloss']:.6f} vs {c['eloss']:.6f}, cm max diff "
+              f"{(g['cm'] - c['cm']).abs().max().item():.0f} of {valid} px, params max {pmax:.2e} "
+              f"({pshare * 100:.2f}% within 3e-4)", flush=True)
+
+    warmup, steps = 2, 5
+    n = warmup + steps
+    for name, over in LOSS_CONFIGS:
+        b = bench.setup(BATCH, overrides=over)
+        zero_counters(counters)
+        seconds, loss, metric = bench.run_train(b, steps, warmup)
+        launches = read_counters(counters)
+        require(bool(torch.isfinite(loss).item()), f"{name} b{BATCH} train loss {loss.item()}")
+        require(launches == {k: 0 for k in counters} | {"pair_sums": 60 * n},
+                f"{name} b{BATCH} train launches {launches}")
+        require(bank_counts_all(metric, n * int((b.batch["mask"] != 3).sum().item())),
+                f"{name} b{BATCH} train bank count")
+        train_rate = steps * BATCH / seconds
+        zero_counters(counters)
+        seconds, eloss, _ = bench.run_eval(b, steps, warmup, f32=True)
+        require(bool(torch.isfinite(eloss).item()) and read_counters(counters) == {
+            k: 0 for k in counters}, f"{name} b{BATCH} eval: loss {eloss.item()}, launches "
+                                     f"{read_counters(counters)}")
+        print(f"[losses] {name} b{BATCH}: train bf16 {train_rate:.2f} patches/s (loss "
+              f"{loss.item():.5f}, 60 pair_sums a step, no CE+cm kernel), eval f32 twin "
+              f"{steps * BATCH / seconds:.2f} patches/s [{smi}]", flush=True)
+        del b
+        torch.cuda.empty_cache()
+
+
+def cli_run(smi: str, config: dict | None = None) -> dict:
+    """``python -m kurosiwo_torch --method unet --backbone resnet18 --seed 7``
+    in a subprocess and a temporary directory, on a copy of the shipped
+    configs with ``config`` merged into train/train_config.json, the last
+    file merged (none: the shipped files as they are); it reuses the
+    kernels already built. Exit 0 and a
+    ``Test Mean IOU:`` line are required. Returns the seconds, the test mIoU
+    and the JSON lines it printed (with on_screen_prints)."""
     import os
     import re
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -1774,10 +2168,18 @@ def phase_cli(smi: str) -> float:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     with tempfile.TemporaryDirectory() as tmp:
+        configs = root / "configs"
+        if config:
+            from kurosiwo_torch.config import load_json5
+
+            configs = Path(tmp) / "configs"
+            shutil.copytree(root / "configs", configs)
+            path = configs / "train" / "train_config.json"
+            path.write_text(json.dumps({**load_json5(path), **config}))
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "kurosiwo_torch", "--method", "unet", "--backbone",
-             "resnet18", "--seed", "7", "--config_root", str(root / "configs")],
+             "resnet18", "--seed", "7", "--config_root", str(configs)],
             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
     found = re.search(r"^Test Mean IOU:\s+(\S+)$", proc.stdout, re.M)
@@ -1787,12 +2189,85 @@ def phase_cli(smi: str) -> float:
     require(found is not None, "the CLI printed no 'Test Mean IOU:' line")
     miou = float(found.group(1))
     require(math.isfinite(miou) and 0.0 <= miou <= 100.0, f"the CLI's test mIoU {miou}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"')]
+    return {"seconds": seconds, "miou": miou, "lines": lines}
+
+
+def phase_cli(smi: str) -> float:
+    """The CLI on the shipped configs (b128, 1 epoch, the default synthetic
+    splits of 256/64/64, AOI banks on)."""
+    run = cli_run(smi)
     print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
-          f"{seconds:.1f} s, Test Mean IOU {miou:.4f} [{smi}]", flush=True)
-    return miou
+          f"{run['seconds']:.1f} s, Test Mean IOU {run['miou']:.4f} [{smi}]", flush=True)
+    return run["miou"]
 
 
-def main() -> int:
+def phase_c14(smi: str) -> None:
+    """ROADMAP C14: the CLI at one seed, twice with cuDNN's autotuner
+    (deterministic: false) and twice with deterministic algorithms
+    (deterministic: true), on_screen_prints on. Prints each run's first-step
+    loss, the train epoch's and the val eval's metrics (functions of their
+    banks) and the test mIoU; the two deterministic runs must agree in all
+    of them."""
+    runs = {}
+    for det in (False, False, True, True):
+        run = cli_run(smi, {"on_screen_prints": True, "deterministic": det})
+        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+        train = next(x for x in run["lines"] if "Train epoch time (s)" in x)
+        val = next(x for x in run["lines"] if "Val MeanIoU" in x)
+        banks = {k: v for d in (train, val) for k, v in d.items() if "time" not in k}
+        runs.setdefault(det, []).append({"first": first, "banks": banks, "miou": run["miou"]})
+        print(f"[c14] deterministic={str(det).lower()}: first-step loss {first}, train mIoU "
+              f"{train['Train MeanIoU']:.5f}, val mIoU {val['Val MeanIoU']:.5f}, test mIoU "
+              f"{run['miou']!r}, {run['seconds']:.1f} s [{smi}]", flush=True)
+    for det, (a, b) in runs.items():
+        same = a == b
+        differing = sorted(k for k in a["banks"] if a["banks"][k] != b["banks"].get(k))
+        print(f"[c14] deterministic={str(det).lower()}: the two runs "
+              f"{'agree in every printed metric' if same else 'differ'}; test mIoU band "
+              f"{abs(a['miou'] - b['miou']):.4f}, first-step loss band "
+              f"{abs(a['first'] - b['first']):.5f}, bank metrics differing {len(differing)} "
+              f"{differing[:4]} [{smi}]", flush=True)
+    require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
+
+
+def run_only(torch, counters, smi: str, only: set) -> None:
+    """The phases of this slice alone (``--only``), for a short run while
+    they are worked on."""
+    from kurosiwo_torch import bench
+
+    if only & {"engine", "feed"}:
+        b = bench.setup(BATCH)
+        seconds, _, _ = bench.run_train(b, 10, 3)
+        del b
+        torch.cuda.empty_cache()
+        if "engine" in only:
+            phase_engine(torch, counters, smi, 10 * BATCH / seconds)
+        if "feed" in only:
+            phase_packed_feed(torch, counters, smi, 10 * BATCH / seconds)
+    if "augment" in only:
+        phase_augment(torch, counters, smi)
+    if "losses" in only:
+        phase_losses_zones(torch, counters, smi)
+    if "c14" in only:
+        phase_c14(smi)
+
+
+ONLY = {"engine", "feed", "augment", "losses", "c14"}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default=None,
+                        help=f"run only these phases of {sorted(ONLY)} (comma-separated) after "
+                             "the device and build phases: a partial run, which prints no "
+                             "kernel table and no result line")
+    args = parser.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else set()
+    if only - ONLY:
+        parser.error(f"unknown phases {sorted(only - ONLY)}")
     try:
         import torch
 
@@ -1826,6 +2301,11 @@ def main() -> int:
     try:
         smi = phase_device(torch)
         phase_build(kernels)
+        if only:
+            run_only(torch, counters, smi, only)
+            print(f"[done] partial run ({', '.join(sorted(only))}) in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            return 0
         pair = phase_pair_sums(torch, batchnorm)
         ce = phase_ce_cm(torch, fused_tail, "nhwc")
         phase = phase_ce_cm(torch, fused_tail, "phase")
@@ -1848,7 +2328,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_engine(torch, counters, smi, unet["train_rate"])
         torch.cuda.empty_cache()
+        phase_packed_feed(torch, counters, smi, unet["train_rate"])
+        torch.cuda.empty_cache()
+        phase_augment(torch, counters, smi)
+        phase_losses_zones(torch, counters, smi)
         phase_cli(smi)
+        phase_c14(smi)
         mae_launches = phase_mae_main(torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = phase_scene_main(torch, counters, smi)

@@ -25,6 +25,7 @@ import torch
 
 from .config import create_checkpoint_directory, load_config
 from .data.pipeline import prepare_loaders
+from .device import configure_backends
 from .models.factory import initialize_segmentation_model
 
 # the tasks main.py dispatches that the port does not run yet
@@ -66,6 +67,7 @@ def main(argv=None) -> float:
                                   "(ROADMAP.md, A7)")
     if args.batch_size is not None:
         configs["batch_size"] = int(args.batch_size)
+    configure_backends(configs, args.device)  # before CUDA's first use (cuBLAS's workspace)
     configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
     pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
 
@@ -82,7 +84,8 @@ def main(argv=None) -> float:
     if configs.get("test"):
         # eval-only (reference main.py:86-128): training would overwrite the
         # very best_segmentation the user asked to score
-        engine = evaluate_task(model, configs, model_configs, "segmentation", device=args.device)
+        engine = evaluate_task(model, configs, model_configs, "segmentation", device=args.device,
+                               seed=args.seed)
     else:
         engine = train_semantic_segmentation(model, train_loader, val_loader, test_loader,
                                              configs, model_configs, seed=args.seed,

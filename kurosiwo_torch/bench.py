@@ -28,6 +28,10 @@ of 3 runs of the upload-per-call path
 (``vit_whole_scene`` from a host scene). The TPU script's control-matmul
 bracket, a guard against the drift of a remotely attached TPU, is left out.
 
+Every leg takes ``--set deterministic=true|false`` (deterministic algorithms
+on the card, ``device.configure_backends``; on by default for the UNet leg,
+off for the ViT legs); the other keys set the UNet leg's config.
+
 Usage: python -m kurosiwo_torch.bench [--model unet|mae|scene] [--batch N]
        [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
        [--scene 1024] [--profile]
@@ -105,7 +109,9 @@ def host_batch(batch: int, size: int = IMAGE, seed: int = 0) -> dict:
         "pre1": rs.randn(batch, size, size, 2).astype(np.float32),
         "pre2": rs.randn(batch, size, size, 2).astype(np.float32),
         "mask": rs.randint(0, 4, (batch, size, size)).astype(np.int32),
+        "valid": np.ones((batch, size, size), np.int32),
         "sample_weight": np.ones((batch,), np.float32),
+        "clz": rs.randint(1, 4, (batch,)).astype(np.int32),
     }
 
 
@@ -115,7 +121,7 @@ class Bench:
     state: TrainState
     batch: dict
     device: torch.device
-    generator: torch.Generator | None = None  # the MAE step's masking noise
+    generator: torch.Generator | None = None  # the MAE step's masking noise, the augmentations' draws
 
 
 def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
@@ -130,21 +136,23 @@ def setup(batch: int | None = None, overrides: dict | None = None, device="cuda"
     if model != "unet":
         raise NotImplementedError(f"bench model {model!r} is not ported (unet, mae)")
     dev = resolve_device(device)
-    configure_backends()
     batch = batch or 128
     cfg = build_config("unet", batch)
     cfg.update(overrides or {})
+    configure_backends(cfg, dev)
     net = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
     state = create_train_state(net, cfg, MODEL_CONFIG)
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
-    return Bench(cfg, state, data, dev)
+    return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed))
 
 
-def setup_mae(batch: int | None = None, device="cuda", seed: int = 0) -> Bench:
+def setup_mae(batch: int | None = None, device="cuda", seed: int = 0,
+              backend: dict | None = None) -> Bench:
     """The MAE leg's model, train state, device-resident images (default
-    batch 64) and masking-noise generator."""
+    batch 64) and masking-noise generator; ``backend`` holds the backend
+    keys (``deterministic``) for ``configure_backends``."""
     dev = resolve_device(device)
-    configure_backends()
+    configure_backends({**MAE_CONFIG, **(backend or {})}, dev)
     batch = batch or 64
     size = MAE_MODEL_CONFIG["image_size"]
     net = build_mae(MAE_CONFIG, MAE_MODEL_CONFIG, device=dev, seed=seed)
@@ -163,11 +171,13 @@ class SceneBench:
     device: torch.device
 
 
-def setup_scene(size: int = 1024, device="cuda", seed: int = 0) -> SceneBench:
+def setup_scene(size: int = 1024, device="cuda", seed: int = 0,
+                backend: dict | None = None) -> SceneBench:
     """The scene leg's ViT-L encoder (random weights from ``seed``) and
-    ``RandomState(0)`` scene, on the host and on the device."""
+    ``RandomState(0)`` scene, on the host and on the device; ``backend`` as
+    for ``setup_mae``."""
     dev = resolve_device(device)
-    configure_backends()
+    configure_backends(backend, dev)
     vit = ViT(**SCENE_VIT, pool="cls", dtype=torch.bfloat16,
               generator=torch.Generator().manual_seed(seed)).to(dev)
     scene = np.random.RandomState(0).randn(size, size, SCENE_VIT["channels"]).astype(np.float32)
@@ -220,7 +230,7 @@ def _train_fn(b: Bench):
     metric = [MetricState.create(b.device)]
 
     def one():
-        _, metric[0], loss = step(b.state, b.batch, metric[0], 1e-3)
+        _, metric[0], loss = step(b.state, b.batch, metric[0], 1e-3, b.generator)
         return loss
 
     return one, metric
@@ -349,10 +359,6 @@ def main(argv=None) -> dict:
     p.add_argument("--profile", action="store_true",
                    help="after the timed run, print device time by kernel to stderr")
     args = p.parse_args(argv)
-    if args.model != "unet" and (args.eval or args.set):
-        p.error(f"--eval, --set: the {args.model} leg has no eval step and takes no overrides")
-    if args.model == "scene":
-        return _main_scene(args)
     overrides = {}
     for kv in args.set:
         k, _, v = kv.partition("=")
@@ -360,8 +366,13 @@ def main(argv=None) -> dict:
             overrides[k] = json.loads(v)
         except json.JSONDecodeError:
             overrides[k] = v
+    if args.model != "unet" and (args.eval or set(overrides) - {"deterministic"}):
+        p.error(f"--eval, --set: the {args.model} leg has no eval step and takes only "
+                "--set deterministic=...")
+    if args.model == "scene":
+        return _main_scene(args, overrides)
     if args.model == "mae":
-        b = setup_mae(args.batch)
+        b = setup_mae(args.batch, backend=overrides)
         batch = b.batch["image"].shape[0]
         one = _mae_train_fn(b)
         kind = "MAE pretrain step, ViT-L, bf16"
@@ -391,8 +402,8 @@ def main(argv=None) -> dict:
     return result
 
 
-def _main_scene(args) -> dict:
-    sb = setup_scene(args.scene)
+def _main_scene(args, backend: dict) -> dict:
+    sb = setup_scene(args.scene, backend=backend)
     upload, _ = run_scene(sb, SCENE_REPEATS // 2, SCENE_INNER, upload=True)
     rates, out = run_scene(sb, SCENE_REPEATS, SCENE_INNER)
     if not torch.isfinite(out).all().item():

@@ -3,11 +3,14 @@ own copy of ``kurosiwo_tpu/data/pipeline.py``. A batch is bitwise the JAX
 loader's for the same config and seed: the same records, the same seeded
 draws, the same decode and padding.
 
-A thread pool decodes samples, a seeded sampler picks indices (50/50
-positive/negative oversampling, Dataset.py:641-651, from a dedicated
-``np.random.Generator``), and batches are assembled as contiguous NHWC
-arrays, double-buffered ahead of the step. The engine's ``device_prefetch``
-moves them to the card.
+A seeded sampler picks indices (50/50 positive/negative oversampling,
+Dataset.py:641-651, from a dedicated ``np.random.Generator``). Decode worker
+processes each write a processed sample straight into its row of a batch
+buffer: there is no collate. The buffers are a small ring in shared memory
+(``BatchRing``), as many as the prefetch depth plus the batch being filled;
+for a consumer on the card they are page-locked in place, so the engine's
+``device_prefetch`` uploads from them with no second host copy, and a buffer
+is refilled only after its upload's event has completed.
 
 Batch struct (numpy, NHWC):
   post, pre1, pre2 : (B, H, W, C) float32   — scaled acquisitions
@@ -21,23 +24,26 @@ Batch struct (numpy, NHWC):
 Eval splits pad the final partial batch to full size (sample_weight 0, mask
 all-ignore), so every eval batch has the step's shape.
 
+Decoding runs in processes, not threads: the decode is numpy work that holds
+the interpreter lock often, and decode threads slowed the train step's own
+host side, which shares that lock (PERF.md §6).
+
 One process decodes the whole batch: the JAX loader's process grid is
 process 0 of 1 here until the port has a multi-process runtime
-(ROADMAP.md, A12).
-
-Not ported: packed shards (``data/shards.py``) and the SLC loader
-(``data/slc.py``), ROADMAP.md A14; the diffusion task's per-observation
-records, A10.
+(ROADMAP.md, A12). Not ported: the SLC loader (``data/slc.py``), ROADMAP.md
+A14; the diffusion task's per-observation records, A10.
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import multiprocessing.sharedctypes
 import queue
 import threading
+import weakref
 import zlib
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -58,8 +64,251 @@ def epoch_rng(seed: int, mode: str) -> np.random.Generator:
     return np.random.default_rng(seed + zlib.crc32(mode.encode()) % 65536)
 
 
+class SampleDecoder:
+    """A record -> its processed sample dict: the packed, tile or synthetic
+    read, then the scaling. Picklable, so each decode process holds a copy."""
+
+    def __init__(self, config: dict, records: list[Record], stats: dict | None, seed: int,
+                 synthetic: bool, shard_reader=None):
+        self.config = config
+        self.records = records
+        self.stats = stats
+        self.seed = seed
+        self.synthetic = synthetic
+        self.shard_reader = shard_reader
+
+    def read(self, record: Record) -> RawSample:
+        if self.shard_reader is not None and record.id in self.shard_reader:
+            return self.shard_reader.read(record.id)
+        if self.synthetic:
+            size = int(self.config.get("synthetic_patch_size", 224))
+            return synthetic_raw_sample(record, self.config, size=size, seed=self.seed)
+        return read_raw_sample(str(self.config.get("root_path", ".")), record, self.config)
+
+    def process(self, record: Record) -> dict:
+        raw = self.read(record)
+        cfg = self.config
+        out: dict = {}
+        if cfg.get("scale_input") is not None:
+            valid_bool = raw.valid == 1
+            sv = {}
+            for name, img in (("flood", raw.post), ("pre1", raw.pre1), ("pre2", raw.pre2)):
+                v1, v2, scaled = scale_img(img, valid_bool, name, raw.activation, cfg, self.stats)
+                sv[name] = (np.asarray(v1, np.float32), np.asarray(v2, np.float32))
+                out[{"flood": "post", "pre1": "pre1", "pre2": "pre2"}[name]] = scaled.astype(np.float32)
+            for name in ("flood", "pre1", "pre2"):
+                out[f"{name}_sv1"], out[f"{name}_sv2"] = sv[name]
+        else:
+            out["post"], out["pre1"], out["pre2"] = raw.post, raw.pre1, raw.pre2
+        out["mask"] = raw.mask.astype(np.int32)
+        out["valid"] = raw.valid.astype(np.int32)
+        if cfg.get("dem"):
+            out["dem"] = (
+                raw.dem.astype(np.float32)
+                if raw.dem is not None
+                else np.zeros(raw.post.shape[:2] + (1,), np.float32)
+            )
+        out["clz"] = np.int32(raw.clz)
+        out["activation"] = np.int32(raw.activation)
+        out["sample_weight"] = np.float32(1.0)
+        return out
+
+    def fill(self, arrays: dict, row: int, index: int) -> None:
+        """Write the sample of ``records[index]`` into ``row`` of a batch
+        buffer. Raises on a sample whose keys, shapes or dtypes differ from
+        the buffer's (the first sample's), as ``np.stack`` would not."""
+        sample = self.process(self.records[index])
+        if sample.keys() != arrays.keys():
+            raise ValueError(f"sample keys {sorted(sample)} differ from the batch's "
+                             f"{sorted(arrays)} (record {self.records[index].id})")
+        for k, v in sample.items():
+            dst = arrays[k]
+            v = np.asarray(v)
+            if v.shape != dst.shape[1:] or v.dtype != dst.dtype:
+                raise ValueError(f"{k} of record {self.records[index].id} is {v.dtype}"
+                                 f"{v.shape}, the batch's {dst.dtype}{dst.shape[1:]}")
+            dst[row] = v
+
+
+_ALIGN = 4096
+
+
+def _slot_layout(layout: dict, batch: int) -> tuple[dict, int]:
+    """{key: (offset, shape, dtype)} of one batch buffer, each key 4 KiB
+    aligned, and the buffer's byte size."""
+    offsets, total = {}, 0
+    for k, (shape, dtype) in layout.items():
+        offsets[k] = (total, (batch,) + tuple(shape), np.dtype(dtype))
+        nbytes = batch * int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        total += -(-nbytes // _ALIGN) * _ALIGN
+    return offsets, max(total, _ALIGN)
+
+
+def _views(raw, offsets: dict) -> dict[str, np.ndarray]:
+    return {k: np.frombuffer(raw, dtype=dt, count=int(np.prod(shape)), offset=off).reshape(shape)
+            for k, (off, shape, dt) in offsets.items()}
+
+
+class BatchRing:
+    """``slots`` batch buffers in shared memory (``multiprocessing``'s
+    RawArray, which a worker process maps), each a dict of numpy views with
+    the batch's keys, shapes and dtypes. ``acquire`` hands out a free slot
+    once the upload that last read it has completed (the event ``release``
+    was given); ``pin`` page-locks the buffers in place for the card's copy
+    engine."""
+
+    def __init__(self, layout: dict, batch: int, slots: int):
+        self.offsets, self.nbytes = _slot_layout(layout, batch)
+        self.raws = [multiprocessing.sharedctypes.RawArray("B", self.nbytes) for _ in range(slots)]
+        self.arrays = [_views(raw, self.offsets) for raw in self.raws]
+        self._events: list = [None] * slots
+        self._pinned = False
+        self.reset()
+
+    def reset(self) -> None:
+        """Every slot free (an epoch's start; no feeder is running)."""
+        self._free: queue.Queue = queue.Queue()
+        for slot in range(len(self.raws)):
+            self._free.put(slot)
+
+    def acquire(self, abandoned: threading.Event) -> int | None:
+        while not abandoned.is_set():
+            try:
+                slot = self._free.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            event, self._events[slot] = self._events[slot], None
+            if event is not None:
+                event.synchronize()  # its upload has read the buffer
+            return slot
+        return None
+
+    def release(self, slot: int, event=None) -> None:
+        self._events[slot] = event
+        self._free.put(slot)
+
+    def pin(self) -> None:
+        """Page-lock every buffer in place (``cudaHostRegister``), so a
+        ``non_blocking`` upload from it is a DMA with no staging copy."""
+        if self._pinned:
+            return
+        import ctypes
+
+        import torch
+
+        for raw in self.raws:
+            err = torch.cuda.cudart().cudaHostRegister(ctypes.addressof(raw), self.nbytes, 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of a {self.nbytes}-byte batch buffer "
+                                   f"failed: cudaError {int(err)}")
+        self._pinned = True
+
+    def close(self) -> None:
+        if self._pinned:
+            import ctypes
+
+            import torch
+
+            for event in self._events:
+                if event is not None:
+                    event.synchronize()
+            for raw in self.raws:
+                torch.cuda.cudart().cudaHostUnregister(ctypes.addressof(raw))
+            self._pinned = False
+
+
+# the decode process's decoder and its views of the ring's buffers
+_WORKER: tuple | None = None
+
+# glibc's mallopt parameters and madvise's MADV_POPULATE_WRITE (Linux 5.14)
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD, _MADV_POPULATE_WRITE = -1, -3, 23
+_PAGE = 4096
+
+
+def _prepare_worker_memory(raws: list) -> None:
+    """A decode process's memory, set up once, so that a row costs what it
+    costs in the main process where page faults and mappings are dear (on
+    the card's host, the loader alone on a pack went from 467-485 to
+    1,349-1,456 patches/s with this; PERF.md §6): glibc's malloc
+    keeps the sample's temporaries (a few hundred KiB each) on its heap
+    rather than mapping and unmapping each one (a fresh process's dynamic
+    threshold sits at just their size), and the ring's pages are mapped
+    before the first row is written."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if hasattr(libc, "mallopt"):
+        libc.mallopt(_M_MMAP_THRESHOLD, 64 << 20)
+        libc.mallopt(_M_TRIM_THRESHOLD, 256 << 20)
+    for raw in raws:
+        start = -(-ctypes.addressof(raw) // _PAGE) * _PAGE
+        end = (ctypes.addressof(raw) + ctypes.sizeof(raw)) // _PAGE * _PAGE
+        if end > start and libc.madvise(ctypes.c_void_p(start), ctypes.c_size_t(end - start),
+                                        _MADV_POPULATE_WRITE) != 0:
+            np.frombuffer(raw, np.uint8)[::_PAGE].sum()  # no such advice: map by reading
+
+
+def _init_worker(decoder: SampleDecoder, raws: list, offsets: dict) -> None:
+    global _WORKER
+    _prepare_worker_memory(raws)
+    _WORKER = (decoder, [_views(raw, offsets) for raw in raws])
+
+
+def _fill_row(job: tuple) -> None:
+    slot, row, index = job
+    decoder, arrays = _WORKER
+    decoder.fill(arrays[slot], row, index)
+
+
+class DecodeProcesses:
+    """``workers`` decode processes writing samples into the ring's rows.
+    They fork from a forkserver (a clean process with no threads and no
+    CUDA state) with this module preloaded, so they start in milliseconds
+    and import none of the caller's modules."""
+
+    def __init__(self, decoder: SampleDecoder, ring: BatchRing, workers: int):
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload([__name__])
+        self.pool = ctx.Pool(workers, _init_worker, (decoder, ring.raws, ring.offsets))
+
+    def fill(self, slot: int, ids) -> Callable[[], None]:
+        """Start the rows of one batch; returns a wait that raises a worker's
+        error."""
+        job = self.pool.map_async(_fill_row, [(slot, row, int(i)) for row, i in enumerate(ids)],
+                                  chunksize=1)
+        return job.get
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+class RingBatch(dict):
+    """A batch whose arrays are views of a ring slot: valid until
+    ``release(event)``, after which the slot is refilled once ``event`` (the
+    upload that read it, or None) has completed."""
+
+    def __init__(self, arrays: dict, release: Callable):
+        super().__init__(arrays)
+        self.release = release
+
+
+def _shutdown(workers, ring: BatchRing) -> None:
+    workers.close()
+    ring.close()
+
+
+# the ring's slots: device_prefetch's 2 batches in flight and the one being
+# filled (fewer for an epoch of fewer batches)
+RING_SLOTS = 3
+
+
 class Loader:
     """Iterable over batches for one split."""
+
+    # decode workers; a subclass may supply another with the same
+    # ``fill(slot, ids) -> wait`` and ``close()``
+    worker_class = DecodeProcesses
 
     def __init__(
         self,
@@ -71,9 +320,6 @@ class Loader:
         if config.get("task") == "diffusion-unsup":
             raise NotImplementedError("the diffusion task's per-observation loader is not ported "
                                       "yet (ROADMAP.md, A10)")
-        if config.get("packed_shards"):
-            raise NotImplementedError("packed_shards (data/shards.py) is not ported yet "
-                                      "(ROADMAP.md, A14)")
         self.mode = mode
         self.config = config
         self.batch_size = int(config["batch_size"])
@@ -118,10 +364,29 @@ class Loader:
                     all_records.extend(cache[m].records)
                 self.stats = compute_min_max_stats(all_records, str(root), config)
 
+        # packed shards (data/shards.py): one memmap slice per sample; a
+        # record missing from the pack falls through to the tile or
+        # synthetic decode
+        self.shard_reader = None
+        shard_root = config.get("packed_shards")
+        if shard_root:
+            from .shards import ShardReader
+
+            split_dir = Path(shard_root) / mode
+            if (split_dir / "manifest.json").is_file():
+                self.shard_reader = ShardReader(split_dir)
+                self.shard_reader.check_decode_config(config)  # a stale pack raises
+
+        self.decoder = SampleDecoder(config, self.records, self.stats, seed, self.synthetic,
+                                     self.shard_reader)
         self.oversampling = bool(config.get("oversampling")) and mode == "train"
         self._rng = epoch_rng(seed, mode)
         self._epoch = 0
         self._oversample_ids = None
+        self._ring: BatchRing | None = None
+        self._workers = None
+        self._feeder: tuple | None = None  # (thread, abandoned) of the running epoch
+        self._finalizer = None
 
     # -- sampling ---------------------------------------------------------
     def __len__(self):
@@ -155,121 +420,123 @@ class Loader:
 
     # -- decode -----------------------------------------------------------
     def _read(self, record: Record) -> RawSample:
-        if self.synthetic:
-            size = int(self.config.get("synthetic_patch_size", 224))
-            return synthetic_raw_sample(record, self.config, size=size, seed=self.seed)
-        return read_raw_sample(str(self.config.get("root_path", ".")), record, self.config)
+        return self.decoder.read(record)
 
-    def _process(self, record: Record) -> dict:
-        raw = self._read(record)
-        cfg = self.config
-        out: dict = {}
-        if cfg.get("scale_input") is not None:
-            valid_bool = raw.valid == 1
-            sv = {}
-            for name, img in (("flood", raw.post), ("pre1", raw.pre1), ("pre2", raw.pre2)):
-                v1, v2, scaled = scale_img(img, valid_bool, name, raw.activation, cfg, self.stats)
-                sv[name] = (np.asarray(v1, np.float32), np.asarray(v2, np.float32))
-                out[{"flood": "post", "pre1": "pre1", "pre2": "pre2"}[name]] = scaled.astype(np.float32)
-            for name in ("flood", "pre1", "pre2"):
-                out[f"{name}_sv1"], out[f"{name}_sv2"] = sv[name]
-        else:
-            out["post"], out["pre1"], out["pre2"] = raw.post, raw.pre1, raw.pre2
-        out["mask"] = raw.mask.astype(np.int32)
-        out["valid"] = raw.valid.astype(np.int32)
-        if cfg.get("dem"):
-            out["dem"] = (
-                raw.dem.astype(np.float32)
-                if raw.dem is not None
-                else np.zeros(raw.post.shape[:2] + (1,), np.float32)
-            )
-        out["clz"] = np.int32(raw.clz)
-        out["activation"] = np.int32(raw.activation)
-        out["sample_weight"] = np.float32(1.0)
-        return out
+    def _start(self) -> None:
+        """The ring (its layout from the first record's sample) and the
+        decode workers, once for the Loader's life."""
+        if self._ring is not None:
+            return
+        sample = self.decoder.process(self.records[0])
+        layout = {k: (np.shape(v), np.asarray(v).dtype) for k, v in sample.items()}
+        self._ring = BatchRing(layout, self.batch_size, max(1, min(RING_SLOTS, len(self))))
+        self._workers = self.worker_class(self.decoder, self._ring, self.workers)
+        self._finalizer = weakref.finalize(self, _shutdown, self._workers, self._ring)
 
-    @staticmethod
-    def _collate(samples: list[dict]) -> dict:
-        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    def close(self) -> None:
+        """Stop the decode workers and release the ring (also done when the
+        Loader is collected)."""
+        self._stop_feeder()
+        if self._finalizer is not None:
+            self._finalizer()
+        self._ring = self._workers = self._finalizer = None
 
-    def _pad(self, samples: list[dict], target: int) -> list[dict]:
-        """Pad eval batches to ``target`` with zero-weight copies (sample
-        weight 0, mask all-ignore: numerically inert)."""
-        pad = target - len(samples)
-        if pad <= 0:
-            return samples
-        filler = {k: np.copy(v) for k, v in samples[-1].items()}
-        filler["sample_weight"] = np.float32(0.0)
-        filler["mask"] = np.full_like(filler["mask"], 3)  # all-ignore
-        return samples + [filler] * pad
+    def _stop_feeder(self) -> None:
+        if self._feeder is not None:
+            thread, abandoned = self._feeder
+            abandoned.set()
+            thread.join()
+            self._feeder = None
 
     # -- iteration --------------------------------------------------------
-    def __iter__(self) -> Iterator[dict]:
+    def ring_batches(self, pin: bool = False) -> Iterator[RingBatch]:
+        """One epoch of batches as views of the ring's slots; the consumer
+        calls each batch's ``release`` once it has read it (or given it to an
+        upload, with that upload's event). ``pin`` page-locks the ring for
+        uploads to the card."""
         indices = self._epoch_indices()
         self._epoch += 1
         bs = self.batch_size
-        batches = [indices[i : i + bs] for i in range(0, len(indices), bs)]
+        batches = [indices[i: i + bs] for i in range(0, len(indices), bs)]
         if self.mode == "train":
             batches = [b for b in batches if len(b) == bs]
-
-        def produce(pool, batch_ids):
-            samples = list(pool.map(lambda i: self._process(self.records[int(i)]), batch_ids))
-            if self.mode != "train":
-                samples = self._pad(samples, bs)
-            return self._collate(samples)
-
-        yield from prefetch_epoch(batches, produce, self.workers)
-
-
-def prefetch_epoch(batches, produce, workers: int):
-    """Double-buffered threaded prefetch: decode batch k+1 while k trains.
-    Decode errors are re-raised in the consumer (a feeder that died silently
-    would truncate the epoch); an abandoned iterator (early break, a step's
-    exception, GC) sets ``abandoned`` so the feeder never blocks forever on a
-    full queue; one pool serves the whole epoch.
-    ``produce(pool, batch_ids) -> batch dict``."""
-    q: queue.Queue = queue.Queue(maxsize=2)
-    stop = object()
-    abandoned = threading.Event()
-
-    def put_until_abandoned(item) -> None:
-        while not abandoned.is_set():
-            try:
-                q.put(item, timeout=0.5)
-                return
-            except queue.Full:
-                pass
-
-    def feeder():
+        if not batches:
+            return
+        self._stop_feeder()
+        self._start()
+        ring = self._ring
+        if pin:
+            ring.pin()
+        ring.reset()
+        out: queue.Queue = queue.Queue()  # bounded by the ring's slots
+        stop = object()
+        abandoned = threading.Event()
+        thread = threading.Thread(target=self._feed, args=(batches, out, stop, abandoned),
+                                  daemon=True)
+        self._feeder = (thread, abandoned)
+        thread.start()
         try:
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                for b in batches:
-                    if abandoned.is_set():
-                        return
-                    put_until_abandoned(produce(pool, b))
-        except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
-            put_until_abandoned(("__loader_error__", e))
-        finally:
-            put_until_abandoned(stop)
-
-    t = threading.Thread(target=feeder, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            if isinstance(item, tuple) and len(item) == 2 and item[0] == "__loader_error__":
-                raise item[1]
-            yield item
-    finally:
-        abandoned.set()
-        try:  # unblock a feeder waiting on the full queue
             while True:
-                q.get_nowait()
-        except queue.Empty:
-            pass
-        t.join(timeout=10)
+                item = out.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield RingBatch(ring.arrays[item], lambda event=None, slot=item:
+                                ring.release(slot, event))
+        finally:
+            abandoned.set()
+            thread.join()
+            if self._feeder is not None and self._feeder[0] is thread:
+                self._feeder = None
+
+    def _feed(self, batches, out: queue.Queue, stop, abandoned: threading.Event) -> None:
+        """The feeder thread: take a free slot, start its rows on the
+        workers, then finish the previous batch (wait, pad) and hand it on,
+        so the workers go straight from one batch to the next. Errors are
+        handed to the consumer, who raises them."""
+        ring, pending = self._ring, None
+        try:
+            for ids in batches:
+                slot = ring.acquire(abandoned)
+                if slot is None:
+                    return
+                done, pending = pending, (slot, len(ids), self._workers.fill(slot, ids))
+                if done is not None:
+                    self._finish(done)
+                    out.put(done[0])
+            if pending is not None:
+                done, pending = pending, None
+                self._finish(done)
+                out.put(done[0])
+        except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
+            out.put(e)
+        finally:
+            if pending is not None:  # an abandoned epoch: no write may outlive it
+                try:
+                    pending[2]()
+                except Exception:  # noqa: BLE001 — the epoch is over; its error is moot
+                    pass
+            out.put(stop)
+
+    def _finish(self, item: tuple) -> None:
+        """Wait for a batch's rows; an eval batch's missing rows become
+        zero-weight, all-ignore copies of its last sample."""
+        slot, n, wait = item
+        wait()
+        if self.mode != "train" and n < self.batch_size:
+            arrays = self._ring.arrays[slot]
+            for arr in arrays.values():
+                arr[n:] = arr[n - 1]
+            arrays["sample_weight"][n:] = 0
+            arrays["mask"][n:] = 3
+
+    def __iter__(self) -> Iterator[dict]:
+        """One epoch of batches, each its own arrays (a copy of its slot)."""
+        for batch in self.ring_batches():
+            copy = {k: v.copy() for k, v in batch.items()}
+            batch.release()
+            yield copy
 
 
 def prepare_loaders(config: dict, seed: int = 999):

@@ -1,8 +1,13 @@
 """Metric bank as a confusion matrix; counterpart of
 ``kurosiwo_tpu/ops/metrics.py`` (own copies of ``derive`` and
-``collapse_water_cm``). The bank stays on the device during training and is
-read on the host only by ``summarize``. Per-AOI banks live on the host
-(``HostAOIMetrics``), fed by the eval step's per-sample matrices.
+``collapse_water_cm``). The banks (the main one and the three per-zone
+ones) stay on the device during training and are read on the host only by
+``summarize``. Per-AOI banks live on the host (``HostAOIMetrics``), fed by
+the eval step's per-sample matrices.
+
+Every count on the card is deterministic: integer ``bincount``s, and the
+zone banks a one-hot contraction of the per-sample matrices, with no float
+atomics.
 """
 
 from __future__ import annotations
@@ -90,28 +95,42 @@ def derive(cm) -> dict[str, Any]:
 
 @dataclasses.dataclass
 class MetricState:
-    """Device-resident accumulator: f32 cm bank (exact below 2^24 per
-    update) and running weighted loss. Updates return a new state, like the
-    JAX pytree. The per-zone banks of the JAX state come with
-    ``log_zone_metrics`` (ROADMAP.md, A1)."""
+    """Device-resident accumulator: the f32 cm bank (exact below 2^24 per
+    update), the (num_zones, C, C) per-climate-zone banks (the reference
+    keeps 3) and the running weighted loss. Updates return a new state,
+    like the JAX pytree."""
 
     cm: torch.Tensor
+    zones: torch.Tensor
     loss_sum: torch.Tensor
     count: torch.Tensor
 
     @staticmethod
-    def create(device: torch.device | str = "cpu",
+    def create(device: torch.device | str = "cpu", num_zones: int = 3,
                num_classes: int = NUM_CLASSES + 1) -> "MetricState":
         f = dict(dtype=torch.float32, device=device)
         return MetricState(
             cm=torch.zeros((num_classes, num_classes), **f),
+            zones=torch.zeros((num_zones, num_classes, num_classes), **f),
             loss_sum=torch.zeros((), **f),
             count=torch.zeros((), **f),
         )
 
-    def update(self, predictions, labels, loss, batch_weight=1.0) -> "MetricState":
-        cm = confusion_matrix(predictions, labels).float()
-        return self.update_from_cm(cm, loss, batch_weight)
+    def update(self, predictions, labels, loss, batch_weight=1.0, clz=None) -> "MetricState":
+        """Accumulate the batch's confusion matrix; with ``clz`` (the (B,)
+        climate zones, 1..Z) also the zone banks: one per-sample pass serves
+        both, the zone banks as a (Z, B) one-hot contraction of the
+        per-sample matrices (a zone outside 1..Z counts in none) and the
+        main bank as their sum."""
+        if clz is None:
+            cm = confusion_matrix(predictions, labels).float()
+            return self.update_from_cm(cm, loss, batch_weight)
+        per = per_sample_confusion(predictions, labels).float()
+        zones_idx = torch.arange(1, self.zones.shape[0] + 1, device=per.device)
+        zmask = (torch.as_tensor(clz, device=per.device).long()[:, None] == zones_idx).float()
+        zones = self.zones + torch.einsum("bz,bcd->zcd", zmask, per)
+        return dataclasses.replace(self.update_from_cm(per.sum(dim=0), loss, batch_weight),
+                                   zones=zones)
 
     def update_from_cm(self, cm, loss, batch_weight=1.0) -> "MetricState":
         """Accumulate a precomputed (C, C) confusion matrix (e.g. from the
@@ -119,6 +138,7 @@ class MetricState:
         loss = loss.detach().float()
         return MetricState(
             cm=self.cm + cm.float(),
+            zones=self.zones,
             loss_sum=self.loss_sum + loss * batch_weight,
             count=self.count + batch_weight,
         )
@@ -129,6 +149,7 @@ class MetricState:
         out["cm"] = cm
         out["water_fscore"] = derive(collapse_water_cm(cm))["fscore"]
         out["val_loss"] = float(self.loss_sum) / max(float(self.count), 1e-12)
+        out["zones"] = [derive(z) for z in self.zones.cpu().numpy()]
         return out
 
 

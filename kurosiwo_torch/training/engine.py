@@ -7,8 +7,11 @@ best for the final test eval. The metric banks stay on the card inside an
 epoch: the host reads them at ``print_frequency`` and at the end of an epoch,
 and nowhere else in the train loop.
 
-Batches reach the card through :func:`device_prefetch`: pinned host buffers
-and a copy stream, so the upload of batch k+1 overlaps the step of batch k.
+Batches reach the card through :func:`device_prefetch`: the loader's
+page-locked batch buffers and a copy stream, so the upload of batch k+1
+overlaps the step of batch k. The train step's augmentations draw from the
+engine's ``torch.Generator`` on the card, seeded from the engine's seed (a
+resume restarts it from the seed, as JAX's engine restarts its key).
 
 Change detection (A6) and the recurrent task (A7) are not ported; nor are
 pretrained weights (A13), wandb logging and visualizations (A14).
@@ -19,6 +22,7 @@ from __future__ import annotations
 import collections
 import time
 import warnings
+from typing import Iterable
 
 import numpy as np
 import torch
@@ -34,72 +38,79 @@ from .state import create_train_state
 from .steps import STEP_KEYS, make_eval_step, make_train_step
 
 
-def device_prefetch(loader, device: str | torch.device, depth: int = 2):
-    """Iterate ``loader``'s batches with their ``STEP_KEYS`` on the card,
-    ``depth`` batches in flight: each is copied into one of ``depth`` pinned
-    host slots and uploaded on a copy stream, and the compute stream waits
-    on that copy's event before it uses the batch. A slot is refilled only
-    after its previous upload has finished (the host waits on the copy's
-    event, not on the compute stream). The other keys (``activation``,
-    ``clz``, ``valid``, ...) stay on the host as numpy arrays. On the CPU the
-    batches pass through unchanged."""
+def device_prefetch(loader: Iterable[dict], device: str | torch.device, depth: int = 2):
+    """Iterate ``loader``'s batches with their ``STEP_KEYS`` on the card, ``depth``
+    batches in flight: each is uploaded on a copy stream, and the compute
+    stream waits on that copy's event before it uses the batch. The other
+    keys (``activation``, ...) stay on the host as numpy arrays. On the CPU
+    the batches pass through unchanged.
+
+    A ``Loader``'s batches are views of its page-locked ring
+    (``Loader.ring_batches(pin=True)``): they are uploaded from there, with
+    no host copy, and each slot goes back to the ring with its upload's
+    event, so the loader refills it only after the copy has read it (the
+    host keys are copied first). Any other iterable of numpy batches is
+    staged through torch's pinned host allocator."""
     dev = torch.device(device)
     if dev.type != "cuda":
         yield from loader
         return
     copy_stream = torch.cuda.Stream(dev)
-    slots = [{"buffers": {}, "event": None} for _ in range(depth)]
     inflight: collections.deque = collections.deque()
+    ring = hasattr(loader, "ring_batches")
 
-    def upload(slot: dict, host: dict):
-        if slot["event"] is not None:
-            slot["event"].synchronize()  # the slot's previous upload has read it
-        out, uploaded = dict(host), []
+    def upload(host: dict):
+        out, uploaded = {}, []
         with torch.cuda.stream(copy_stream):
-            for k in STEP_KEYS:
-                if k not in host:
+            for k, v in host.items():
+                if k not in STEP_KEYS:
+                    out[k] = v.copy() if ring else v
                     continue
-                src = torch.from_numpy(np.ascontiguousarray(host[k]))
-                buf = slot["buffers"].get(k)
-                if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
-                    buf = slot["buffers"][k] = torch.empty(src.shape, dtype=src.dtype,
-                                                           pin_memory=True)
-                buf.copy_(src)
-                out[k] = buf.to(dev, non_blocking=True)
+                src = torch.from_numpy(np.ascontiguousarray(v))
+                if not ring:
+                    src = src.pin_memory()
+                out[k] = src.to(dev, non_blocking=True)
                 uploaded.append(out[k])
-            slot["event"] = torch.cuda.Event()
-            slot["event"].record(copy_stream)
-        return out, uploaded, slot
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        if ring:
+            host.release(event)
+        return out, uploaded, event
 
-    it = iter(loader)
-    for slot in slots:
-        host = next(it, None)
-        if host is None:
-            break
-        inflight.append(upload(slot, host))
-    while inflight:
-        out, uploaded, slot = inflight.popleft()
-        compute = torch.cuda.current_stream(dev)
-        compute.wait_event(slot["event"])
-        for t in uploaded:
-            # allocated on the copy stream: keep the allocator from handing
-            # the memory out again while the compute stream may still use it
-            t.record_stream(compute)
-        yield out
-        host = next(it, None)
-        if host is not None:
-            inflight.append(upload(slot, host))
+    it = iter(loader.ring_batches(pin=True) if ring else loader)
+    try:
+        for _ in range(depth):
+            host = next(it, None)
+            if host is None:
+                break
+            inflight.append(upload(host))
+        while inflight:
+            out, uploaded, event = inflight.popleft()
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(event)
+            for t in uploaded:
+                # allocated on the copy stream: keep the allocator from handing
+                # the memory out again while the compute stream may still use it
+                t.record_stream(compute)
+            yield out
+            host = next(it, None)
+            if host is not None:
+                inflight.append(upload(host))
+    finally:
+        if hasattr(it, "close"):
+            it.close()
 
 
 class TaskEngine:
     """Owns the model's train state and its two steps for one task."""
 
     def __init__(self, model: torch.nn.Module, config: dict, model_config: dict, task: str,
-                 steps_per_epoch: int, device: str | torch.device | None = "cuda"):
+                 steps_per_epoch: int, device: str | torch.device | None = "cuda",
+                 seed: int = 999):
         if task != "segmentation":
             raise NotImplementedError(f"the {task!r} engine is not ported yet (ROADMAP.md, A6-A7)")
         self.device = resolve_device(device)
-        configure_backends()
+        configure_backends(config, self.device)
         self.model = model
         self.config = config
         self.model_config = model_config
@@ -109,6 +120,9 @@ class TaskEngine:
                                       "are not ported yet (ROADMAP.md, A14)")
         self.logger = MetricLogger(config)  # raises on wandb_activate with wandb installed (A14)
         self.state = create_train_state(model, config, model_config, task)
+        # the augmentations' random stream (JAX: the engine's self.rng)
+        self.generator = torch.Generator(self.device)
+        self.generator.manual_seed(int(seed))
         self.lr_schedule = create_lr_schedule(config, model_config, steps_per_epoch)
         self._check_pretrained_weights()
 
@@ -165,7 +179,7 @@ class TaskEngine:
             if batch is None:
                 break
             self.state, metric_state, aux = self._train_step(self.state, batch, metric_state,
-                                                             lr_value)
+                                                             lr_value, self.generator)
             loss, grad_norm = aux if self.with_grad_norm else (aux, None)
             if nbatches % print_every == 0:
                 self.logger.log_train_iteration(
@@ -204,13 +218,13 @@ class TaskEngine:
 
 def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
                test_loader: Loader, config: dict, model_config: dict, task: str,
-               device: str | torch.device | None = "cuda") -> TaskEngine:
+               device: str | torch.device | None = "cuda", seed: int = 999) -> TaskEngine:
     """The training loop: epochs -> val -> best-mIoU checkpoint, then the
     best weights reloaded for the final test eval (reference main.py:151-158).
     ``test_loader`` is the caller's to evaluate."""
     del test_loader
     engine = TaskEngine(model, config, model_config, task, steps_per_epoch=len(train_loader),
-                        device=device)
+                        device=device, seed=seed)
     ckpt = CheckpointManager(config.get("checkpoint_path", "checkpoints/run"), engine.device)
     start_epoch = int(config.get("start_epoch", 0))
     best_val = 0.0
@@ -243,11 +257,12 @@ def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
 
 
 def evaluate_task(model: torch.nn.Module, config: dict, model_config: dict, task: str,
-                  device: str | torch.device | None = "cuda") -> TaskEngine:
+                  device: str | torch.device | None = "cuda", seed: int = 999) -> TaskEngine:
     """Eval-only engine (the reference's ``"test": true``, main.py:86-128):
     restore best_segmentation and skip training. Raises when there is none,
     rather than scoring a random-init model."""
-    engine = TaskEngine(model, config, model_config, task, steps_per_epoch=1, device=device)
+    engine = TaskEngine(model, config, model_config, task, steps_per_epoch=1, device=device,
+                        seed=seed)
     ckpt = CheckpointManager(config.get("checkpoint_path", "checkpoints/run"), engine.device)
     if not ckpt.has("best_segmentation"):
         raise FileNotFoundError(

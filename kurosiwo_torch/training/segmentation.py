@@ -3,8 +3,8 @@
 training/segmentation_trainer.py). The epoch loop, metric banks and
 best-val-mIoU checkpointing live in ``engine.py``; these functions keep the
 reference's signatures and return convention: eval returns (100·acc,
-100·meanF1, 100·mIoU). ``seed`` is accepted for that signature: the port's
-weights come from the model factory's seed.
+100·meanF1, 100·mIoU). ``seed`` seeds the engine's augmentation stream (the
+port's weights come from the model factory's seed).
 """
 
 from __future__ import annotations
@@ -14,9 +14,8 @@ from .engine import TaskEngine, train_task
 
 def train_semantic_segmentation(model, train_loader, val_loader, test_loader, configs,
                                 model_configs, seed=999, device="cuda"):
-    del seed
     return train_task(model, train_loader, val_loader, test_loader, configs, model_configs,
-                      "segmentation", device=device)
+                      "segmentation", device=device, seed=seed)
 
 
 def eval_semantic_segmentation(engine: TaskEngine, loader, settype="Test", configs=None,

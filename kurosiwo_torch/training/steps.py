@@ -5,6 +5,9 @@ A step keeps its loss, confusion matrix and weight sum on the device: it
 never reads a value back to the host, so the card runs ahead of Python.
 A step moves to its device only the batch keys it reads (``STEP_KEYS``);
 the engine's ``device_prefetch`` has put them there already on the card.
+With ``data_augmentations`` the train step augments the batch on its
+device first (``data/augment.py``), from the ``torch.Generator`` it is
+given; with ``log_zone_metrics`` both steps also fill the per-zone banks.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from ..data.augment import augment_batch, check_augmentations
 from ..device import resolve_device
 from ..ops.fused_tail import fused_ce_cm, resolve_fused_tail
 from ..ops.metrics import MetricState, per_sample_confusion
@@ -42,8 +46,9 @@ def assemble_segmentation_input(batch: dict, config: dict) -> torch.Tensor:
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
-# the batch keys a segmentation step reads
-STEP_KEYS = ("post", "pre1", "pre2", "dem", "mask", "sample_weight")
+# the batch keys a segmentation step reads (valid for the augmentations'
+# discard-if-empty, clz for the zone banks)
+STEP_KEYS = ("post", "pre1", "pre2", "dem", "mask", "valid", "sample_weight", "clz")
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -53,7 +58,7 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     for k in STEP_KEYS:
         if k in batch:
             v = torch.as_tensor(batch[k])
-            if k == "mask":
+            if k in ("mask", "valid", "clz"):
                 v = v.to(torch.int32)
             out[k] = v.to(device, non_blocking=True)
     return out
@@ -66,42 +71,46 @@ def _check_task(task: str) -> None:
 
 def _check_ported_keys(config: dict, train: bool) -> None:
     """Raise on a config key that the JAX step honours and this one does
-    not, when the step is built: a step that dropped it would compute
-    another function (augmented batches, per-zone banks) or hold other
-    memory (remat: a whole-forward ``torch.utils.checkpoint`` would replay
-    the forward and update the BN running statistics a second time, which
-    ``jax.checkpoint`` does not)."""
-    if config.get("log_zone_metrics"):
-        raise NotImplementedError("log_zone_metrics (per-zone metric banks) is not ported yet "
-                                  "(ROADMAP.md, A1)")
-    if train and config.get("data_augmentations") and config.get("augmentations"):
-        raise NotImplementedError("data_augmentations (augment_batch in the train step) is not "
-                                  "ported yet (ROADMAP.md, A1)")
+    not, when the step is built: remat (a whole-forward
+    ``torch.utils.checkpoint`` would replay the forward and update the BN
+    running statistics a second time, which ``jax.checkpoint`` does not).
+    An unsupported augmentation with p > 0 raises here too."""
     if train and config.get("remat"):
         raise NotImplementedError("remat is not ported yet (ROADMAP.md, A4)")
+    if train and config.get("data_augmentations"):
+        check_augmentations(config)
 
 
 def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
                     model_config: dict, task: str = "segmentation",
                     device: str | torch.device | None = "cuda", with_grad_norm: bool = False):
-    """Returns ``train_step(state, batch, metric_state, lr) -> (state,
-    metric_state, aux)``: aux is the loss, or ``(loss, grad_norm)`` with
-    ``with_grad_norm``, the global f32 norm of the gradients (the reference's
-    wandb.watch gradient tracking as one scalar). The loss/metrics tail is
-    the fused CE+cm kernel when ``resolve_fused_tail`` selects it (the
-    default for the UNet on one CUDA device), else ``criterion`` plus a
-    confusion matrix of the argmax. Raises NotImplementedError for
-    ``log_zone_metrics``, ``remat`` and ``data_augmentations`` with
-    ``augmentations``, which it does not honour yet."""
+    """Returns ``train_step(state, batch, metric_state, lr, generator=None)
+    -> (state, metric_state, aux)``: aux is the loss, or ``(loss,
+    grad_norm)`` with ``with_grad_norm``, the global f32 norm of the
+    gradients (the reference's wandb.watch gradient tracking as one scalar).
+    With ``data_augmentations`` and ``augmentations`` the batch is augmented
+    on the step's device from ``generator`` (required then) before the input
+    is assembled. The loss/metrics tail is the fused CE+cm kernel when
+    ``resolve_fused_tail`` selects it (the default for the UNet on one CUDA
+    device), else ``criterion`` plus a confusion matrix of the argmax (and
+    the zone banks with ``log_zone_metrics``). Raises NotImplementedError
+    for ``remat``, which it does not honour yet."""
     _check_task(task)
     _check_ported_keys(config, train=True)
     dev = resolve_device(device)
     use_fused = bool(resolve_fused_tail(config, task, model_config, device=dev))
+    use_augment = bool(config.get("data_augmentations")) and bool(config.get("augmentations"))
+    with_zones = bool(config.get("log_zone_metrics"))
     cw = torch.tensor(config.get("class_weights", [1.0, 1.0, 1.0]), dtype=torch.float32,
                       device=dev)
 
-    def train_step(state: TrainState, batch: dict, metric_state: MetricState, lr: float):
+    def train_step(state: TrainState, batch: dict, metric_state: MetricState, lr: float,
+                   generator: torch.Generator | None = None):
         batch = _to_device(batch, dev)
+        if use_augment:
+            if generator is None:
+                raise ValueError("data_augmentations needs the step's torch.Generator")
+            batch = augment_batch(generator, batch, config)
         model.train()
         set_learning_rate(state.optimizer, lr)
         mask = batch["mask"]
@@ -120,7 +129,8 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
         if use_fused:
             metric_state = metric_state.update_from_cm(cm, loss, bsz)
         else:
-            metric_state = metric_state.update(torch.argmax(logits.detach(), dim=-1), mask, loss, bsz)
+            metric_state = metric_state.update(torch.argmax(logits.detach(), dim=-1), mask, loss,
+                                               bsz, clz=batch["clz"] if with_zones else None)
         state.step += 1
         if with_grad_norm:
             return state, metric_state, (loss.detach(), grad_norm)
@@ -152,12 +162,13 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
     at one chunk (the JAX ``chunked_eval_step``). The banks are those of the
     whole batch; the returned loss is the mean of the chunks' losses. A
     batch of at most M samples, or one that M does not divide, runs whole.
-    Raises NotImplementedError for ``log_zone_metrics``, which it does not
-    honour yet."""
+    With ``log_zone_metrics`` the zone banks are filled too (the fused tail
+    is then off)."""
     _check_task(task)
     _check_ported_keys(config, train=False)
     dev = resolve_device(device)
     use_fused = bool(resolve_fused_tail(config, task, model_config, strict=False, device=dev))
+    with_zones = bool(config.get("log_zone_metrics"))
     ones = torch.ones(3, dtype=torch.float32, device=dev)
 
     @torch.no_grad()
@@ -182,7 +193,8 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
         if cm is not None:
             metric_state = metric_state.update_from_cm(cm, loss, bsz)
         else:
-            metric_state = metric_state.update(preds, bank_mask, loss, bsz)
+            metric_state = metric_state.update(preds, bank_mask, loss, bsz,
+                                               clz=batch["clz"] if with_zones else None)
         aux = {}
         if with_aoi:
             aux["per_sample_cm"] = per_sample_confusion(preds, bank_mask)

@@ -69,6 +69,9 @@ class MetricLogger:
             payload[f"{settype} IoU ({CLASS_LABELS[c]})"] = 100 * float(summary["iou"][c])
         if self.config.get("evaluate_water") and "water_fscore" in summary:
             payload[f"{settype} F-Score Only Water"] = 100 * float(summary["water_fscore"][1])
+        if self.config.get("log_zone_metrics") and "zones" in summary:
+            for z, zsum in enumerate(summary["zones"]):
+                payload[f"{settype} Zone {z + 1} MeanIoU"] = 100 * zsum["mean_iou"]
         if aoi_summary:
             for act, asum in aoi_summary.items():
                 payload[f"{settype} AOI {act} MeanIoU"] = 100 * asum["mean_iou"]

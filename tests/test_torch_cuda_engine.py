@@ -1,4 +1,5 @@
-"""The engine's card paths: device_prefetch's pinned slots and copy stream,
+"""The engine's card paths: device_prefetch's uploads (from the Loader's
+page-locked ring, or staged for other batches) on its copy stream,
 one engine epoch on the card against the same epoch on the CPU, and a
 checkpoint round trip of card tensors.
 
@@ -25,6 +26,7 @@ from kurosiwo_torch.models.factory import initialize_segmentation_model
 from kurosiwo_torch.ops import batchnorm, fused_tail
 from kurosiwo_torch.training.checkpoint import CheckpointManager
 from kurosiwo_torch.training.engine import TaskEngine, device_prefetch
+from kurosiwo_torch.training.steps import STEP_KEYS
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +73,34 @@ def test_device_prefetch_uploads_every_batch_intact(dev, depth):
             assert g[k].device.type == "cuda" and g[k].dtype == torch.from_numpy(h[k]).dtype
             np.testing.assert_array_equal(g[k].cpu().numpy(), h[k])
         assert g["activation"] is h["activation"]  # stays on the host
+
+
+def test_device_prefetch_uploads_the_loaders_ring_in_place(dev):
+    """A Loader's batches go up from its page-locked ring (no host copy):
+    every batch on the card equals the same epoch read on the host, the
+    non-step keys stay on the host as copies, and the ring's 3 slots serve
+    the 3 batches of an epoch twice over while the compute stream lags."""
+    cfg = dict(CFG, synthetic_size=22, batch_size=2)
+    want = [list(Loader("val", cfg, 5)) for _ in range(2)]
+    loader = Loader("val", cfg, 5)
+    for epoch in range(2):
+        got = []
+        for batch in device_prefetch(loader, dev):
+            torch.cuda._sleep(int(2e6))
+            got.append({k: v.clone() if torch.is_tensor(v) else v for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert len(got) == len(want[epoch]) == 11
+        for g, w in zip(got, want[epoch]):
+            assert g.keys() == w.keys()
+            for k, v in w.items():
+                if k not in STEP_KEYS:
+                    assert isinstance(g[k], np.ndarray)
+                    np.testing.assert_array_equal(g[k], v)
+                else:
+                    assert g[k].device.type == "cuda"
+                    np.testing.assert_array_equal(g[k].cpu().numpy(), v)
+    assert loader._ring is not None and len(loader._ring.raws) == 3 and loader._ring._pinned
+    loader.close()
 
 
 def _engine_epoch(model, device):

@@ -102,10 +102,20 @@ def test_abandoned_epoch_stops_the_feeder(base_config):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"packed_shards": "shards/"}, "packed_shards"),
+    ({"packed_shards": "shards/"}, None),
     ({"slc": True}, "SLC"),
 ], ids=["shards", "slc"])
 def test_unported_sources_name_a14(base_config, kw, what):
+    """The SLC loader names A14; packed_shards is ported (a split with no
+    pack under the directory decodes from its source, as JAX's does)."""
+    if what is None:
+        got = tpipe.prepare_loaders(_cfg(base_config, **kw), seed=9)
+        want = [jpipe.Loader(m, _cfg(base_config, **kw), seed=9, process_index=0,
+                             process_count=1) for m in ("train", "val", "test")]
+        for g, w in zip(got, want):
+            assert g.shard_reader is None and w.shard_reader is None
+            _assert_batches_equal(list(g), list(w))
+        return
     with pytest.raises(NotImplementedError, match=rf"{what}.*A14"):
         tpipe.prepare_loaders(_cfg(base_config, **kw))
 

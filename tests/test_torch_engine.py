@@ -315,3 +315,32 @@ def test_f32_twin_is_the_default_eval_of_a_bf16_model(monkeypatch):
         TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
                 device="cpu")
         assert seen["dtype"] == want
+
+
+def test_augmented_epoch_repeats_bitwise_at_one_seed():
+    """With data_augmentations (the shipped pipeline, its crop at the patch
+    size) the engine draws from its generator, seeded from the engine's
+    seed: two engines from the same weights and seed train the same epoch
+    bit for bit, and another seed draws other crops. Exactness class:
+    bit-exact within torch."""
+    import json
+    import pathlib
+
+    aug = json.loads((pathlib.Path(__file__).resolve().parent.parent / "configs"
+                      / "augmentations" / "augmentation.json").read_text())["augmentations"]
+    aug["RandomResizedCrop"] = dict(aug["RandomResizedCrop"], value=32)
+    cfg = _cfg(data_augmentations=True, augmentations=aug, log_AOI_metrics=False)
+    init = t_init_model(cfg, MCFG, device="cpu", seed=SEED).state_dict()
+
+    def epoch(seed):
+        model = t_init_model(cfg, MCFG, device="cpu")
+        model.load_state_dict(init)
+        engine = TEngine(model, cfg, MCFG, "segmentation", 2, device="cpu", seed=seed)
+        summary = engine.run_train_epoch(TLoader("train", cfg, SEED), 0)
+        return summary, {k: v.clone() for k, v in model.state_dict().items()}
+
+    (a, wa), (b, wb), (c, _) = epoch(7), epoch(7), epoch(8)
+    assert a["batches"] == 2 and a["mean_loss"] == b["mean_loss"]
+    np.testing.assert_array_equal(a["cm"], b["cm"])
+    assert all(torch.equal(wa[k], wb[k]) for k in wa)
+    assert c["mean_loss"] != a["mean_loss"]

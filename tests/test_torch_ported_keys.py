@@ -1,15 +1,20 @@
-"""Config keys the JAX segmentation step honours and the port's step does not
-yet (ROADMAP C13): building the port's train or eval step with one of them
-on raises NotImplementedError naming its ROADMAP item, instead of a step
-that silently computes another function. The shipped configs keep every one
-of them off, so they still build.
+"""Config keys the JAX segmentation step honours (ROADMAP C13): building the
+port's train or eval step with one the port does not honour yet raises
+NotImplementedError naming its ROADMAP item, instead of a step that
+silently computes another function; a key the port has since ported is
+honoured by the step it builds. The shipped configs keep every one of them
+off, so they still build.
 """
 
+import numpy as np
 import pytest
+import torch
 
 from kurosiwo_torch.bench import MODEL_CONFIG, build_config
 from kurosiwo_torch.models.factory import initialize_segmentation_model
 from kurosiwo_torch.ops.losses import create_loss
+from kurosiwo_torch.ops.metrics import MetricState
+from kurosiwo_torch.training.state import create_train_state
 from kurosiwo_torch.training.steps import make_eval_step, make_train_step
 from kurosiwo_tpu.config import load_config
 
@@ -26,15 +31,59 @@ def build(step: str, model, cfg: dict):
                 device="cpu")
 
 
-# (step, overrides, the key named in the error, its ROADMAP item): the JAX
-# train step reads augmentations (steps.py:137, :178-182), remat (:144) and
-# the zone banks (:231); the eval step the zone banks (:310). The eval
+def _batch(seed=0, b=4, size=32):
+    rs = np.random.RandomState(seed)
+    batch = {k: rs.randn(b, size, size, 2).astype(np.float32) for k in ("post", "pre1", "pre2")}
+    batch["mask"] = rs.randint(0, 4, (b, size, size)).astype(np.int32)
+    batch["valid"] = np.ones((b, size, size), np.int32)
+    batch["clz"] = np.asarray([1, 2, 3, 1][:b], np.int32)
+    batch["sample_weight"] = np.ones(b, np.float32)
+    return batch
+
+
+def _honoured(step, model, cfg, key):
+    """The step built with ``key`` on does what the key asks: the train
+    step with data_augmentations crops and flips the batch it trains on (a
+    generator it is given draws them, so another seed gives another loss),
+    and both steps with log_zone_metrics fill zone banks that sum to the
+    main bank."""
+    cfg = dict(cfg, mixed_precision=False)
+    fn = build(step, model, cfg)
+    batch = _batch()
+    if step == "train":
+        state = create_train_state(model, cfg, MODEL_CONFIG)
+        snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def run(seed):
+            model.load_state_dict(snapshot)
+            g = torch.Generator().manual_seed(seed)
+            _, ms, loss = fn(state, batch, MetricState.create(), 1e-3, g)
+            return ms, float(loss)
+
+        ms, loss = run(0)
+        if key == "data_augmentations":
+            assert run(0)[1] == loss and run(1)[1] != loss
+            with pytest.raises(ValueError, match="Generator"):
+                fn(state, batch, MetricState.create(), 1e-3)
+    else:
+        ms, _, _ = fn(None, batch, MetricState.create())
+    if key == "log_zone_metrics":
+        zones = ms.zones.numpy()
+        assert (zones.sum(axis=(1, 2)) > 0).all()
+        np.testing.assert_array_equal(zones.sum(axis=0), ms.cm.numpy())
+
+
+# (step, overrides, the key named, its ROADMAP item; None once ported): the
+# JAX train step reads augmentations (steps.py:137, :178-182), remat (:144)
+# and the zone banks (:231); the eval step the zone banks (:310). The
+# augmentations and the zone banks are ported (A1; tests/test_torch_augment.py
+# and tests/test_torch_losses.py hold them to JAX's); remat raises. The eval
 # step's eval_microbatch (:281) is ported: tests/test_torch_engine.py::
 # test_chunked_eval_matches_jax_chunked_eval_step holds it to JAX's.
 REFUSED = [
-    ("train", {"data_augmentations": True}, "data_augmentations", "A1"),
-    ("train", {"log_zone_metrics": True}, "log_zone_metrics", "A1"),
-    ("eval", {"log_zone_metrics": True}, "log_zone_metrics", "A1"),
+    ("train", {"data_augmentations": True}, "data_augmentations", None),
+    ("train", {"log_zone_metrics": True}, "log_zone_metrics", None),
+    ("eval", {"log_zone_metrics": True}, "log_zone_metrics", None),
     ("train", {"remat": True}, "remat", "A4"),
 ]
 
@@ -47,6 +96,9 @@ def test_step_refuses_a_key_it_does_not_honour(model, step, overrides, key, item
     cfg = load_config(method="unet", overrides=overrides)
     if key == "data_augmentations":
         assert cfg["augmentations"]
+    if item is None:
+        _honoured(step, model, cfg, key)
+        return
     with pytest.raises(NotImplementedError, match=rf"{key}.*ROADMAP\.md, {item}\)"):
         build(step, model, cfg)
 
