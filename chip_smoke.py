@@ -116,16 +116,36 @@ its lines; any failed phase exits non-zero.
    twice with ``deterministic: false`` (cuDNN's autotuner) and twice with
    ``deterministic: true``, printing the first-step loss, the train and val
    metrics and the test mIoU; the deterministic pair must agree.
-8. The kernel table as one JSON line, then the result line
+   Then change detection: each of the five convolutional methods
+   (SNUNet-ECAM at base_channel 8, Siam-diff, Siam-conc, ADHR-CDNet,
+   HFA-Net at 224^2) in one f32 train and eval step, card against CPU, the
+   card's Dropout2d masks replayed on the CPU, the pair-sum kernel launched
+   once for each plain call of the CPU step; remat on against off on the
+   card (SNUNet's column plan, Siam-diff's whole-forward region with
+   dropout): equal running statistics, gradients in the f32 band, equal
+   pair-sum launches; the SNUNet b128 bf16 train step with remat on (the
+   default) and off (3 warm-up, 10 timed; its peak memory must be lower
+   with remat) and its f32-twin eval, the Siam-diff b128 train step, HFA-Net
+   and ADHR-CDNet at the largest of b128, b64, b32 that fits, each with
+   patches/s, peak memory, pair-sum launches a step and the card's busy
+   time a step (torch.profiler); one SNUNet b128 step with ``fused_tail:
+   true`` (B2) against the plain tail; and ``python -m kurosiwo_torch
+   --method snunet --seed 7`` twice on the shipped configs (the cd task on
+   pre_event_1 and post_event, deterministic by default): exit 0, a
+   ``Test Mean IOU:`` line, ``checkpoint_epoch=0`` written, the same
+   printed numbers. The phase prints its wall time.
+8. The kernel table as one JSON line (B3's row with the change-detection
+   steps' pair-sum launches), then the result line
    ``{"ok": true, "device": {...}}``.
 
-``--only engine,feed,augment,losses,c14`` runs the device and build phases
+``--only engine,feed,augment,losses,c14,cd`` runs the device and build phases
 and then only those phases: a partial run, which prints no kernel table and
 no result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -229,10 +249,27 @@ def phase_build(kernels) -> None:
         kernels.library(name)
 
 
+def pair_sums_check(torch, batchnorm, a, b, label: str) -> tuple[float, float]:
+    """pair_sums(a, b) against its plain version on the same inputs, and
+    twice (deterministic). Band: |kernel - plain| <= 1e-5 * sum of |terms|
+    per channel (both sum the same f32 values in another order). Returns the
+    largest error, absolute and as a share of the sum of |terms|."""
+    c = a.shape[-1]
+    got = batchnorm.pair_sums(a, b)
+    again = batchnorm.pair_sums(a, b)
+    want = batchnorm.pair_sums_plain(a, b)
+    af, bf = a.float().reshape(-1, c), b.float().reshape(-1, c)
+    scale = torch.stack([af.abs().sum(0), (af * bf).abs().sum(0)])
+    err = (got - want).abs()
+    require(bool((err <= 1e-5 * scale + 1e-6).all()),
+            f"pair_sums {label}: error {err.max().item():.3e}")
+    require(torch.equal(got, again), f"pair_sums {label} not deterministic")
+    return err.max().item(), (err / scale.clamp_min(1e-30)).max().item()
+
+
 def phase_pair_sums(torch, batchnorm) -> dict:
     """pair_sums at every BN shape of the step, f32 and bf16, (x, x) and
-    (dy, x). Band: |kernel - plain| <= 1e-5 * sum of |terms| per channel
-    (both sum the same f32 values in another order)."""
+    (dy, x), held to ``pair_sums_check``'s band."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
@@ -242,17 +279,9 @@ def phase_pair_sums(torch, batchnorm) -> dict:
             x = torch.randn((BATCH, h, w, c), device=dev, generator=g).to(dtype)
             dy = torch.randn((BATCH, h, w, c), device=dev, generator=g).to(dtype)
             for a, b in ((x, x), (dy, x)):
-                got = batchnorm.pair_sums(a, b)
-                again = batchnorm.pair_sums(a, b)
-                want = batchnorm.pair_sums_plain(a, b)
-                af, bf = a.float().reshape(-1, c), b.float().reshape(-1, c)
-                scale = torch.stack([af.abs().sum(0), (af * bf).abs().sum(0)])
-                err = (got - want).abs()
-                require(bool((err <= 1e-5 * scale + 1e-6).all()),
-                        f"pair_sums {(BATCH, h, w, c)} {dtype}: error {err.max().item():.3e}")
-                require(torch.equal(got, again), f"pair_sums {(BATCH, h, w, c)} not deterministic")
-                tot["max_abs_err"] = max(tot["max_abs_err"], err.max().item())
-                tot["max_rel_err"] = max(tot["max_rel_err"], (err / scale.clamp_min(1e-30)).max().item())
+                err, rel = pair_sums_check(torch, batchnorm, a, b, f"{(BATCH, h, w, c)} {dtype}")
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                tot["max_rel_err"] = max(tot["max_rel_err"], rel)
                 if dtype != torch.bfloat16:
                     continue
                 ms = event_ms(torch, lambda: batchnorm.pair_sums(a, b))
@@ -2150,14 +2179,443 @@ def phase_losses_zones(torch, counters, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def cli_run(smi: str, config: dict | None = None) -> dict:
+# the change-detection phase's small card-against-CPU steps: (method, batch,
+# side); SNUNet at base_channel 8, Siam at 36 so that its replication pad
+# acts, HFA-Net at the one side it fits
+CD_SMALL = (("snunet", 2, 64), ("siam-diff", 2, 36), ("siam-conc", 2, 36), ("adhr-cdnet", 2, 32),
+            ("hfa-net", 1, 224))
+CD_WIDTH = {"base_channel": 8}
+
+
+def cd_config(method: str, batch: int, **kw) -> dict:
+    from kurosiwo_torch import bench
+
+    return dict(bench.build_config("snunet", batch), method=method, **kw)
+
+
+def cd_batch(torch, batch: int, side: int, seed: int = 1) -> dict:
+    from kurosiwo_torch import bench
+
+    host = bench.host_batch(batch, side, seed=seed)
+    return {k: torch.from_numpy(v) for k, v in host.items()}
+
+
+def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device: str,
+               masks: list):
+    """One train step of ``model`` on ``device``; the Dropout2d masks are
+    drawn there and recorded into ``masks`` (card) or replayed from it
+    (CPU). Returns the loss, bank, state after the step, the optimizer's
+    first moment or momentum buffer, the step's kernel launches and the
+    plain pair-sum calls."""
+    from kurosiwo_torch.ops import batchnorm
+    from kurosiwo_torch.ops import nn as tnn
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.training.state import create_train_state
+    from kurosiwo_torch.training.steps import make_train_step
+
+    draw, real_plain = tnn.Dropout2d.draw_mask, batchnorm.pair_sums_plain
+    plain = [0]
+
+    def card_mask(self, x, g):
+        m = draw(self, x, g)
+        masks.append(m.cpu())
+        return m
+
+    def counting(a, b):
+        plain[0] += 1
+        return real_plain(a, b)
+
+    tnn.Dropout2d.draw_mask = card_mask if device == "cuda" else (
+        lambda self, x, g: masks.pop(0))
+    batchnorm.pair_sums_plain = counting  # the CPU's calls of pair_sums' plain version
+    try:
+        state = create_train_state(model, cfg, mc, "cd")
+        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, task="cd",
+                               device=device)
+        zero_counters(counters)
+        state, ms, loss = step(state, batch, MetricState.create(device), 1e-3,
+                               torch.Generator(device).manual_seed(0))
+        launched = read_counters(counters)
+    finally:
+        tnn.Dropout2d.draw_mask, batchnorm.pair_sums_plain = draw, real_plain
+    key = "momentum_buffer" if isinstance(state.optimizer, torch.optim.SGD) else "exp_avg"
+    moment = torch.cat([state.optimizer.state[p][key].detach().cpu().reshape(-1)
+                        for p in model.parameters()])
+    return dict(loss=loss.item(), cm=ms.cm.cpu(),
+                state={k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                moment=moment, launched=launched, plain_calls=plain[0])
+
+
+def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict):
+    """The eval step's loss and cm of ``model`` with ``weights`` loaded."""
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.training.steps import make_eval_step
+
+    model.load_state_dict(weights)
+    dev = next(model.parameters()).device
+    ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, task="cd", device=dev)
+    ms, loss, _ = ev(None, batch, MetricState.create(dev))
+    return loss.item(), ms.cm.cpu()
+
+
+def phase_cd_parity(torch, counters) -> dict:
+    """Each of the five change-detection methods: one f32 train step on the
+    card (kernels) against the same on the CPU (plain versions), from the
+    same weights and batch, the card's Dropout2d masks replayed on the CPU,
+    deterministic algorithms on; then the eval step of both from the CPU's
+    trained weights. Bands as
+    tests/test_torch_cd_steps.py (card against CPU in place of JAX against
+    torch): loss rtol 1e-4; cm row sums equal, cells within 0.1% of the valid
+    pixels; the optimizer's first moment (Adam) or momentum buffer (SGD,
+    which HFA-Net is forced to) within 2% in L2; Adam's parameters all
+    within 2*lr and 99% within 3e-4, SGD's within 1e-4 (lr times a tenth of
+    a gradient); batch statistics
+    atol 1e-4. The card's train step launches the pair-sum kernel once for
+    each plain call of the CPU's. Returns {method: pair-sum launches}."""
+    from kurosiwo_torch.device import configure_backends
+    from kurosiwo_torch.models.factory import initialize_cd_model
+
+    out = {}
+    for method, bsz, side in CD_SMALL:
+        cfg = cd_config(method, bsz, mixed_precision=False)
+        mc = dict(CD_WIDTH, optimizer="adam", learning_rate=1e-3)
+        configure_backends(cfg, "cuda")
+        batch = cd_batch(torch, bsz, side)
+        cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
+        masks: list = []
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        g = cd_step_on(torch, counters, card_model, cfg, mc, batch, "cuda", masks)
+        c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks)
+        # the eval step of both from the CPU's trained weights: the same function
+        for r, model in ((g, card_model), (c, cpu_model)):
+            r["eloss"], r["ecm"] = cd_eval(torch, model, cfg, mc, batch, c["state"])
+        valid = int((batch["mask"] != 3).sum())
+        for key in ("loss", "eloss"):
+            require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]),
+                    f"cd {method} {key}: card {g[key]} vs CPU {c[key]}")
+        for key in ("cm", "ecm"):
+            require(torch.equal(g[key].sum(1), c[key].sum(1)), f"cd {method} {key} row sums")
+            require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid,
+                    f"cd {method} {key} cells")
+        l2 = ((g["moment"] - c["moment"]).norm() / c["moment"].norm()).item()
+        require(l2 <= 2e-2, f"cd {method} gradients: relative L2 {l2}")
+        params = [k for k, _ in cpu_model.named_parameters()]
+        stats = [k for k in c["state"] if k not in params]
+        sgd = method == "hfa-net"  # forced to SGD; the others take the config's Adam
+        pmax, pshare = adam_step_close({k: g["state"][k] for k in params},
+                                       {k: c["state"][k] for k in params}, 1e-3)
+        require(pmax <= (1e-4 if sgd else 2e-3 + 1e-6) and (sgd or pshare >= 0.99),
+                f"cd {method} params: max {pmax}, share {pshare}")
+        smax = max((g["state"][k] - c["state"][k]).abs().max().item() for k in stats)
+        require(smax <= 1e-4, f"cd {method} batch stats: {smax}")
+        launched = g["launched"]
+        require(launched == {k: 0 for k in counters} | {"pair_sums": c["plain_calls"]},
+                f"cd {method} card train step launched {launched}, the CPU step made "
+                f"{c['plain_calls']} plain pair-sum calls")
+        out[method] = launched["pair_sums"]
+        print(f"[cd parity] {method} f32 ({bsz},{side},{side},2)x2 card vs CPU: loss "
+              f"{g['loss']:.6f} vs {c['loss']:.6f}, eval loss {g['eloss']:.6f} vs "
+              f"{c['eloss']:.6f}, cm max diff {(g['cm'] - c['cm']).abs().max().item():.0f} of "
+              f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e}, params "
+              f"max {pmax:.2e}, batch stats max {smax:.2e}, {len(masks)} masks left over, "
+              f"pair_sums {launched['pair_sums']} a step", flush=True)
+        require(not masks, f"cd {method}: the CPU step drew fewer masks than the card's")
+    return out
+
+
+def phase_cd_remat(torch, counters) -> None:
+    """remat on against off on the card, one f32 train step from the same
+    weights, batch and generator seed: SNUNet's column plan (base_channel
+    8, b2 64^2) and Siam-diff's whole-forward region with dropout on (b2
+    36^2). Required: the BN running statistics equal after the step, the
+    optimizer's moments within the f32 band (rel L2 1e-5), the pair-sum
+    launches equal."""
+    from kurosiwo_torch.models.factory import initialize_cd_model
+
+    for method, side in (("snunet", 64), ("siam-diff", 36)):
+        cfg = cd_config(method, 2, mixed_precision=False)
+        mc = dict(CD_WIDTH, optimizer="adam", learning_rate=1e-3)
+        base = initialize_cd_model(cfg, mc, device="cpu", seed=5)
+        batch = cd_batch(torch, 2, side, seed=2)
+        runs = {}
+        for remat in (False, True):
+            model = copy.deepcopy(base).to("cuda")
+            if method == "snunet":
+                model.remat = remat
+            masks: list = []
+            runs[remat] = cd_step_on(torch, counters, model, dict(cfg, remat=remat), mc, batch,
+                                     "cuda", masks)
+        a, b = runs[False], runs[True]
+        params = {k for k, _ in base.named_parameters()}
+        stats_equal = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"]
+                          if k not in params)
+        l2 = ((a["moment"] - b["moment"]).norm() / a["moment"].norm()).item()
+        bitwise = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+        require(stats_equal, f"cd remat {method}: running statistics differ")
+        require(l2 <= 1e-5, f"cd remat {method}: gradients differ, rel L2 {l2}")
+        require(a["launched"] == b["launched"],
+                f"cd remat {method}: launches {a['launched']} without, {b['launched']} with")
+        print(f"[cd remat] {method} on the card, remat off vs on: loss {a['loss']:.6f} vs "
+              f"{b['loss']:.6f}, running statistics equal, moments rel L2 {l2:.1e} "
+              f"({'bitwise equal' if bitwise else 'not bitwise'}), pair_sums "
+              f"{a['launched']['pair_sums']} vs {b['launched']['pair_sums']} a step", flush=True)
+
+
+@contextlib.contextmanager
+def recording_bn_shapes(shapes: set):
+    """While active, adds the shape of every card tensor the BatchNorms hand
+    pair_sums to ``shapes`` (at its CUDA path, under the wrapper that counts
+    the launches)."""
+    from kurosiwo_torch.ops import batchnorm
+
+    real = batchnorm._pair_sums_cuda
+
+    def recording(a, b):
+        shapes.add(tuple(a.shape))
+        return real(a, b)
+
+    batchnorm._pair_sums_cuda = recording
+    try:
+        yield
+    finally:
+        batchnorm._pair_sums_cuda = real
+
+
+def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
+             warmup: int, steps: int, eval_too: bool = False, profile_steps: int = 3,
+             bn_shapes: set | None = None) -> dict:
+    """``steps`` timed bf16 train steps (after ``warmup``) of a
+    change-detection bench leg at ``batch``: patches/s, peak memory,
+    pair-sum launches a step and the card's busy time a step (torch.profiler);
+    with ``eval_too`` the f32-twin eval step too. The shapes of the train
+    step's BatchNorm inputs are added to ``bn_shapes``."""
+    from kurosiwo_torch import bench
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = bench.setup(batch, overrides=overrides, model=model)
+    zero_counters(counters)
+    with recording_bn_shapes(set() if bn_shapes is None else bn_shapes):
+        seconds, loss, metric = bench.run_train(b, steps, warmup)
+    launches = read_counters(counters)
+    n = warmup + steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(bool(torch.isfinite(loss).item()), f"{model} b{batch} train loss {loss.item()}")
+    valid = int((b.batch["mask"] != 3).sum().item())
+    require(bank_counts_all(metric, n * valid), f"{model} b{batch} train bank count")
+    require(launches["pair_sums"] % n == 0 and all(
+        v == 0 for k, v in launches.items() if k != "pair_sums"),
+        f"{model} b{batch} train launches {launches}")
+    out = {"rate": steps * batch / seconds, "ms": seconds / steps * 1e3, "peak_gib": peak,
+           "pair_sums": launches["pair_sums"] // n, "batch": batch,
+           "remat": bool(b.config.get("remat", getattr(b.state.model, "remat", False)))}
+    out["busy_ms"] = math.nan
+    if profile_steps:
+        one, _ = bench._train_fn(b)
+        prof = bench.profile(one, profile_steps, b.device, out["ms"], file=sys.stdout)
+        out["busy_ms"] = prof["kernel_ms"]
+    print(f"[cd main] {model} train b{batch} bf16 (remat {'on' if out['remat'] else 'off'}"
+          f"{', ' + json.dumps(overrides) if overrides else ''}): "
+          f"{out['rate']:.2f} patches/s ({out['ms']:.2f} ms/step), loss {loss.item():.5f}, "
+          f"peak {peak:.2f} GiB, pair_sums {out['pair_sums']} a step, device busy "
+          f"{out['busy_ms']:.2f} ms/step [{smi}]", flush=True)
+    if eval_too:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        seconds, eloss, emetric = bench.run_eval(b, steps, warmup, f32=True)
+        require(bool(torch.isfinite(eloss).item()) and read_counters(counters) == {
+            k: 0 for k in counters}, f"{model} eval: loss {eloss.item()}, launches "
+                                     f"{read_counters(counters)}")
+        require(bank_counts_all(emetric, n * valid), f"{model} b{batch} eval bank count")
+        out["eval_rate"] = steps * batch / seconds
+        out["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[cd main] {model} eval b{batch} f32 twin: {out['eval_rate']:.2f} patches/s "
+              f"({seconds / steps * 1e3:.2f} ms/step), peak {out['eval_peak_gib']:.2f} GiB "
+              f"[{smi}]", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def cd_fitting(torch, counters, smi: str, model: str, bn_shapes: set) -> dict:
+    """The bf16 train step of a model at b64, or b32 if that does not fit,
+    timed at 2 + 5 steps. HFA-Net and ADHR-CDNet run out of memory at b128
+    (PERF.md; ``python3 -m kurosiwo_torch.bench --model hfa-net --batch 128``
+    tries it), so the search starts at b64. (A whole-forward remat would not
+    lower the peak: its backward recomputes every activation before it frees
+    any.)"""
+    import gc
+
+    batches = (BATCH // 2, BATCH // 4)
+    for batch in batches:
+        try:
+            return cd_timed(torch, counters, smi, model, batch, {}, 2, 5, profile_steps=2,
+                            bn_shapes=bn_shapes)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[cd main] {model} b{batch}: out of memory", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise PhaseFailed(f"{model}: no batch of {batches} fits")
+
+
+def phase_cd_pair_sums(torch, shapes: set) -> dict:
+    """B3 against its plain version at every BatchNorm input shape that the
+    change-detection train steps above gave it (SNUNet and Siam-diff at
+    b128, HFA-Net and ADHR-CDNet at the batch that fit), on random inputs
+    in f32 and bf16, (x, x) and (dy, x), held to ``pair_sums_check``'s
+    band."""
+    from kurosiwo_torch.ops import batchnorm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {"shapes": len(shapes), "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for shape in sorted(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, device=dev, generator=g).to(dtype)
+            dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+            for a, b in ((x, x), (dy, x)):
+                err, rel = pair_sums_check(torch, batchnorm, a, b, f"cd {shape} {dtype}")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["max_rel_err"] = max(out["max_rel_err"], rel)
+            del x, dy
+        torch.cuda.empty_cache()
+    big = max(shapes, key=math.prod)
+    print(f"[cd pair_sums] kernel vs plain at the {len(shapes)} BatchNorm input shapes of the "
+          f"CD train steps (largest {big}, C from {min(x[-1] for x in shapes)} to "
+          f"{max(x[-1] for x in shapes)}), f32 and bf16, (x,x) and (dy,x): max error "
+          f"{out['max_abs_err']:.3e} absolute, {out['max_rel_err']:.3e} of the sum of |terms|; "
+          "deterministic", flush=True)
+    return out
+
+
+def phase_cd_hfanet_bf16(torch, smi: str, batch: int = 8) -> float:
+    """ROADMAP C18 on the card: HFA-Net's first-layer (encoder.pre_treat)
+    gradient norm from one bf16 forward and backward against the f32 one,
+    same weights and batch (224^2), required within 2x (a high-pass bank
+    computed in bf16 gives 1e13 times). Returns bf16 over f32."""
+    from kurosiwo_torch.models.factory import initialize_cd_model
+    from kurosiwo_torch.ops.losses import create_loss
+
+    batch_ = {k: v.cuda() for k, v in cd_batch(torch, batch, IMAGE).items()}
+    weights = initialize_cd_model(cd_config("hfa-net", batch), {}, device="cpu",
+                                  seed=3).state_dict()
+    norms = {}
+    for mp in (False, True):
+        cfg = cd_config("hfa-net", batch, mixed_precision=mp)
+        model = initialize_cd_model(cfg, {}, device="cpu", seed=3)
+        model.load_state_dict(weights)
+        model = model.to("cuda").train()
+        out = model(batch_["pre1"], batch_["post"])
+        create_loss(cfg, "train")(out, batch_["mask"]).backward()
+        norms[mp] = model.encoder.pre_treat.weight.grad.norm().item()
+        del model, out
+        torch.cuda.empty_cache()
+    ratio = norms[True] / norms[False]
+    print(f"[cd hfa-net] b{batch} first-layer gradient norm: bf16 {norms[True]:.6e}, f32 "
+          f"{norms[False]:.6e}, ratio {ratio:.4f} [{smi}]", flush=True)
+    require(0.5 <= ratio <= 2.0, f"HFA-Net bf16 first-layer gradient {ratio} times the f32 one")
+    return ratio
+
+
+def phase_cd(torch, counters, smi: str) -> dict:
+    """The change-detection slice: card against CPU for the five methods,
+    remat on the card, the SNUNet b128 main path (remat on and off, the
+    f32-twin eval), Siam-diff at b128, HFA-Net and ADHR-CDNet at the largest
+    batch that fits, B3 against its plain version at every BatchNorm input
+    shape those steps gave it, HFA-Net's bf16 gradient scale, one SNUNet
+    b128 step with the fused CE + cm tail (B2) against the plain tail, and
+    the CLI twice at one seed. Returns the numbers of each."""
+    from kurosiwo_torch import bench
+
+    t0 = time.perf_counter()
+    out = {"parity": phase_cd_parity(torch, counters)}
+    phase_cd_remat(torch, counters)
+    bn_shapes: set = set()
+    out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, 3, 10, eval_too=True,
+                             bn_shapes=bn_shapes)
+    out["snunet_no_remat"] = cd_timed(torch, counters, smi, "snunet", BATCH, {"remat": False},
+                                      3, 10)
+    # ROADMAP C14's question for cd: what deterministic algorithms cost the step
+    out["snunet_autotuned"] = cd_timed(torch, counters, smi, "snunet", BATCH,
+                                       {"deterministic": False}, 3, 10, profile_steps=0)
+    print(f"[cd main] SNUNet b{BATCH} deterministic algorithms cost "
+          f"{100 * (1 - out['snunet']['rate'] / out['snunet_autotuned']['rate']):.1f}% of the "
+          f"autotuned step's rate in this run [{smi}]", flush=True)
+    on, off = out["snunet"], out["snunet_no_remat"]
+    require(on["remat"] and not off["remat"], "SNUNet b128 remat default")
+    require(on["pair_sums"] == off["pair_sums"] == 76,
+            f"SNUNet pair_sums a step {on['pair_sums']} (remat) and {off['pair_sums']}, "
+            "expected 76 (38 BatchNorms, forward and backward)")
+    require(on["peak_gib"] < off["peak_gib"],
+            f"SNUNet peak memory with remat {on['peak_gib']:.2f} GiB not below "
+            f"{off['peak_gib']:.2f} without")
+    out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, 3, 10,
+                                bn_shapes=bn_shapes)
+    require(out["siam-diff"]["pair_sums"] == 58, "Siam-diff pair_sums a step")
+    for model in ("hfa-net", "adhr-cdnet"):
+        out[model] = cd_fitting(torch, counters, smi, model, bn_shapes)
+    out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes)
+    out["hfa_bf16_ratio"] = phase_cd_hfanet_bf16(torch, smi)
+
+    # the fused CE + confusion-matrix tail (B2) on the SNUNet step, against the plain tail
+    res = {}
+    for fused in (False, True):
+        b = bench.setup(BATCH, overrides={"fused_tail": fused}, model="snunet")
+        zero_counters(counters)
+        one, metric = bench._train_fn(b)
+        loss = one()
+        res[fused] = (loss.item(), metric[0].cm.cpu(), read_counters(counters))
+        del b, one
+        torch.cuda.empty_cache()
+    (lp, cmp_, lau_p), (lf, cmf, lau_f) = res[False], res[True]
+    valid = int(cmp_.sum().item())
+    require(lau_f == {k: 0 for k in counters} | {"pair_sums": 76, "ce_cm_fwd_nhwc": 1,
+                                                  "ce_cm_bwd_nhwc": 1},
+            f"SNUNet fused-tail step launched {lau_f}")
+    require(lau_p["ce_cm_fwd_nhwc"] == lau_p["ce_cm_bwd_nhwc"] == 0, "plain tail launched B2")
+    require(abs(lf - lp) <= 1e-5 * abs(lp), f"SNUNet fused-tail loss {lf} vs plain {lp}")
+    require(torch.equal(cmf.sum(1), cmp_.sum(1)) and (cmf - cmp_).abs().max().item()
+            <= 1e-3 * valid, "SNUNet fused-tail cm")
+    print(f"[cd fused_tail] SNUNet b{BATCH} bf16 step with fused_tail true: loss {lf:.6f} vs "
+          f"plain tail {lp:.6f}, cm max diff {(cmf - cmp_).abs().max().item():.0f} of {valid} "
+          f"px, launches {lau_f}", flush=True)
+
+    # the CLI twice at one seed on the shipped configs with the cd task and two
+    # inputs, as main.py takes them (deterministic by default for cd)
+    runs = []
+    for _ in range(2):
+        run = cli_run(smi, {"on_screen_prints": True, "task": "cd"}, method=("snunet",),
+                      extra=("--inputs", "pre_event_1", "post_event"))
+        require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
+                f"the CD CLI left no checkpoint_epoch=0: {run['files']}")
+        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+        runs.append({"first": first, "lines": [
+            {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
+            "miou": run["miou"]})
+        print(f"[cd cli] python -m kurosiwo_torch --method snunet --inputs pre_event_1 "
+              f"post_event --seed 7 (\"task\": \"cd\"): exit 0 in "
+              f"{run['seconds']:.1f} s, first-step loss {first}, Test Mean IOU "
+              f"{run['miou']!r}, checkpoint_epoch=0 written [{smi}]", flush=True)
+    require(runs[0] == runs[1], "two deterministic CD CLI runs at one seed differ")
+    print(f"[cd] the two CLI runs agree in every printed number; phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["fused_tail"] = lau_f
+    return out
+
+
+def cli_run(smi: str, config: dict | None = None, method: tuple = ("unet", "resnet18"),
+            extra: tuple = ()) -> dict:
     """``python -m kurosiwo_torch --method unet --backbone resnet18 --seed 7``
-    in a subprocess and a temporary directory, on a copy of the shipped
-    configs with ``config`` merged into train/train_config.json, the last
-    file merged (none: the shipped files as they are); it reuses the
-    kernels already built. Exit 0 and a
-    ``Test Mean IOU:`` line are required. Returns the seconds, the test mIoU
-    and the JSON lines it printed (with on_screen_prints)."""
+    (``method``: the method and backbone; a change-detection method takes no
+    backbone; ``extra``: more flags) in a subprocess and a temporary
+    directory, on a copy of the shipped configs with ``config`` merged into
+    train/train_config.json, the
+    last file merged (none: the shipped files as they are); it reuses the
+    kernels already built. Exit 0 and a ``Test Mean IOU:`` line are
+    required. Returns the seconds, the test mIoU, the JSON lines it printed
+    (with on_screen_prints) and the files it wrote under checkpoints/."""
     import os
     import re
     import shutil
@@ -2167,6 +2625,7 @@ def cli_run(smi: str, config: dict | None = None) -> dict:
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    argv = ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra]
     with tempfile.TemporaryDirectory() as tmp:
         configs = root / "configs"
         if config:
@@ -2178,10 +2637,12 @@ def cli_run(smi: str, config: dict | None = None) -> dict:
             path.write_text(json.dumps({**load_json5(path), **config}))
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "kurosiwo_torch", "--method", "unet", "--backbone",
-             "resnet18", "--seed", "7", "--config_root", str(configs)],
+            [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
+             "--config_root", str(configs)],
             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
+        written = sorted(str(f.relative_to(tmp)) for f in (Path(tmp) / "checkpoints").rglob("*")
+                         if f.is_file()) if (Path(tmp) / "checkpoints").exists() else []
     found = re.search(r"^Test Mean IOU:\s+(\S+)$", proc.stdout, re.M)
     if proc.returncode or not found:
         print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", flush=True)
@@ -2190,7 +2651,7 @@ def cli_run(smi: str, config: dict | None = None) -> dict:
     miou = float(found.group(1))
     require(math.isfinite(miou) and 0.0 <= miou <= 100.0, f"the CLI's test mIoU {miou}")
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"')]
-    return {"seconds": seconds, "miou": miou, "lines": lines}
+    return {"seconds": seconds, "miou": miou, "lines": lines, "files": written}
 
 
 def phase_cli(smi: str) -> float:
@@ -2231,6 +2692,19 @@ def phase_c14(smi: str) -> None:
     require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
 
 
+def cd_summary(cd: dict, smi: str) -> str:
+    """One line of the change-detection phase's numbers, printed near the
+    end of the output so that they stay in its tail."""
+    legs = {k: {"batch": v["batch"], "patches_per_s": v["rate"], "ms_per_step": v["ms"],
+                "peak_gib": v["peak_gib"], "pair_sums_per_step": v["pair_sums"],
+                "busy_ms_per_step": v["busy_ms"], **({"eval_patches_per_s": v["eval_rate"]}
+                                                       if "eval_rate" in v else {})}
+            for k, v in cd.items() if isinstance(v, dict) and "rate" in v}
+    return "[cd summary] " + json.dumps({
+        "card": smi, "legs": legs, "hfa_bf16_over_f32_first_layer_grad": cd["hfa_bf16_ratio"],
+        "pair_sums_cd_shapes": cd["pair_sums_check"]})
+
+
 def run_only(torch, counters, smi: str, only: set) -> None:
     """The phases of this slice alone (``--only``), for a short run while
     they are worked on."""
@@ -2251,9 +2725,11 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         phase_losses_zones(torch, counters, smi)
     if "c14" in only:
         phase_c14(smi)
+    if "cd" in only:
+        print(cd_summary(phase_cd(torch, counters, smi), smi), flush=True)
 
 
-ONLY = {"engine", "feed", "augment", "losses", "c14"}
+ONLY = {"engine", "feed", "augment", "losses", "c14", "cd"}
 
 
 def main(argv=None) -> int:
@@ -2334,6 +2810,9 @@ def main(argv=None) -> int:
         phase_losses_zones(torch, counters, smi)
         phase_cli(smi)
         phase_c14(smi)
+        torch.cuda.empty_cache()
+        cd = phase_cd(torch, counters, smi)
+        torch.cuda.empty_cache()
         mae_launches = phase_mae_main(torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = phase_scene_main(torch, counters, smi)
@@ -2353,9 +2832,15 @@ def main(argv=None) -> int:
             "kurosiwo_tpu/ops/pallas_tail.py:305", phase["fwd"], launches["ce_cm_fwd_phase"]),
         row("ce_cm_bwd_phase (no port path launches it)", "kurosiwo_torch/csrc/ce_cm.cu",
             "kurosiwo_tpu/ops/pallas_tail.py:345", phase["bwd"], launches["ce_cm_bwd_phase"]),
-        row("pair_sums (per train step: 30 fwd + 30 bwd calls)",
-            "kurosiwo_torch/csrc/pair_sums.cu", "kurosiwo_tpu/ops/pallas_bn.py:48", pair,
-            launches["pair_sums"]),
+        dict(row("pair_sums (per UNet train step: 30 fwd + 30 bwd calls; cd_launches_per_step: "
+                 "the change-detection train steps, SNUNet with remat on and off; "
+                 "cd_max_abs_err: against the plain version at their BatchNorm input shapes)",
+                 "kurosiwo_torch/csrc/pair_sums.cu", "kurosiwo_tpu/ops/pallas_bn.py:48", pair,
+                 launches["pair_sums"]),
+             cd_launches_per_step={k: cd[k]["pair_sums"] for k in (
+                 "snunet", "snunet_no_remat", "siam-diff", "hfa-net", "adhr-cdnet")},
+             cd_shapes_checked=cd["pair_sums_check"]["shapes"],
+             cd_max_abs_err=cd["pair_sums_check"]["max_abs_err"]),
         row("ce_cm_fwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:128",
             ce["fwd"], launches["ce_cm_fwd_nhwc"]),
         row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
@@ -2412,6 +2897,7 @@ def main(argv=None) -> int:
              ragged_max_abs_err=cfu["ragged_max_abs_err"],
              ragged_mma_sync_max_abs_err=cfu["ragged_mma_sync_err"]),
     ]}
+    print(cd_summary(cd, smi), flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

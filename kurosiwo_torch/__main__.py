@@ -1,16 +1,28 @@
 """The port's command line; counterpart of the repository's ``main.py`` for
-the segmentation task: the same flags, plus ``--device`` (default ``cuda``).
+the segmentation and change-detection tasks: the same flags, plus
+``--device`` (default ``cuda``).
 
     python -m kurosiwo_torch --method unet --backbone resnet18 [--seed 999]
         [--batch_size N] [--inputs ...] [--dem [--slope]]
         [--config_root configs] [--device cuda|cpu]
+    python -m kurosiwo_torch --method snunet --inputs pre_event_1 post_event
+        # with "task": "cd" in configs/config.json; or siam-diff, siam-conc,
+        # hfa-net, adhr-cdnet
 
 It builds the config, the loaders and the model, trains for ``epochs`` with
-a val eval each epoch, keeps ``best_segmentation`` and ``latest``, reloads
-best and prints ``Test Mean IOU:``. ``"test": true`` in the config evaluates
-the saved best checkpoint without training. Checkpoints land under
-``checkpoints/`` in the working directory. Without the Kuro Siwo corpus
-under ``root_path`` the loaders use the synthetic source.
+a val eval each epoch, keeps ``best_segmentation`` and ``latest`` (and, for
+change detection, ``checkpoint_epoch={e}`` every
+``train_save_checkpoint_freq`` epochs), reloads best and prints ``Test Mean
+IOU:``. ``"test": true`` in the config evaluates the saved best checkpoint
+without training. Checkpoints land under ``checkpoints/`` in the working
+directory. Without the Kuro Siwo corpus under ``root_path`` the loaders use
+the synthetic source.
+
+The task is the config's ``task``, as in ``main.py``: a change-detection
+method runs with ``"task": "cd"`` in configs/config.json and two inputs
+(``--inputs pre_event_1 post_event``); the CLI refuses a change-detection
+method under another task, and a ``cd`` task with another number of inputs,
+and says what to set.
 """
 
 from __future__ import annotations
@@ -26,10 +38,11 @@ import torch
 from .config import create_checkpoint_directory, load_config
 from .data.pipeline import prepare_loaders
 from .device import configure_backends
-from .models.factory import initialize_segmentation_model
+from .models.factory import (CD_METHODS, PORTED_CD_METHODS, initialize_cd_model,
+                             initialize_segmentation_model)
 
 # the tasks main.py dispatches that the port does not run yet
-_NOT_PORTED = {"cd": "A6", "mae": "A8", "diffusion-unsup": "A10"}
+_NOT_PORTED = {"mae": "A8", "diffusion-unsup": "A10"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,21 +69,36 @@ def main(argv=None) -> float:
     configs = load_config(method=args.method, backbone=args.backbone,
                           config_root=args.config_root, args=args)
     model_configs = configs["model_config"]
-    task = configs["task"]
+    task, method = configs["task"], configs["method"].lower()
     if task in _NOT_PORTED:
         raise NotImplementedError(f"task {task!r} is not ported yet "
                                   f"(ROADMAP.md, {_NOT_PORTED[task]})")
-    if task != "segmentation":
+    if task not in ("segmentation", "cd"):
         raise SystemExit(f"unknown task {task!r}")
-    if configs["method"] == "convlstm":
+    if method == "convlstm":
         raise NotImplementedError("the recurrent task (convlstm) is not ported yet "
                                   "(ROADMAP.md, A7)")
+    if task != "cd" and method in CD_METHODS:
+        raise ValueError(f"{method!r} is a change-detection method and the config's task is "
+                         f"{task!r}: set \"task\": \"cd\" in {args.config_root}/config.json "
+                         "and pass --inputs pre_event_1 post_event")
+    if task == "cd" and method in PORTED_CD_METHODS and len(configs["inputs"]) != 2:
+        raise ValueError(f"change detection requires exactly 2 inputs, got {configs['inputs']}: "
+                         "pass --inputs pre_event_1 post_event")
     if args.batch_size is not None:
         configs["batch_size"] = int(args.batch_size)
     configure_backends(configs, args.device)  # before CUDA's first use (cuBLAS's workspace)
+    # the model first: a method that is not ported raises before any directory is made
+    if task == "cd":
+        model = initialize_cd_model(configs, model_configs, "train", device=args.device,
+                                    seed=args.seed)
+    else:
+        model = initialize_segmentation_model(configs, model_configs, device=args.device,
+                                              seed=args.seed)
     configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
     pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
 
+    from .training.change_detection import eval_change_detection, train_change_detection
     from .training.engine import evaluate_task
     from .training.segmentation import eval_semantic_segmentation, train_semantic_segmentation
 
@@ -79,18 +107,17 @@ def main(argv=None) -> float:
     print("Samples in Val Set: ", val_loader.num_samples())
     print("Samples in Test Set: ", test_loader.num_samples())
 
-    model = initialize_segmentation_model(configs, model_configs, device=args.device,
-                                          seed=args.seed)
+    train_fn, eval_fn = ((train_change_detection, eval_change_detection) if task == "cd"
+                         else (train_semantic_segmentation, eval_semantic_segmentation))
     if configs.get("test"):
         # eval-only (reference main.py:86-128): training would overwrite the
         # very best_segmentation the user asked to score
-        engine = evaluate_task(model, configs, model_configs, "segmentation", device=args.device,
+        engine = evaluate_task(model, configs, model_configs, task, device=args.device,
                                seed=args.seed)
     else:
-        engine = train_semantic_segmentation(model, train_loader, val_loader, test_loader,
-                                             configs, model_configs, seed=args.seed,
-                                             device=args.device)
-    _, _, miou = eval_semantic_segmentation(engine, test_loader, settype="Test")
+        engine = train_fn(model, train_loader, val_loader, test_loader, configs, model_configs,
+                          seed=args.seed, device=args.device)
+    _, _, miou = eval_fn(engine, test_loader, settype="Test")
     print("Test Mean IOU: ", miou, flush=True)
     return miou
 

@@ -10,6 +10,16 @@ twin (TF32 off). ``--set conv_bn_kernel=true --set dw_kernel=true`` turns on
 the conv kernel routes of the train step (B6, B7); the JSON line names the
 routes that were on.
 
+``--model snunet``: the SNUNet-ECAM leg (``bench.py:167-188``, ``:325-350``):
+change detection on two 224x224 frames (``pre_event_1``, ``post_event``) of
+2 channels each, base_channel 32, batch 128, bf16 compute on f32
+parameters, RandomEvents-weighted cross entropy, Adam at lr 1e-3, remat on
+(the factory's default at batch >= 64; ``--set remat=false`` turns it off);
+``--eval [--f32_eval]`` as for the UNet. ``--model siam-diff`` (and
+``siam-conc``, ``hfa-net``, ``adhr-cdnet``) runs that model on the same
+config and code (the repository's ``bench.py`` has no such leg), Siam's
+dropout masks drawn from a generator seeded once.
+
 ``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
 pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
 224x224x6 images in 16x16 patches, decoder 512 x 8 layers, mask ratio 0.75,
@@ -29,10 +39,11 @@ of 3 runs of the upload-per-call path
 bracket, a guard against the drift of a remotely attached TPU, is left out.
 
 Every leg takes ``--set deterministic=true|false`` (deterministic algorithms
-on the card, ``device.configure_backends``; on by default for the UNet leg,
-off for the ViT legs); the other keys set the UNet leg's config.
+on the card, ``device.configure_backends``; on by default for the UNet and
+change-detection legs, off for the ViT legs); the other keys set the UNet's
+or the change-detection leg's config.
 
-Usage: python -m kurosiwo_torch.bench [--model unet|mae|scene] [--batch N]
+Usage: python -m kurosiwo_torch.bench [--model unet|snunet|siam-diff|...|mae|scene] [--batch N]
        [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
        [--scene 1024] [--profile]
 """
@@ -50,7 +61,8 @@ import torch
 
 from .device import configure_backends, resolve_device
 from .inference import encode_scene, pad_scene, vit_whole_scene
-from .models.factory import build_mae, initialize_segmentation_model
+from .models.factory import (PORTED_CD_METHODS, build_mae, initialize_cd_model,
+                             initialize_segmentation_model)
 from .models.vit import ViT
 from .ops.losses import create_loss
 from .ops.metrics import MetricState
@@ -61,11 +73,19 @@ from .training.steps import make_eval_step, make_train_step
 IMAGE = 224
 
 
+# the change-detection legs; the repository's bench.py has snunet, bit-cd and
+# changeformer, of which snunet is ported; the port runs its other ported
+# change-detection models on the same config
+CD_MODELS = PORTED_CD_METHODS
+
+
 def build_config(model: str, batch: int) -> dict:
-    """The benchmark config of a segmentation model, as the repository's
-    ``bench.build_config`` (the change-detection models are not ported)."""
+    """The benchmark config of a model, as the repository's
+    ``bench.build_config``: a change-detection model gets two 2-channel
+    frames."""
+    cd = model in CD_MODELS
     return {
-        "task": "segmentation",
+        "task": "cd" if cd else "segmentation",
         "method": model,
         "num_classes": 3,
         "mixed_precision": True,
@@ -74,16 +94,19 @@ def build_config(model: str, batch: int) -> dict:
         "track": "RandomEvents",
         "class_weights": [0.3715753140309927, 14.009780283125977, 8.20405370357821],
         "loss_function": "cross_entropy",
-        "inputs": ["pre_event_1", "pre_event_2", "post_event"],
+        "inputs": (["pre_event_1", "post_event"] if cd
+                   else ["pre_event_1", "pre_event_2", "post_event"]),
         "channels": ["vv", "vh"],
         "dem": False,
         "log_zone_metrics": False,
         "log_AOI_metrics": False,
-        "num_channels": 6,
+        "num_channels": 2 if cd else 6,
     }
 
 
-MODEL_CONFIG = {"backbone": "resnet18", "learning_rate": 1e-3, "optimizer": "adam"}
+# the repository's bench.py model config, the same for every leg
+MODEL_CONFIG = {"backbone": "resnet18", "learning_rate": 1e-3, "base_channel": 32,
+                "optimizer": "adam"}
 # the UNet's opt-in conv kernel routes (B6, B7), off unless --set turns them on
 ROUTE_KEYS = ("conv_bn_kernel", "dw_kernel")
 
@@ -121,27 +144,37 @@ class Bench:
     state: TrainState
     batch: dict
     device: torch.device
-    generator: torch.Generator | None = None  # the MAE step's masking noise, the augmentations' draws
+    # the MAE step's masking noise, the augmentations' and dropout masks' draws
+    generator: torch.Generator | None = None
+
+    @property
+    def task(self) -> str:
+        return self.config.get("task", "segmentation")
 
 
 def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
           model: str = "unet") -> Bench:
-    """Model, train state and a device-resident batch for the UNet step
-    (default batch 128, ``overrides`` update its config) or, with
-    ``model="mae"``, the MAE step of ``setup_mae``."""
+    """Model, train state and a device-resident batch for the UNet step or a
+    change-detection step (``CD_MODELS``; default batch 128, ``overrides``
+    update the config) or, with ``model="mae"``, the MAE step of
+    ``setup_mae``."""
     if model == "mae":
         if overrides:
             raise ValueError("the MAE leg takes no config overrides")
         return setup_mae(batch, device, seed)
-    if model != "unet":
-        raise NotImplementedError(f"bench model {model!r} is not ported (unet, mae)")
+    if model != "unet" and model not in CD_MODELS:
+        raise NotImplementedError(f"bench model {model!r} is not ported "
+                                  f"(unet, {', '.join(CD_MODELS)}, mae)")
     dev = resolve_device(device)
     batch = batch or 128
-    cfg = build_config("unet", batch)
+    cfg = build_config(model, batch)
     cfg.update(overrides or {})
     configure_backends(cfg, dev)
-    net = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
-    state = create_train_state(net, cfg, MODEL_CONFIG)
+    if cfg["task"] == "cd":
+        net = initialize_cd_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
+    else:
+        net = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
+    state = create_train_state(net, cfg, MODEL_CONFIG, cfg["task"])
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
     return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed))
 
@@ -226,7 +259,7 @@ def _timed(fn, steps: int, warmup: int, device: torch.device):
 def _train_fn(b: Bench):
     """One train step per call; returns the loss and keeps the metric bank."""
     step = make_train_step(b.state.model, create_loss(b.config, "train"), b.config,
-                           MODEL_CONFIG, device=b.device)
+                           MODEL_CONFIG, task=b.task, device=b.device)
     metric = [MetricState.create(b.device)]
 
     def one():
@@ -249,7 +282,7 @@ def _mae_train_fn(b: Bench):
 
 def _eval_fn(b: Bench, f32: bool):
     step = make_eval_step(b.state.model, create_loss(b.config, "val"), b.config, MODEL_CONFIG,
-                          device=b.device, dtype=torch.float32 if f32 else None)
+                          task=b.task, device=b.device, dtype=torch.float32 if f32 else None)
     metric = [MetricState.create(b.device)]
 
     def one():
@@ -347,7 +380,7 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=["unet", "mae", "scene"], default="unet")
+    p.add_argument("--model", choices=["unet", *CD_MODELS, "mae", "scene"], default="unet")
     p.add_argument("--batch", type=int, default=None, help="default 128 for unet, 64 for mae")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=5)
@@ -366,7 +399,7 @@ def main(argv=None) -> dict:
             overrides[k] = json.loads(v)
         except json.JSONDecodeError:
             overrides[k] = v
-    if args.model != "unet" and (args.eval or set(overrides) - {"deterministic"}):
+    if args.model in ("mae", "scene") and (args.eval or set(overrides) - {"deterministic"}):
         p.error(f"--eval, --set: the {args.model} leg has no eval step and takes only "
                 "--set deterministic=...")
     if args.model == "scene":
@@ -377,14 +410,14 @@ def main(argv=None) -> dict:
         one = _mae_train_fn(b)
         kind = "MAE pretrain step, ViT-L, bf16"
     else:
-        b = setup(args.batch, overrides)
+        b = setup(args.batch, overrides, model=args.model)
         batch = b.batch["mask"].shape[0]
         if args.eval:
             one, _ = _eval_fn(b, args.f32_eval)
-            kind = f"eval fwd, unet, {'f32-twin' if args.f32_eval else 'bf16'}"
+            kind = f"eval fwd, {args.model}, {'f32-twin' if args.f32_eval else 'bf16'}"
         else:
             one, _ = _train_fn(b)
-            kind = "train fwd+bwd, unet, bf16"
+            kind = f"train fwd+bwd, {args.model}, bf16"
     seconds, loss = _timed(one, args.steps, args.warmup, b.device)
     if not torch.isfinite(loss).item():
         raise RuntimeError(f"non-finite loss {loss.item()}")
@@ -396,6 +429,8 @@ def main(argv=None) -> dict:
     }
     if args.model == "unet":
         result["routes"] = {k: bool(b.config.get(k, False)) for k in ROUTE_KEYS}
+    if b.task == "cd":  # SNUNet's plan is the model's, the others' the step's
+        result["remat"] = bool(b.config.get("remat", getattr(b.state.model, "remat", False)))
     if args.profile:
         profile(one, min(args.steps, 5), b.device, seconds / args.steps * 1e3)
     print(json.dumps(result), flush=True)

@@ -1,5 +1,5 @@
 """Parameter bridge between a flax model's variables and the port's
-``state_dict`` (the UNet and the MAE/ViT trees).
+``state_dict`` (the UNet, the MAE/ViT and the change-detection trees).
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``encoder.layer1_0.ConvBNAct_0.BatchNorm_0``, ``DecoderBlock_4.ConvBNAct_1``,
@@ -8,8 +8,10 @@ The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 join plus layout transposes:
 
   params/.../kernel (HWIO, conv)  <-> ....weight (OIHW)
+  params/.../kernel (HWOI, the transposed convs' torch layout)
+                                  <-> ....weight (IOHW, F.conv_transpose2d's)
   params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense)
-  params/.../{bias, scale, embedding, pos_embedding, cls_token, mask_token}
+  params/.../{bias, scale, alpha, embedding, pos_embedding, cls_token, mask_token}
                                   <-> the same name, as it is
   batch_stats/.../{mean, var}     <-> ....{mean, var}   (buffers)
 

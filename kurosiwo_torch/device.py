@@ -7,12 +7,14 @@ import os
 
 import torch
 
-# the tasks whose configs default ``deterministic`` to true. Segmentation:
-# the CLI's test mIoU moved by up to 1.02 between runs at one seed with
-# cuDNN's autotuner and not at all with deterministic algorithms, for a train
-# step 4-6% slower. The ViT paths keep the default off: with it the MAE step
-# ran 22-27% and the scene encode 28-35% slower (PERF.md §6).
-DETERMINISTIC_TASKS = ("segmentation",)
+# the tasks whose configs default ``deterministic`` to true, so that one seed
+# gives one number. Segmentation: the CLI's test mIoU moved by up to 1.02
+# between runs at one seed with cuDNN's autotuner and not at all with
+# deterministic algorithms, for a train step 4-6% slower. Change detection
+# for the same reason (PERF.md §6 has its cost). The ViT paths keep the
+# default off: with it the MAE step ran 22-27% and the scene encode 28-35%
+# slower.
+DETERMINISTIC_TASKS = ("segmentation", "cd")
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:

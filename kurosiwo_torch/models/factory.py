@@ -1,6 +1,7 @@
 """Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. The
-UNet and the MAE (ViT encoder) are ported; every other method names its
-``ROADMAP.md`` item."""
+UNet, the MAE (ViT encoder) and the convolutional change-detection models
+(SNUNet-ECAM, Siam-diff, Siam-conc, HFA-Net, ADHR-CDNet) are ported; every
+other method names its ``ROADMAP.md`` item."""
 
 from __future__ import annotations
 
@@ -12,6 +13,13 @@ _NOT_PORTED = {
     "unetplusplus": "A5", "unet++": "A5", "deeplabv3": "A5", "finetune": "A5",
     "upernet": "A9",
 }
+# the change-detection methods whose models are not ported yet
+_CD_NOT_PORTED = {"bit-cd": "A6", "changeformer": "A6", "transunet-cd": "A6"}
+#: every method the JAX package's ``initialize_cd_model`` builds
+CD_METHODS = ("siam-conc", "siam-diff", "snunet", "bit-cd", "hfa-net", "changeformer",
+              "adhr-cdnet", "transunet-cd")
+#: the change-detection methods the port builds
+PORTED_CD_METHODS = tuple(m for m in CD_METHODS if m not in _CD_NOT_PORTED)
 
 
 def compute_dtype(config: dict) -> torch.dtype:
@@ -43,6 +51,53 @@ def initialize_segmentation_model(config: dict, model_config: dict,
         raise NotImplementedError(
             f"segmentation method {method!r} is not ported yet (ROADMAP.md, {_NOT_PORTED[method]})")
     raise NotImplementedError(f"segmentation method {method!r} is not supported")
+
+
+def initialize_cd_model(config: dict, model_config: dict, phase: str = "train",
+                        device: str | torch.device | None = "cuda", seed: int = 0):
+    """The change-detection model on ``device`` (JAX ``initialize_cd_model``,
+    ``factory.py:87-162``), f32 parameters from a seeded ``torch.Generator``;
+    ``num_channels`` is the channels of one frame. SNUNet's ``remat``
+    defaults on at batch >= 64 unless the config sets it, as JAX's does; the
+    other methods' ``remat`` is the train step's whole-forward form
+    (``training/steps.py``)."""
+    del phase
+    dev = resolve_device(device)
+    method = config["method"].lower()
+    nc = int(config["num_classes"])
+    n_in = int(config["num_channels"])
+    kw = dict(dtype=compute_dtype(config), generator=torch.Generator().manual_seed(seed))
+    if method in ("siam-conc", "siam-diff"):
+        from .siam import SiamUnetConc, SiamUnetDiff
+
+        cls = SiamUnetConc if method == "siam-conc" else SiamUnetDiff
+        model = cls(n_in, nc, **kw)
+    elif method == "snunet":
+        from .snunet import SNUNetECAM
+
+        for key in ("snunet_phase", "snunet_dts_up"):
+            if config.get(key):
+                raise NotImplementedError(
+                    f"{key} is an exact TPU reparameterization of SNUNet's function and is "
+                    "not ported (ROADMAP.md, Not to port)")
+        remat = config["remat"] if "remat" in config else int(config.get("batch_size", 0)) >= 64
+        model = SNUNetECAM(n_in, nc, base_channel=int(model_config.get("base_channel", 32)),
+                           remat=bool(remat),
+                           save_bn_stats=bool(config.get("snunet_save_bn_stats", True)), **kw)
+    elif method == "hfa-net":
+        from .hfanet import HFANet
+
+        model = HFANet(n_in, nc, **kw)
+    elif method == "adhr-cdnet":
+        from .adhr_cdnet import ADHR
+
+        model = ADHR(n_in, nc, **kw)
+    elif method in _CD_NOT_PORTED:
+        raise NotImplementedError(
+            f"cd method {method!r} is not ported yet (ROADMAP.md, {_CD_NOT_PORTED[method]})")
+    else:
+        raise NotImplementedError(f"cd method {method!r} is not supported")
+    return model.to(dev)
 
 
 def build_mae(config: dict, model_config: dict, device: str | torch.device | None = "cuda",

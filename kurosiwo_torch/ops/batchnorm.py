@@ -9,6 +9,11 @@ kernel; ``BatchNorm`` follows flax, not ``torch.nn.BatchNorm2d``: momentum
 E[x^2] - mean^2, eps 1e-5, and the flax eval formula.
 
 Tensors are channels-last: (..., C) with C the last, contiguous axis.
+
+Inside a region of ``ops/remat.remat`` the first forward records its batch
+statistics and the recompute reuses them, with no second reduction and no
+second update of the running statistics (the port's
+``StatCheckpointBatchNorm`` with ``bn_stats_saveable_policy``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from torch import nn
 
 from .. import kernels
+from .remat import active_region
 
 _TILE = 128  # columns a kernel block covers; also the width of the narrow-C fold
 _TARGET_BLOCKS = 132 * 8  # 8 blocks of 256 threads on each of the H100's 132 SMs
@@ -95,12 +101,13 @@ pair_sums.launches = 0
 
 class _BNTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        c = x.shape[-1]
-        n = x.numel() // c
-        s = pair_sums(x, x)
-        mean = s[0] / n
-        var = s[1] / n - mean * mean
+    def forward(ctx, x, scale, bias, eps, mean=None, var=None):
+        if mean is None:
+            c = x.shape[-1]
+            n = x.numel() // c
+            s = pair_sums(x, x)
+            mean = s[0] / n
+            var = s[1] / n - mean * mean
         inv = torch.rsqrt(var + eps)
         # elementwise pass in x.dtype (flax semantics): per-channel factors
         # are folded in f32 and cast once; the big tensor never upcasts
@@ -131,13 +138,19 @@ class _BNTrain(torch.autograd.Function):
         b_f = -a_f * inv * dgamma / n
         c_f = -a_f * (dbeta / n) - b_f * mean
         dx = dy * a_f.to(dt) + x * b_f.to(dt) + c_f.to(dt)
-        return dx, dgamma, dbeta, None
+        return dx, dgamma, dbeta, None, None, None
 
 
-def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                   stats: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Training-mode batch norm over all but the last axis: (y, mean, var),
-    y in x.dtype, f32 batch mean and biased variance."""
-    return _BNTrain.apply(x, scale, bias, eps)
+    y in x.dtype, f32 batch mean and biased variance. ``stats`` gives the
+    (mean, var) of this very ``x`` (a remat recompute), and the reduction is
+    skipped; the gradient still flows through the statistics, as it does
+    when they are reduced here."""
+    if stats is None:
+        return _BNTrain.apply(x, scale, bias, eps)
+    return _BNTrain.apply(x, scale, bias, eps, stats[0], stats[1])
 
 
 class BatchNorm(nn.Module):
@@ -162,14 +175,23 @@ class BatchNorm(nn.Module):
             inv = torch.rsqrt(self.var + self.eps)
             y = (x.float() - self.mean) * (inv * self.scale) + self.bias
             return y.to(out_dtype)
-        y, mean, var = bn_train_apply(x.to(out_dtype), self.scale, self.bias, self.eps)
+        region = active_region()
+        replay = region is not None and region.replay
+        y, mean, var = bn_train_apply(x.to(out_dtype), self.scale, self.bias, self.eps,
+                                      region.replay_stats() if replay else None)
+        if region is not None and not replay:
+            region.record_stats(mean, var)
         self.update_running(mean, var)
         return y
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Fold a batch's f32 mean and biased variance into the running
-        statistics with flax's momentum."""
+        statistics with flax's momentum; a remat recompute updates nothing,
+        as ``jax.checkpoint`` discards the mutations of its recompute."""
+        region = active_region()
+        if region is not None and region.replay:
+            return
         m = self.momentum
         self.mean.copy_(m * self.mean + (1.0 - m) * mean)
         self.var.copy_(m * self.var + (1.0 - m) * var)

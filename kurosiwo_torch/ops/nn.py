@@ -1,5 +1,6 @@
 """Building blocks of the port's models; counterpart of the parts of
-``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet uses, plus flax's ``Dense``.
+``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet and the convolutional
+change-detection models use, plus flax's ``Dense``.
 
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
@@ -10,12 +11,19 @@ them.
 
 Mixed precision follows flax's (dtype, param_dtype) pair: parameters are f32
 and each convolution casts its weight and input to the compute ``dtype``.
+
+The resampling ops (``replication_pad_to``, ``resize_bilinear``) are written
+in forms whose backward is deterministic on the card (slices and expands; two
+small interpolation-matrix products), since ``F.pad(mode="replicate")`` and
+bilinear ``F.interpolate`` have no deterministic backward there.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -23,6 +31,7 @@ from torch import nn
 from .batchnorm import BatchNorm
 from .conv_bn import conv3x3_bn
 from .conv_dw import conv3x3_pdw, pick_batch_block
+from .remat import active_region
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None = None):
@@ -132,3 +141,192 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x upsample on NHWC (broadcast + reshape, as the JAX package)."""
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+class TorchConvTranspose(nn.Module):
+    """torch ``ConvTranspose2d`` geometry (kernel, stride, padding,
+    output_padding) on NHWC: out = (in - 1) * stride - 2 * padding + kernel
+    + output_padding, the JAX ``TorchConvTranspose`` (``ops/nn.py:562``).
+    ``weight`` is (Cin, Cout, k, k), ``F.conv_transpose2d``'s layout and the
+    flax (k, k, Cout, Cin) kernel transposed (3, 2, 0, 1), the bridge's one
+    rule for 4-D kernels; the bias is added after, in the compute dtype."""
+
+    def __init__(self, cin: int, features: int, kernel: int, stride: int = 1, padding: int = 0,
+                 output_padding: int = 0, bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
+        self.weight = nn.Parameter(torch.empty(cin, features, kernel, kernel))
+        # flax's variance_scaling(1/3, "fan_in", "uniform"), fan_in = k*k*Cin
+        limit = math.sqrt(1.0 / (cin * kernel * kernel))
+        nn.init.uniform_(self.weight.data, -limit, limit, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
+                               stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
+class ConvTranspose2x(nn.Module):
+    """torch ``ConvTranspose2d(Cin, Cout, 2, stride=2)``, the exact 2x
+    upsample of the JAX ``ConvTranspose2x`` (``ops/nn.py:501``), its one
+    parameter module named ``up`` (``up.weight``, ``up.bias``). The JAX
+    default computes it as a 1x1 conv to four phases and a depth-to-space;
+    that is the same function (the k2/s2 windows do not overlap)."""
+
+    def __init__(self, cin: int, features: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.up = TorchConvTranspose(cin, features, 2, stride=2, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.up(x, dtype)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W of NHWC, kept as (B, 1, 1, C)."""
+    return x.mean(dim=(1, 2), keepdim=True)
+
+
+def global_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """Max over H and W of NHWC, kept as (B, 1, 1, C)."""
+    return x.amax(dim=(1, 2), keepdim=True)
+
+
+class ChannelAttention(nn.Module):
+    """Channel attention with average and max pooling branches through one
+    shared bottleneck (JAX ``ChannelAttention``, ``ops/nn.py:605``):
+    sigmoid(fc2(relu(fc1(avg))) + fc2(relu(fc1(max)))), ``fc1`` and ``fc2``
+    1x1 convs without bias. Returns (B, 1, 1, C)."""
+
+    def __init__(self, channels: int, ratio: int = 16,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.fc1 = Conv(channels, channels // ratio, 1, generator=generator)
+        self.fc2 = Conv(channels // ratio, channels, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        avg = self.fc2(torch.relu(self.fc1(global_avg_pool(x), dtype)), dtype)
+        mx = self.fc2(torch.relu(self.fc1(global_max_pool(x), dtype)), dtype)
+        return torch.sigmoid(avg + mx)
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout (torch ``Dropout2d``, the JAX ``Dropout2d`` of
+    ``ops/nn.py:630``): in training, each (sample, channel) map is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate). The mask is drawn
+    from ``generator`` (the step's; None: torch's default generator of the
+    device) by :meth:`draw_mask`. Inside a remat region the recompute
+    applies the mask the first forward drew (``ops/remat.py``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def draw_mask(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """A (B, 1, 1, C) bool keep-mask for ``x``."""
+        b, c = x.shape[0], x.shape[-1]
+        u = torch.rand((b, 1, 1, c), generator=generator, device=x.device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        region = active_region()
+        if region is not None and region.replay:
+            mask = region.replay_mask()
+        else:
+            mask = self.draw_mask(x, generator)
+            if region is not None:
+                region.record_mask(mask)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class PReLU(nn.Module):
+    """torch ``nn.PReLU(num_parameters=C)``: a learned negative slope per
+    channel, ``alpha`` (initialised 0.25; HFA-Net's ``PReLU``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+def replication_pad_to(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+    """torch ``ReplicationPad2d((0, dw, 0, dh))`` on NHWC: the last row and
+    column repeated down and right up to (target_h, target_w). Written as a
+    concatenation of expanded edge slices, whose backward is a sum with no
+    scatter (``F.pad(mode="replicate")`` has no deterministic backward on
+    the card)."""
+    b, h, w, c = x.shape
+    dh, dw = target_h - h, target_w - w
+    if dh < 0 or dw < 0:
+        raise ValueError(f"replication_pad_to: target {target_h}x{target_w} below {h}x{w}")
+    if dw:
+        x = torch.cat([x, x[:, :, w - 1:].expand(b, h, dw, c)], dim=2)
+    if dh:
+        x = torch.cat([x, x[:, h - 1:].expand(b, dh, target_w, c)], dim=1)
+    return x
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(in_dim: int, out_dim: int, align_corners: bool,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`_interp_weights` as an f32 tensor on ``device``, made once per
+    geometry: a host-to-device copy in every forward would wait on the
+    card."""
+    return torch.from_numpy(_interp_weights(in_dim, out_dim, align_corners)).to(
+        device, torch.float32)
+
+
+def _interp_weights(in_dim: int, out_dim: int, align_corners: bool) -> np.ndarray:
+    """(out_dim, in_dim) linear-interpolation weights. align_corners=False
+    is ``jax.image.resize``'s "linear": half-pixel centres, the triangle
+    kernel's taps outside the input dropped and the rest renormalized (for
+    upsampling, which is all the port asks of it, the same as torch's
+    ``align_corners=False``); align_corners=True samples i * (in - 1) /
+    (out - 1)."""
+    m = np.zeros((out_dim, in_dim), np.float64)
+    if align_corners:
+        pos = (np.arange(out_dim) * (in_dim - 1) / (out_dim - 1) if out_dim > 1
+               else np.zeros(1))
+        lo = np.clip(np.floor(pos).astype(np.int64), 0, in_dim - 1)
+        hi = np.clip(lo + 1, 0, in_dim - 1)
+        frac = pos - lo
+        for i in range(out_dim):
+            m[i, lo[i]] += 1.0 - frac[i]
+            m[i, hi[i]] += frac[i]
+        return m
+    scale = out_dim / in_dim
+    if scale < 1.0:
+        raise NotImplementedError("resize_bilinear downsamples only with antialiasing "
+                                  "(jax.image.resize), which no ported model asks for")
+    centres = (np.arange(out_dim) + 0.5) / scale - 0.5
+    for i in range(out_dim):
+        w = np.maximum(0.0, 1.0 - np.abs(np.arange(in_dim) - centres[i]))
+        m[i] = w / w.sum()
+    return m
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NHWC to ``size`` (JAX ``resize_bilinear``,
+    ``ops/nn.py:193``), upsampling: two small interpolation-matrix products
+    in f32, cast back to x's dtype (the JAX form of ``adaptive_avg_pool``).
+    Its backward is two products too, deterministic on the card, where
+    bilinear ``F.interpolate``'s backward is not."""
+    b, h, w, c = x.shape
+    oh, ow = size
+    my = _interp_matrix(h, oh, align_corners, x.device)
+    mx = _interp_matrix(w, ow, align_corners, x.device)
+    y = torch.einsum("oh,bhwc->bowc", my, x.float())
+    y = torch.einsum("pw,bowc->bopc", mx, y)
+    # einsum may return a permuted view; the NHWC layout is dense
+    return y.to(x.dtype).contiguous()

@@ -1,7 +1,8 @@
 """Optimizer factory; counterpart of ``kurosiwo_tpu/ops/optim.py`` for the
 segmentation trainer (plain Adam, the reference's
-``segmentation_trainer.py:35``) and MAE pretraining (Adam with bf16 moment
-storage, ``scale_by_adam_bf16``).
+``segmentation_trainer.py:35``), MAE pretraining (Adam with bf16 moment
+storage, ``scale_by_adam_bf16``) and change detection (the reference's
+``change_detection_trainer.py:44-66`` choice, ``optim.py:174-200``).
 
 ``torch.optim.Adam`` computes optax.adam's update: bias-corrected moments,
 eps outside the square root, no eps_root. It keeps f32 moments, so the MAE
@@ -94,11 +95,44 @@ class AdamBF16Moments(torch.optim.Optimizer):
         return None
 
 
+def _sgd(params, lr: float, model_config: dict) -> torch.optim.Optimizer:
+    """optax's chain(add_decayed_weights(wd), sgd(lr, momentum)), the JAX
+    ``_sgd``: the decay is added to the gradient, the momentum trace starts
+    at the first gradient, no dampening and no Nesterov; torch's SGD is that
+    update."""
+    return torch.optim.SGD(params, lr=lr, momentum=float(model_config.get("momentum", 0.9)),
+                           weight_decay=float(model_config.get("weight_decay", 0.0)))
+
+
+def create_cd_optimizer(params, config: dict, model_config: dict) -> torch.optim.Optimizer:
+    """The change-detection choice: bit-cd and hfa-net are forced to SGD with
+    momentum and weight decay; otherwise the model config's ``optimizer``:
+    ``adam`` is optax.adam with its defaults (0.9, 0.999, 1e-8; the config's
+    ``betas`` are not read, as the JAX package does not read them there),
+    ``adamw`` takes the config's betas and weight decay, ``sgd`` is the same
+    SGD."""
+    lr = float(model_config.get("learning_rate", config.get("learning_rate", 1e-3)))
+    if config.get("method", "") in ("bit-cd", "hfa-net"):
+        return _sgd(params, lr, model_config)
+    name = model_config.get("optimizer", "adam")
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "adamw":
+        b1, b2 = model_config.get("betas", [0.9, 0.999])
+        return torch.optim.AdamW(params, lr=lr, betas=(float(b1), float(b2)), eps=1e-8,
+                                 weight_decay=float(model_config.get("weight_decay", 0.0)))
+    if name == "sgd":
+        return _sgd(params, lr, model_config)
+    raise NotImplementedError(f"optimizer {name!r} is not supported")
+
+
 def create_optimizer(params, config: dict, model_config: dict,
                      task: str = "segmentation") -> torch.optim.Optimizer:
+    if task == "cd":
+        return create_cd_optimizer(params, config, model_config)
     if task not in ("segmentation", "mae"):
         raise NotImplementedError(
-            f"optimizer for task {task!r} is not ported yet (ROADMAP.md, A6-A7)")
+            f"optimizer for task {task!r} is not ported yet (ROADMAP.md, A7)")
     if model_config.get("lr_scales") or config.get("lr_scales"):
         raise NotImplementedError("lr_scales is not ported yet (ROADMAP.md, A8)")
     lr = float(model_config.get("learning_rate", config.get("learning_rate", 1e-3)))

@@ -1,5 +1,5 @@
-"""The epoch-loop engine of the segmentation task; counterpart of
-``kurosiwo_tpu/training/engine.py``.
+"""The epoch-loop engine of the segmentation and change-detection tasks;
+counterpart of ``kurosiwo_tpu/training/engine.py``.
 
 One train step and one eval step (``steps.py``); per epoch: train, evaluate
 on val, keep ``best_segmentation`` (val mIoU) and ``latest``, then reload
@@ -13,8 +13,11 @@ overlaps the step of batch k. The train step's augmentations draw from the
 engine's ``torch.Generator`` on the card, seeded from the engine's seed (a
 resume restarts it from the seed, as JAX's engine restarts its key).
 
-Change detection (A6) and the recurrent task (A7) are not ported; nor are
-pretrained weights (A13), wandb logging and visualizations (A14).
+Change detection differs in its steps' input assembly and dropout draws
+(``steps.py``), its optimizer (``ops/optim.create_cd_optimizer``) and the
+per-epoch ``checkpoint_epoch={e}`` saves of ``train_save_checkpoint_freq``.
+The recurrent task (A7) is not ported; nor are pretrained weights (A13),
+wandb logging and visualizations (A14).
 """
 
 from __future__ import annotations
@@ -107,8 +110,8 @@ class TaskEngine:
     def __init__(self, model: torch.nn.Module, config: dict, model_config: dict, task: str,
                  steps_per_epoch: int, device: str | torch.device | None = "cuda",
                  seed: int = 999):
-        if task != "segmentation":
-            raise NotImplementedError(f"the {task!r} engine is not ported yet (ROADMAP.md, A6-A7)")
+        if task not in ("segmentation", "cd"):
+            raise NotImplementedError(f"the {task!r} engine is not ported yet (ROADMAP.md, A7)")
         self.device = resolve_device(device)
         configure_backends(config, self.device)
         self.model = model
@@ -120,7 +123,8 @@ class TaskEngine:
                                       "are not ported yet (ROADMAP.md, A14)")
         self.logger = MetricLogger(config)  # raises on wandb_activate with wandb installed (A14)
         self.state = create_train_state(model, config, model_config, task)
-        # the augmentations' random stream (JAX: the engine's self.rng)
+        # the augmentations' and dropout masks' random stream (JAX: the
+        # engine's self.rng)
         self.generator = torch.Generator(self.device)
         self.generator.manual_seed(int(seed))
         self.lr_schedule = create_lr_schedule(config, model_config, steps_per_epoch)
@@ -242,8 +246,11 @@ def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
             best_val = float(extra.get("metric", 0.0))
             engine.logger.info(f"Resumed from best_segmentation (val mIoU {best_val:.3f})")
 
+    save_freq = int(config.get("train_save_checkpoint_freq") or 0) if task == "cd" else 0
     for epoch in range(start_epoch, int(config.get("epochs", 1))):
         engine.logger.log_train_epoch(epoch, engine.run_train_epoch(train_loader, epoch))
+        if save_freq and epoch % save_freq == 0:
+            ckpt.save_epoch(engine.state, epoch)
         _, _, miou, _ = engine.run_eval(val_loader, "Val")
         if miou > best_val:
             best_val = miou

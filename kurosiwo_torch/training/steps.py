@@ -1,5 +1,5 @@
-"""Train and eval steps of the segmentation task; counterpart of
-``kurosiwo_tpu/training/steps.py``.
+"""Train and eval steps of the segmentation and change-detection tasks;
+counterpart of ``kurosiwo_tpu/training/steps.py``.
 
 A step keeps its loss, confusion matrix and weight sum on the device: it
 never reads a value back to the host, so the card runs ahead of Python.
@@ -8,6 +8,16 @@ the engine's ``device_prefetch`` has put them there already on the card.
 With ``data_augmentations`` the train step augments the batch on its
 device first (``data/augment.py``), from the ``torch.Generator`` it is
 given; with ``log_zone_metrics`` both steps also fill the per-zone banks.
+
+Change detection (``task="cd"``) feeds the model two frames
+(``assemble_cd_inputs``) and hands it the step's generator for its dropout
+masks. With ``remat`` the forward of every method but SNUNet runs as one
+rematerialized region (``ops/remat.remat``; JAX's whole-forward
+``jax.checkpoint``, ``steps.py:144``); SNUNet checkpoints its own blocks
+and columns, as the factory configures it. The JAX whole-forward policy,
+``nothing_saveable``, recomputes the BatchNorm statistics; the port keeps
+them across the region instead, the same values at (C,) floats a layer,
+so remat adds no pair-sum launch.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from ..device import resolve_device
 from ..ops.fused_tail import fused_ce_cm, resolve_fused_tail
 from ..ops.metrics import MetricState, per_sample_confusion
 from ..ops.optim import set_learning_rate
+from ..ops.remat import remat
 from .state import TrainState
 
 
@@ -46,8 +57,26 @@ def assemble_segmentation_input(batch: dict, config: dict) -> torch.Tensor:
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
-# the batch keys a segmentation step reads (valid for the augmentations'
-# discard-if-empty, clz for the zone banks)
+_FRAMES = {"pre_event_1": "pre1", "pre_event_2": "pre2", "post_event": "post"}
+
+
+def assemble_cd_inputs(batch: dict, config: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two frames of a change-detection step, in ``inputs`` order, each
+    with the DEM appended when ``dem`` is set."""
+    inputs = config["inputs"]
+    if len(inputs) != 2:
+        raise ValueError(f"change detection requires exactly 2 inputs, got {inputs}")
+    frames = []
+    for name in inputs:
+        f = batch[_FRAMES[name]]
+        if config.get("dem"):
+            f = torch.cat([f, batch["dem"]], dim=-1)
+        frames.append(f)
+    return frames[0], frames[1]
+
+
+# the batch keys a step reads (valid for the augmentations' discard-if-empty,
+# clz for the zone banks)
 STEP_KEYS = ("post", "pre1", "pre2", "dem", "mask", "valid", "sample_weight", "clz")
 
 
@@ -65,20 +94,30 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 
 def _check_task(task: str) -> None:
-    if task != "segmentation":
-        raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP.md, A6-A10)")
+    if task == "recurrent":
+        raise NotImplementedError("the recurrent task is not ported yet (ROADMAP.md, A7)")
+    if task not in ("segmentation", "cd"):
+        raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP.md, A7-A10)")
 
 
 def _check_ported_keys(config: dict, train: bool) -> None:
-    """Raise on a config key that the JAX step honours and this one does
-    not, when the step is built: remat (a whole-forward
-    ``torch.utils.checkpoint`` would replay the forward and update the BN
-    running statistics a second time, which ``jax.checkpoint`` does not).
-    An unsupported augmentation with p > 0 raises here too."""
-    if train and config.get("remat"):
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md, A4)")
+    """Raise, when the step is built, on a config key that the JAX step
+    honours and this one does not: an unsupported augmentation with p > 0."""
     if train and config.get("data_augmentations"):
         check_augmentations(config)
+
+
+def _forward(model: torch.nn.Module, batch: dict, config: dict, task: str,
+             dtype: torch.dtype | None = None, generator: torch.Generator | None = None,
+             use_remat: bool = False) -> torch.Tensor:
+    """The model's output on the batch's assembled input(s)."""
+    if task == "segmentation":
+        inputs, kw = (assemble_segmentation_input(batch, config),), {"dtype": dtype}
+    else:
+        inputs, kw = assemble_cd_inputs(batch, config), {"dtype": dtype, "generator": generator}
+    if use_remat:
+        return remat(lambda *xs: model(*xs, **kw), *inputs)
+    return model(*inputs, **kw)
 
 
 def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
@@ -93,11 +132,14 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
     is assembled. The loss/metrics tail is the fused CE+cm kernel when
     ``resolve_fused_tail`` selects it (the default for the UNet on one CUDA
     device), else ``criterion`` plus a confusion matrix of the argmax (and
-    the zone banks with ``log_zone_metrics``). Raises NotImplementedError
-    for ``remat``, which it does not honour yet."""
+    the zone banks with ``log_zone_metrics``). A change-detection model
+    draws its dropout masks from ``generator`` (None: torch's default
+    generator of the device); ``remat`` is honoured as the module docstring
+    says."""
     _check_task(task)
     _check_ported_keys(config, train=True)
     dev = resolve_device(device)
+    use_remat = bool(config.get("remat")) and config.get("method") != "snunet"
     use_fused = bool(resolve_fused_tail(config, task, model_config, device=dev))
     use_augment = bool(config.get("data_augmentations")) and bool(config.get("augmentations"))
     with_zones = bool(config.get("log_zone_metrics"))
@@ -114,7 +156,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
         model.train()
         set_learning_rate(state.optimizer, lr)
         mask = batch["mask"]
-        logits = model(assemble_segmentation_input(batch, config))
+        logits = _forward(model, batch, config, task, generator=generator, use_remat=use_remat)
         if use_fused:
             loss, cm = fused_ce_cm(logits, mask, cw)
         else:
@@ -176,7 +218,7 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
         batch = _to_device(batch, dev)
         model.eval()
         mask = batch["mask"]
-        logits = model(assemble_segmentation_input(batch, config), dtype=dtype)
+        logits = _forward(model, batch, config, task, dtype=dtype)
         sample_w = batch.get("sample_weight")
         bank_mask = mask
         if sample_w is not None:

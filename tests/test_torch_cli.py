@@ -61,7 +61,7 @@ def test_cli_trains_checkpoints_and_tests(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,top,item", [
-    (["--method", "siam-diff"], {"task": "cd"}, "A6"),
+    (["--method", "bit-cd"], {"task": "cd"}, "A6"),  # the attention CD models (A6)
     (["--method", "convlstm"], {}, "A7"),
     (["--method", "mae"], {"task": "mae"}, "A8"),
     (["--method", "diffusion"], {"task": "diffusion-unsup"}, "A10"),

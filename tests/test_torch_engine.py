@@ -289,8 +289,8 @@ def test_wandb_request_raises_before_any_side_effect_or_prints(monkeypatch, tmp_
 
 def test_engine_refuses_other_tasks():
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="A6-A7"):
-        TEngine(torch.nn.Identity(), cfg, MCFG, "cd", 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        TEngine(torch.nn.Identity(), cfg, MCFG, "recurrent", 1, device="cpu")
 
 
 def test_pretrained_keys_warn_like_jax():

@@ -167,6 +167,34 @@ def test_bench_config_matches_the_jax_bench():
     assert build_config("unet", 128) == jax_bench.build_config("unet", 128)
 
 
+@pytest.mark.parametrize("model", ["snunet", "siam-diff"])
+def test_cd_bench_configs_match_the_jax_bench(model):
+    """The change-detection legs: the repository's snunet config
+    (bench.py:167-188), siam-diff on the same; and its one model config
+    (bench.py:334)."""
+    import bench as jax_bench
+
+    from kurosiwo_torch.bench import MODEL_CONFIG, build_config
+
+    assert build_config(model, 128) == dict(jax_bench.build_config("snunet", 128), method=model)
+    assert MODEL_CONFIG == {"backbone": "resnet18", "learning_rate": 1e-3, "base_channel": 32,
+                            "optimizer": "adam"}
+    text = " ".join((ROOT / "bench.py").read_text().split())
+    assert ('mcfg = {"backbone": "resnet18", "learning_rate": 1e-3, "base_channel": 32, '
+            '"optimizer": "adam"}') in text
+
+
+def test_cd_factory_and_bench_without_device_raise_on_a_cpu_box(monkeypatch):
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import initialize_cd_model
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initialize_cd_model(bench.build_config("snunet", 2), bench.MODEL_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.setup(2, model="siam-diff")
+
+
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take():
     from kurosiwo_torch.ops import fused_tail
 

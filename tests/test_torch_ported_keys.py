@@ -1,4 +1,4 @@
-"""Config keys the JAX segmentation step honours (ROADMAP C13): building the
+"""Config keys the JAX segmentation step honours (ROADMAP C13, closed): building the
 port's train or eval step with one the port does not honour yet raises
 NotImplementedError naming its ROADMAP item, instead of a step that
 silently computes another function; a key the port has since ported is
@@ -45,8 +45,10 @@ def _honoured(step, model, cfg, key):
     """The step built with ``key`` on does what the key asks: the train
     step with data_augmentations crops and flips the batch it trains on (a
     generator it is given draws them, so another seed gives another loss),
-    and both steps with log_zone_metrics fill zone banks that sum to the
-    main bank."""
+    both steps with log_zone_metrics fill zone banks that sum to the
+    main bank, and the train step with remat ends where the step without
+    it does, bitwise (tests/test_torch_remat.py holds every method's plan
+    and that the forward does run again)."""
     cfg = dict(cfg, mixed_precision=False)
     fn = build(step, model, cfg)
     batch = _batch()
@@ -61,6 +63,17 @@ def _honoured(step, model, cfg, key):
             return ms, float(loss)
 
         ms, loss = run(0)
+        if key == "remat":
+            def after(c):
+                model.load_state_dict(snapshot)
+                st = create_train_state(model, c, MODEL_CONFIG)
+                _, _, lo = build(step, model, c)(st, batch, MetricState.create(), 1e-3)
+                return float(lo), {k: v.clone() for k, v in model.state_dict().items()}
+
+            (with_loss, with_sd) = after(cfg)
+            (plain_loss, plain_sd) = after(dict(cfg, remat=False))
+            assert with_loss == plain_loss
+            assert all(torch.equal(with_sd[k], plain_sd[k]) for k in plain_sd)
         if key == "data_augmentations":
             assert run(0)[1] == loss and run(1)[1] != loss
             with pytest.raises(ValueError, match="Generator"):
@@ -77,14 +90,15 @@ def _honoured(step, model, cfg, key):
 # JAX train step reads augmentations (steps.py:137, :178-182), remat (:144)
 # and the zone banks (:231); the eval step the zone banks (:310). The
 # augmentations and the zone banks are ported (A1; tests/test_torch_augment.py
-# and tests/test_torch_losses.py hold them to JAX's); remat raises. The eval
+# and tests/test_torch_losses.py hold them to JAX's), and so is remat (A6's
+# ops/remat.py; tests/test_torch_remat.py). The eval
 # step's eval_microbatch (:281) is ported: tests/test_torch_engine.py::
 # test_chunked_eval_matches_jax_chunked_eval_step holds it to JAX's.
 REFUSED = [
     ("train", {"data_augmentations": True}, "data_augmentations", None),
     ("train", {"log_zone_metrics": True}, "log_zone_metrics", None),
     ("eval", {"log_zone_metrics": True}, "log_zone_metrics", None),
-    ("train", {"remat": True}, "remat", "A4"),
+    ("train", {"remat": True}, "remat", None),
 ]
 
 
