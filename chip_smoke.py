@@ -2202,33 +2202,42 @@ def cd_batch(torch, batch: int, side: int, seed: int = 1) -> dict:
 
 def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device: str,
                masks: list):
-    """One train step of ``model`` on ``device``; the Dropout2d masks are
-    drawn there and recorded into ``masks`` (card) or replayed from it
-    (CPU). Returns the loss, bank, state after the step, the optimizer's
-    first moment or momentum buffer, the step's kernel launches and the
-    plain pair-sum calls."""
+    """One train step of ``model`` on ``device``; the Dropout2d and DropPath
+    masks are drawn there and recorded into ``masks`` (card) or replayed
+    from it (CPU). Returns the loss, bank, state after the step, the
+    optimizer's first moment or momentum buffer (``sgd``: which), the step's
+    kernel launches and the plain calls of the pair-sum and short-attention
+    wrappers (the CPU's)."""
     from kurosiwo_torch.ops import batchnorm
     from kurosiwo_torch.ops import nn as tnn
+    from kurosiwo_torch.ops import short_attention as sa
     from kurosiwo_torch.ops.losses import create_loss
     from kurosiwo_torch.ops.metrics import MetricState
     from kurosiwo_torch.training.state import create_train_state
     from kurosiwo_torch.training.steps import make_train_step
 
-    draw, real_plain = tnn.Dropout2d.draw_mask, batchnorm.pair_sums_plain
-    plain = [0]
+    draw = tnn._MaskedDrop.draw_mask
+    plains = {"pair_sums": (batchnorm, "pair_sums_plain"),
+              "short_attention_fwd": (sa, "short_attention_fwd_plain"),
+              "short_attention_bwd": (sa, "short_attention_bwd_plain")}
+    real = {k: getattr(mod, name) for k, (mod, name) in plains.items()}
+    plain = dict.fromkeys(plains, 0)
 
     def card_mask(self, x, g):
         m = draw(self, x, g)
         masks.append(m.cpu())
         return m
 
-    def counting(a, b):
-        plain[0] += 1
-        return real_plain(a, b)
+    def counting(key):
+        def call(*a):
+            plain[key] += 1
+            return real[key](*a)
+        return call
 
-    tnn.Dropout2d.draw_mask = card_mask if device == "cuda" else (
+    tnn._MaskedDrop.draw_mask = card_mask if device == "cuda" else (
         lambda self, x, g: masks.pop(0))
-    batchnorm.pair_sums_plain = counting  # the CPU's calls of pair_sums' plain version
+    for k, (mod, name) in plains.items():  # the CPU's calls of the plain versions
+        setattr(mod, name, counting(k))
     try:
         state = create_train_state(model, cfg, mc, "cd")
         step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, task="cd",
@@ -2238,13 +2247,16 @@ def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device:
                                torch.Generator(device).manual_seed(0))
         launched = read_counters(counters)
     finally:
-        tnn.Dropout2d.draw_mask, batchnorm.pair_sums_plain = draw, real_plain
-    key = "momentum_buffer" if isinstance(state.optimizer, torch.optim.SGD) else "exp_avg"
+        tnn._MaskedDrop.draw_mask = draw
+        for k, (mod, name) in plains.items():
+            setattr(mod, name, real[k])
+    sgd = isinstance(state.optimizer, torch.optim.SGD)
+    key = "momentum_buffer" if sgd else "exp_avg"
     moment = torch.cat([state.optimizer.state[p][key].detach().cpu().reshape(-1)
                         for p in model.parameters()])
     return dict(loss=loss.item(), cm=ms.cm.cpu(),
                 state={k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
-                moment=moment, launched=launched, plain_calls=plain[0])
+                moment=moment, sgd=sgd, launched=launched, plain_calls=plain)
 
 
 def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict):
@@ -2260,68 +2272,77 @@ def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict):
     return loss.item(), ms.cm.cpu()
 
 
-def phase_cd_parity(torch, counters) -> dict:
-    """Each of the five change-detection methods: one f32 train step on the
-    card (kernels) against the same on the CPU (plain versions), from the
-    same weights and batch, the card's Dropout2d masks replayed on the CPU,
-    deterministic algorithms on; then the eval step of both from the CPU's
-    trained weights. Bands as
-    tests/test_torch_cd_steps.py (card against CPU in place of JAX against
-    torch): loss rtol 1e-4; cm row sums equal, cells within 0.1% of the valid
-    pixels; the optimizer's first moment (Adam) or momentum buffer (SGD,
-    which HFA-Net is forced to) within 2% in L2; Adam's parameters all
-    within 2*lr and 99% within 3e-4, SGD's within 1e-4 (lr times a tenth of
-    a gradient); batch statistics
-    atol 1e-4. The card's train step launches the pair-sum kernel once for
-    each plain call of the CPU's. Returns {method: pair-sum launches}."""
+def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
+                   side: int) -> dict:
+    """One f32 train step of a change-detection method on the card
+    (kernels) against the same on the CPU (plain versions), from the same
+    weights and batch, the card's Dropout2d and DropPath masks replayed on
+    the CPU, deterministic algorithms on; then the eval step of both from
+    the CPU's trained weights. Bands as tests/test_torch_cd_steps.py (card
+    against CPU in place of JAX against torch): loss rtol 1e-4; cm row sums
+    equal, cells within 0.1% of the valid pixels; the optimizer's first
+    moment (Adam) or momentum buffer (SGD, which HFA-Net and BiT-CD are
+    forced to) within 2% in L2; Adam's parameters all within 2*lr and 99%
+    within 3e-4, SGD's within 1e-4 (lr times a tenth of a gradient); batch
+    statistics atol 1e-4. The card's train step launches the pair-sum and
+    short-attention kernels once for each plain call of the CPU's. Returns
+    the card step's launches."""
     from kurosiwo_torch.device import configure_backends
     from kurosiwo_torch.models.factory import initialize_cd_model
 
+    cfg = cd_config(method, bsz, mixed_precision=False, synthetic_patch_size=side)
+    configure_backends(cfg, "cuda")
+    batch = cd_batch(torch, bsz, side)
+    cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
+    masks: list = []
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    g = cd_step_on(torch, counters, card_model, cfg, mc, batch, "cuda", masks)
+    drawn = len(masks)
+    c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks)
+    # the eval step of both from the CPU's trained weights: the same function
+    for r, model in ((g, card_model), (c, cpu_model)):
+        r["eloss"], r["ecm"] = cd_eval(torch, model, cfg, mc, batch, c["state"])
+    valid = int((batch["mask"] != 3).sum())
+    for key in ("loss", "eloss"):
+        require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]),
+                f"cd {tag} {key}: card {g[key]} vs CPU {c[key]}")
+    for key in ("cm", "ecm"):
+        require(torch.equal(g[key].sum(1), c[key].sum(1)), f"cd {tag} {key} row sums")
+        require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid, f"cd {tag} {key} cells")
+    l2 = ((g["moment"] - c["moment"]).norm() / c["moment"].norm()).item()
+    require(l2 <= 2e-2, f"cd {tag} gradients: relative L2 {l2}")
+    params = [k for k, _ in cpu_model.named_parameters()]
+    stats = [k for k in c["state"] if k not in params]
+    sgd = c["sgd"]
+    pmax, pshare = adam_step_close({k: g["state"][k] for k in params},
+                                   {k: c["state"][k] for k in params}, 1e-3)
+    require(pmax <= (1e-4 if sgd else 2e-3 + 1e-6) and (sgd or pshare >= 0.99),
+            f"cd {tag} params: max {pmax}, share {pshare}")
+    smax = max((g["state"][k] - c["state"][k]).abs().max().item() for k in stats)
+    require(smax <= 1e-4, f"cd {tag} batch stats: {smax}")
+    launched = g["launched"]
+    require(launched == {k: 0 for k in counters} | c["plain_calls"],
+            f"cd {tag} card train step launched {launched}, the CPU step made the plain calls "
+            f"{c['plain_calls']}")
+    print(f"[cd parity] {tag} f32 ({bsz},{side},{side},2)x2 card vs CPU: loss "
+          f"{g['loss']:.6f} vs {c['loss']:.6f}, eval loss {g['eloss']:.6f} vs "
+          f"{c['eloss']:.6f}, cm max diff {(g['cm'] - c['cm']).abs().max().item():.0f} of "
+          f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e}, params "
+          f"max {pmax:.2e}, batch stats max {smax:.2e}, {drawn} masks drawn "
+          f"({len(masks)} left over), launches a step "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    require(not masks, f"cd {tag}: the CPU step drew fewer masks than the card's")
+    return launched
+
+
+def phase_cd_parity(torch, counters) -> dict:
+    """Each of the five convolutional change-detection methods through
+    ``cd_card_vs_cpu`` (Adam at lr 1e-3; HFA-Net forced to SGD). Returns
+    {method: pair-sum launches}."""
     out = {}
     for method, bsz, side in CD_SMALL:
-        cfg = cd_config(method, bsz, mixed_precision=False)
         mc = dict(CD_WIDTH, optimizer="adam", learning_rate=1e-3)
-        configure_backends(cfg, "cuda")
-        batch = cd_batch(torch, bsz, side)
-        cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
-        masks: list = []
-        card_model = copy.deepcopy(cpu_model).to("cuda")
-        g = cd_step_on(torch, counters, card_model, cfg, mc, batch, "cuda", masks)
-        c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks)
-        # the eval step of both from the CPU's trained weights: the same function
-        for r, model in ((g, card_model), (c, cpu_model)):
-            r["eloss"], r["ecm"] = cd_eval(torch, model, cfg, mc, batch, c["state"])
-        valid = int((batch["mask"] != 3).sum())
-        for key in ("loss", "eloss"):
-            require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]),
-                    f"cd {method} {key}: card {g[key]} vs CPU {c[key]}")
-        for key in ("cm", "ecm"):
-            require(torch.equal(g[key].sum(1), c[key].sum(1)), f"cd {method} {key} row sums")
-            require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid,
-                    f"cd {method} {key} cells")
-        l2 = ((g["moment"] - c["moment"]).norm() / c["moment"].norm()).item()
-        require(l2 <= 2e-2, f"cd {method} gradients: relative L2 {l2}")
-        params = [k for k, _ in cpu_model.named_parameters()]
-        stats = [k for k in c["state"] if k not in params]
-        sgd = method == "hfa-net"  # forced to SGD; the others take the config's Adam
-        pmax, pshare = adam_step_close({k: g["state"][k] for k in params},
-                                       {k: c["state"][k] for k in params}, 1e-3)
-        require(pmax <= (1e-4 if sgd else 2e-3 + 1e-6) and (sgd or pshare >= 0.99),
-                f"cd {method} params: max {pmax}, share {pshare}")
-        smax = max((g["state"][k] - c["state"][k]).abs().max().item() for k in stats)
-        require(smax <= 1e-4, f"cd {method} batch stats: {smax}")
-        launched = g["launched"]
-        require(launched == {k: 0 for k in counters} | {"pair_sums": c["plain_calls"]},
-                f"cd {method} card train step launched {launched}, the CPU step made "
-                f"{c['plain_calls']} plain pair-sum calls")
-        out[method] = launched["pair_sums"]
-        print(f"[cd parity] {method} f32 ({bsz},{side},{side},2)x2 card vs CPU: loss "
-              f"{g['loss']:.6f} vs {c['loss']:.6f}, eval loss {g['eloss']:.6f} vs "
-              f"{c['eloss']:.6f}, cm max diff {(g['cm'] - c['cm']).abs().max().item():.0f} of "
-              f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e}, params "
-              f"max {pmax:.2e}, batch stats max {smax:.2e}, {len(masks)} masks left over, "
-              f"pair_sums {launched['pair_sums']} a step", flush=True)
-        require(not masks, f"cd {method}: the CPU step drew fewer masks than the card's")
+        out[method] = cd_card_vs_cpu(torch, counters, method, method, mc, bsz, side)["pair_sums"]
     return out
 
 
@@ -2383,55 +2404,92 @@ def recording_bn_shapes(shapes: set):
         batchnorm._pair_sums_cuda = real
 
 
+ATTN_WRAPPERS = ("short_attention_fwd", "short_attention_bwd")
+
+
+@contextlib.contextmanager
+def recording_attention_shapes(shapes):
+    """While active, counts in ``shapes`` (a Counter) every card call of the
+    short-attention forward wrapper by (B, Nq, Nk, H*D, H) (at its launch,
+    under the wrapper that counts)."""
+    from kurosiwo_torch.ops import short_attention as sa
+
+    real = sa.launch_fwd
+
+    def recording(plan, q, k, v, heads, scale):
+        shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2], heads)] += 1
+        return real(plan, q, k, v, heads, scale)
+
+    sa.launch_fwd = recording
+    try:
+        yield
+    finally:
+        sa.launch_fwd = real
+
+
 def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
              warmup: int, steps: int, eval_too: bool = False, profile_steps: int = 3,
-             bn_shapes: set | None = None) -> dict:
+             bn_shapes: set | None = None, model_config: dict | None = None,
+             attn_shapes=None, tag: str | None = None) -> dict:
     """``steps`` timed bf16 train steps (after ``warmup``) of a
-    change-detection bench leg at ``batch``: patches/s, peak memory,
-    pair-sum launches a step and the card's busy time a step (torch.profiler);
+    change-detection bench leg at ``batch`` (``model_config`` over the bench's):
+    patches/s, peak memory, pair-sum and short-attention launches a step
+    (the latter by kernel) and the card's busy time a step (torch.profiler);
     with ``eval_too`` the f32-twin eval step too. The shapes of the train
-    step's BatchNorm inputs are added to ``bn_shapes``."""
+    step's BatchNorm inputs are added to ``bn_shapes``, its short-attention
+    calls counted in ``attn_shapes``."""
+    import collections
+
     from kurosiwo_torch import bench
 
+    tag = tag or model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    b = bench.setup(batch, overrides=overrides, model=model)
+    b = bench.setup(batch, overrides=overrides, model=model, model_config=model_config)
     zero_counters(counters)
-    with recording_bn_shapes(set() if bn_shapes is None else bn_shapes):
+    with recording_bn_shapes(set() if bn_shapes is None else bn_shapes), \
+            recording_attention_shapes(collections.Counter() if attn_shapes is None
+                                       else attn_shapes):
         seconds, loss, metric = bench.run_train(b, steps, warmup)
     launches = read_counters(counters)
+    by_kernel = {k: v for k, v in read_kernel_counters(counters).items()
+                 if k.startswith(ATTN_WRAPPERS) and v}
     n = warmup + steps
     peak = torch.cuda.max_memory_allocated() / 2**30
-    require(bool(torch.isfinite(loss).item()), f"{model} b{batch} train loss {loss.item()}")
+    require(bool(torch.isfinite(loss).item()), f"{tag} b{batch} train loss {loss.item()}")
     valid = int((b.batch["mask"] != 3).sum().item())
-    require(bank_counts_all(metric, n * valid), f"{model} b{batch} train bank count")
-    require(launches["pair_sums"] % n == 0 and all(
-        v == 0 for k, v in launches.items() if k != "pair_sums"),
-        f"{model} b{batch} train launches {launches}")
+    require(bank_counts_all(metric, n * valid), f"{tag} b{batch} train bank count")
+    require(all(launches[k] % n == 0 for k in ("pair_sums",) + ATTN_WRAPPERS) and all(
+        v == 0 for k, v in launches.items() if k not in ("pair_sums",) + ATTN_WRAPPERS),
+        f"{tag} b{batch} train launches {launches}")
     out = {"rate": steps * batch / seconds, "ms": seconds / steps * 1e3, "peak_gib": peak,
            "pair_sums": launches["pair_sums"] // n, "batch": batch,
            "remat": bool(b.config.get("remat", getattr(b.state.model, "remat", False)))}
+    if any(launches[k] for k in ATTN_WRAPPERS):
+        out["short_attention"] = {k: v // n for k, v in by_kernel.items()}
     out["busy_ms"] = math.nan
     if profile_steps:
         one, _ = bench._train_fn(b)
         prof = bench.profile(one, profile_steps, b.device, out["ms"], file=sys.stdout)
         out["busy_ms"] = prof["kernel_ms"]
-    print(f"[cd main] {model} train b{batch} bf16 (remat {'on' if out['remat'] else 'off'}"
+    attn = f", short_attention a step {out['short_attention']}" if "short_attention" in out else ""
+    print(f"[cd main] {tag} train b{batch} bf16 (remat {'on' if out['remat'] else 'off'}"
           f"{', ' + json.dumps(overrides) if overrides else ''}): "
           f"{out['rate']:.2f} patches/s ({out['ms']:.2f} ms/step), loss {loss.item():.5f}, "
-          f"peak {peak:.2f} GiB, pair_sums {out['pair_sums']} a step, device busy "
+          f"peak {peak:.2f} GiB, pair_sums {out['pair_sums']} a step{attn}, device busy "
           f"{out['busy_ms']:.2f} ms/step [{smi}]", flush=True)
     if eval_too:
         torch.cuda.reset_peak_memory_stats()
         zero_counters(counters)
         seconds, eloss, emetric = bench.run_eval(b, steps, warmup, f32=True)
-        require(bool(torch.isfinite(eloss).item()) and read_counters(counters) == {
-            k: 0 for k in counters}, f"{model} eval: loss {eloss.item()}, launches "
-                                     f"{read_counters(counters)}")
-        require(bank_counts_all(emetric, n * valid), f"{model} b{batch} eval bank count")
+        elaunch = read_counters(counters)  # eval: attention forwards only (f32: simt)
+        require(bool(torch.isfinite(eloss).item()) and elaunch["short_attention_fwd"] % n == 0
+                and all(v == 0 for k, v in elaunch.items() if k != "short_attention_fwd"),
+                f"{tag} eval: loss {eloss.item()}, launches {elaunch}")
+        require(bank_counts_all(emetric, n * valid), f"{tag} b{batch} eval bank count")
         out["eval_rate"] = steps * batch / seconds
         out["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[cd main] {model} eval b{batch} f32 twin: {out['eval_rate']:.2f} patches/s "
+        print(f"[cd main] {tag} eval b{batch} f32 twin: {out['eval_rate']:.2f} patches/s "
               f"({seconds / steps * 1e3:.2f} ms/step), peak {out['eval_peak_gib']:.2f} GiB "
               f"[{smi}]", flush=True)
     del b
@@ -2605,6 +2663,317 @@ def phase_cd(torch, counters, smi: str) -> dict:
     return out
 
 
+# the attention change-detection methods at a small size, card against CPU:
+# (tag, method, model config, batch, side). At 64^2 BiT's decoder takes 256
+# pixels against 4 tokens, ChangeFormer's stages 2 and 4 take 64 and 4
+# queries against 4 reduced keys, TransUNet's ViT 17 tokens in 2 heads of 64
+# (the short route at this width), all on B4's f32 (simt) kernels.
+MULTI_WEIGHTS = [0.5, 0.5, 0.5, 0.8, 1.0]
+TU_SMALL = {"out_channels": 16, "head_num": 2, "mlp_dim": 64, "block_num": 2}
+CD_ATTN_SMALL = (
+    ("bit-cd base_resnet18", "bit-cd", {"net_G": "base_resnet18"}, 2, 64),
+    ("bit-cd base_transformer_pos_s4_dd8", "bit-cd", {"net_G": "base_transformer_pos_s4_dd8"},
+     2, 64),
+    ("changeformer multi_scale_train", "changeformer",
+     {"embed_dim": 64, "multi_scale_train": True, "multi_pred_weights": MULTI_WEIGHTS}, 2, 64),
+    ("transunet-cd", "transunet-cd", TU_SMALL, 2, 64),
+    ("transunet-cd siamese", "transunet-cd", dict(TU_SMALL, siamese=True), 2, 64),
+)
+BIT_DD8 = {"net_G": "base_transformer_pos_s4_dd8"}
+
+
+def phase_cd_attn_memory(torch, counters, smi: str, batch: int = 16) -> dict:
+    """ChangeFormer's memory keys on the card: one f32 train step at b16,
+    224^2, embed_dim 256, with (tail_chunks, remat_ffn) = (1, false), (8,
+    false) and (8, true), from the same weights, batch and generator seed.
+    Required: the running statistics bitwise equal, the loss within rtol
+    1e-5 and the optimizer's moments within rel L2 1e-5 (the chunked tail
+    sums its weight gradients chunk by chunk), the same launches, and the
+    peak memory lower with the chunked tail. Returns the peaks (GiB)."""
+    from kurosiwo_torch.device import configure_backends
+    from kurosiwo_torch.models.factory import initialize_cd_model
+
+    cfg = cd_config("changeformer", batch, mixed_precision=False)
+    configure_backends(cfg, "cuda")
+    data = cd_batch(torch, batch, IMAGE, seed=3)
+    runs = {}
+    for chunks, remat_ffn in ((1, False), (8, False), (8, True)):
+        mc = {"optimizer": "adam", "learning_rate": 1e-3, "tail_chunks": chunks,
+              "remat_ffn": remat_ffn}
+        model = initialize_cd_model(cfg, mc, device="cpu", seed=7).to("cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = cd_step_on(torch, counters, model, cfg, mc, data, "cuda", [])
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[chunks, remat_ffn] = r
+        del model
+        torch.cuda.empty_cache()
+    params = {k for k, _ in initialize_cd_model(cfg, {}, device="cpu").named_parameters()}
+    out = {}
+    for (ka, kb), what in ((((1, False), (8, False)), "tail_chunks 8 vs 1"),
+                           (((8, False), (8, True)), "remat_ffn true vs false")):
+        a, b = runs[ka], runs[kb]
+        l2 = ((a["moment"] - b["moment"]).norm() / a["moment"].norm()).item()
+        stats_equal = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"]
+                          if k not in params)
+        require(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(a["loss"]),
+                f"changeformer {what}: loss {b['loss']} vs {a['loss']}")
+        require(l2 <= 1e-5 and stats_equal, f"changeformer {what}: moments rel L2 {l2}, "
+                                            f"running statistics equal {stats_equal}")
+        require(a["launched"] == b["launched"],
+                f"changeformer {what}: launches {b['launched']} vs {a['launched']}")
+        print(f"[cd-attn memory] ChangeFormer b{batch} f32 {what}: loss {b['loss']:.7f} vs "
+              f"{a['loss']:.7f}, moments rel L2 {l2:.1e}, running statistics equal, launches "
+              f"equal ({ {k: v for k, v in a['launched'].items() if v} }), peak "
+              f"{b['peak_gib']:.2f} vs {a['peak_gib']:.2f} GiB [{smi}]", flush=True)
+    require(runs[8, False]["peak_gib"] < runs[1, False]["peak_gib"],
+            "changeformer: the chunked tail does not lower the peak memory")
+    out = {f"tail_chunks={c},remat_ffn={str(r).lower()}": v["peak_gib"]
+           for (c, r), v in runs.items()}
+    return out
+
+
+def attention_work_qk(b: int, nq: int, nk: int, h: int, d: int, elem: int) -> dict:
+    """``attention_work`` for Nq != Nk: forward q, k, v in, out and lse out;
+    backward q, k, v, do, out and lse in, dq, dk, dv out; the products
+    QK^T and PV, and in the backward the recomputed QK^T, dV, dP, dQ, dK."""
+    tq, tk = b * nq * h * d * elem, b * nk * h * d * elem
+    stats = b * h * nq * 4
+    prods = 2 * b * h * nq * nk * d
+    return {"fwd": (2 * tq + 2 * tk + stats, 2 * prods), "bwd": (4 * tq + 4 * tk + stats,
+                                                                 5 * prods)}
+
+
+def phase_cd_attn_b4(torch, sa, shapes: dict) -> dict:
+    """B4 against its plain version at every short-attention shape the b128
+    change-detection train steps launched (``shapes``: {(B, Nq, Nk, H*D,
+    H): (leg, calls a step)}), forward and backward, f32 and bf16, q a
+    tensor of its own and k, v the column halves of one kv tensor (as
+    ChangeFormer's reduced keys come), with phase_short_attention's bands,
+    two runs bitwise equal, and each call on the kernel its plan names; in
+    bf16 the kernels' times beside the plain version's, SDPA's (a yardstick
+    only) and the bound."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    fns = (sa.short_attention_fwd, sa.short_attention_bwd)
+    out = {"shapes": len(shapes), "max_abs_err": {"fwd": 0.0, "bwd": 0.0}, "per_shape": {}}
+    for (b, nq, nk, hd, h), (leg, calls) in sorted(shapes.items()):
+        d = hd // h
+        scale = d**-0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            plan = sa.short_plan(dtype, d, nq, nk)
+            q = torch.randn((b, nq, hd), device=dev, generator=g).to(dtype)
+            k, v = torch.randn((b, nk, 2 * hd), device=dev, generator=g).to(dtype).chunk(2, -1)
+            do = torch.randn((b, nq, hd), device=dev, generator=g).to(dtype)
+            tag = f"short_attention {leg} {(b, nq, nk, hd)} H{h} {str(dtype)[6:]}"
+            before = [dict(f.kernel_launches) for f in fns]
+            o1, l1 = sa.short_attention_fwd(q, k, v, h, scale)
+            o2, l2 = sa.short_attention_fwd(q, k, v, h, scale)
+            wo, wl = sa.short_attention_fwd_plain(q, k, v, h, scale)
+            oerr = (o1.float() - wo.float()).abs().max().item()
+            lerr = (l1 - wl).abs().max().item()
+            oband = (1e-5 if f32 else 1e-2) * wo.float().abs().max().item()
+            lband = 1e-5 * wl.abs().max().item() if f32 else 1e-3
+            require(oerr <= oband and lerr <= lband,
+                    f"{tag}: out error {oerr:.3e} (band {oband:.3e}), lse {lerr:.3e} ({lband:.3e})")
+            require(torch.equal(o1, o2) and torch.equal(l1, l2), f"{tag}: fwd not deterministic")
+            delta = sa.attention_delta(do, wo, h)
+            grads = sa.short_attention_bwd(q, k, v, do, wl, wo, h, scale)
+            again = sa.short_attention_bwd(q, k, v, do, wl, wo, h, scale)
+            want = sa.short_attention_bwd_plain(q, k, v, do, wl, delta, h, scale)
+            gerr = 0.0
+            for gname, got, ref, rep in zip(("dq", "dk", "dv"), grads, want, again):
+                e = (got.float() - ref.float()).abs().max().item()
+                band = (1e-4 if f32 else 2e-2) * ref.float().abs().max().item()
+                require(e <= band, f"{tag}: {gname} error {e:.3e} > {band:.3e}")
+                require(torch.equal(got, rep), f"{tag}: {gname} not deterministic")
+                gerr = max(gerr, e)
+            for f, was in zip(fns, before):
+                require(f.kernel_launches == dict(was, **{plan.kernel: was[plan.kernel] + 2}),
+                        f"{tag}: launches {f.kernel_launches}, expected 2 more on {plan.kernel}")
+            out["max_abs_err"]["fwd"] = max(out["max_abs_err"]["fwd"], oerr)
+            out["max_abs_err"]["bwd"] = max(out["max_abs_err"]["bwd"], gerr)
+            print(f"[cd-attn b4] {tag} x{calls}/step: kernel {plan.kernel}, max abs error out "
+                  f"{oerr:.3e}, lse {lerr:.3e}, grads {gerr:.3e}; deterministic", flush=True)
+            del o1, o2, l1, l2, grads, again, want
+            if f32:
+                continue
+            view = lambda t, n: t.reshape(b, n, h, d).transpose(1, 2)
+            lq = view(q, nq).detach().requires_grad_(True)
+            lk, lv = (view(t, nk).detach().requires_grad_(True) for t in (k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+            ldo = view(do, nq)
+            ms_f = event_ms(torch, lambda: sa.short_attention_fwd(q, k, v, h, scale))
+            ms_b = event_ms(torch, lambda: sa.short_attention_bwd(q, k, v, do, wl, wo, h, scale))
+            pl_f = event_ms(torch, lambda: sa.short_attention_fwd_plain(q, k, v, h, scale), reps=3)
+            pl_b = event_ms(torch, lambda: sa.short_attention_bwd_plain(q, k, v, do, wl, delta, h,
+                                                                        scale), reps=3)
+            lib_f = event_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale))
+            lib_b = event_ms(torch, lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo,
+                                                                retain_graph=True))
+            work = attention_work_qk(b, nq, nk, h, d, 2)
+            row = {"leg": leg, "calls_per_step": calls, "kernel": plan.kernel}
+            for kdir, ms, pl, lib in (("fwd", ms_f, pl_f, lib_f), ("bwd", ms_b, pl_b, lib_b)):
+                bms, by = bound(*work[kdir], BF16_FLOP_PER_S)
+                row[kdir] = {"ms": ms, "plain_ms": pl, "sdpa_ms": lib, "bound_ms": bms,
+                             "bound_by": by}
+                print(f"[cd-attn b4 {kdir}] {leg} {(b, nq, nk, hd)} H{h} bf16 x{calls}/step: "
+                      f"{plan.kernel} kernel {ms:.4f} ms, plain {pl:.4f} ms, SDPA {lib:.4f} ms, "
+                      f"bound {bms * 1e3:.1f} us ({by})", flush=True)
+            out["per_shape"][f"{leg} ({b},{nq},{nk},{hd}) H{h}"] = row
+            del lq, lk, lv, lib_out
+        torch.cuda.empty_cache()
+    print(f"[cd-attn b4] kernel vs plain at the {len(shapes)} short-attention shapes of the "
+          f"b128 change-detection steps, f32 and bf16: max abs error fwd "
+          f"{out['max_abs_err']['fwd']:.3e}, bwd {out['max_abs_err']['bwd']:.3e}", flush=True)
+    return out
+
+
+def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 3,
+                 steps: int = 10) -> dict:
+    """The b128 f32-twin eval step of a bench leg (3 warm-up, 10 timed), or
+    with ``eval_microbatch`` 32 when the whole batch does not fit: patches/s,
+    peak memory; every launch a short-attention forward (f32: simt)."""
+    from kurosiwo_torch import bench
+
+    for micro in (0, BATCH // 4):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b = None
+        try:
+            b = bench.setup(BATCH, overrides={"eval_microbatch": micro} if micro else {},
+                            model=model)
+            zero_counters(counters)
+            seconds, eloss, metric = bench.run_eval(b, steps, warmup, f32=True)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[cd-attn main] {model} eval b{BATCH} f32 twin"
+                  f"{f', eval_microbatch {micro}' if micro else ''}: out of memory [{smi}]",
+                  flush=True)
+            del b
+            continue
+        n = warmup + steps
+        launches = read_counters(counters)
+        valid = int((b.batch["mask"] != 3).sum().item())
+        require(bool(torch.isfinite(eloss).item()) and bank_counts_all(metric, n * valid)
+                and launches["short_attention_fwd"] % n == 0
+                and all(v == 0 for k, v in launches.items() if k != "short_attention_fwd"),
+                f"{model} eval: loss {eloss.item()}, launches {launches}")
+        res = {"eval_rate": steps * BATCH / seconds, "eval_ms": seconds / steps * 1e3,
+               "eval_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "eval_microbatch": micro, "batch": BATCH,
+               "short_attention_fwd": launches["short_attention_fwd"] // n}
+        print(f"[cd-attn main] {model} eval b{BATCH} f32 twin"
+              f"{f', eval_microbatch {micro}' if micro else ''}: {res['eval_rate']:.2f} "
+              f"patches/s ({res['eval_ms']:.2f} ms/step), peak {res['eval_peak_gib']:.2f} GiB, "
+              f"short_attention_fwd {res['short_attention_fwd']} a step [{smi}]", flush=True)
+        del b
+        torch.cuda.empty_cache()
+        return res
+    raise PhaseFailed(f"{model} f32-twin eval fits neither b{BATCH} nor its microbatches")
+
+
+def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
+                bn_shapes: set, attn: dict, overrides: dict | None = None) -> dict:
+    """A b128 bf16 train leg (3 warm-up, 10 timed) through ``cd_timed``, its
+    short-attention shapes added to ``attn`` ({shape: (leg, calls a
+    step)}); an out-of-memory leg prints a line and returns {"oom": True}."""
+    import collections
+
+    shapes = collections.Counter()
+    try:
+        res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, 3, 10,
+                       bn_shapes=bn_shapes, model_config=model_config, attn_shapes=shapes,
+                       tag=tag)
+    except torch.cuda.OutOfMemoryError:
+        print(f"[cd-attn main] {tag} b{BATCH}: out of memory [{smi}]", flush=True)
+        torch.cuda.empty_cache()
+        return {"oom": True}
+    for shape, calls in shapes.items():
+        attn.setdefault(shape, (tag, calls // 13))
+    return res
+
+
+def phase_cd_attn(torch, counters, smi: str) -> dict:
+    """The attention change-detection models: card against CPU (f32, one
+    train and one eval step) for BiT-CD base_resnet18 and
+    base_transformer_pos_s4_dd8, ChangeFormer with multi_scale_train and
+    TransUNet-CD with siamese off and on; ChangeFormer's memory keys; the
+    b128 bf16 train steps of BiT-CD (base_resnet18 and ..._dd8),
+    ChangeFormer (its defaults, the f32-twin eval, and tail_chunks 1 with
+    remat_ffn false) and TransUNet-CD, on the bench's config; B4 against its
+    plain version at every short-attention shape those steps launched and
+    B3 at every BatchNorm input shape; the CLI once for BiT-CD and
+    TransUNet-CD and twice for ChangeFormer. Returns the numbers of each."""
+    from kurosiwo_torch.ops import short_attention as sa
+
+    t0 = time.perf_counter()
+    out = {"parity": {}}
+    for tag, method, mc, bsz, side in CD_ATTN_SMALL:
+        mc = dict(mc, optimizer="adam", learning_rate=1e-3)
+        out["parity"][tag] = cd_card_vs_cpu(torch, counters, tag, method, mc, bsz, side)
+    torch.cuda.empty_cache()
+    out["memory_keys"] = phase_cd_attn_memory(torch, counters, smi)
+    bn_shapes: set = set()
+    attn: dict = {}
+    leg = lambda *a, **kw: cd_attn_leg(torch, counters, smi, *a, bn_shapes=bn_shapes,
+                                       attn=attn, **kw)
+    out["bit-cd"] = leg("bit-cd base_resnet18", "bit-cd", None)
+    out["bit-cd dd8"] = leg("bit-cd base_transformer_pos_s4_dd8", "bit-cd", BIT_DD8)
+    out["changeformer"] = leg("changeformer", "changeformer", None)
+    out["changeformer eval"] = cd_attn_eval(torch, counters, smi, "changeformer")
+    out["changeformer no memory keys"] = leg("changeformer tail_chunks 1, remat_ffn false",
+                                             "changeformer",
+                                             {"tail_chunks": 1, "remat_ffn": False})
+    out["transunet-cd"] = leg("transunet-cd", "transunet-cd", None)
+    for name in ("bit-cd", "bit-cd dd8", "changeformer", "transunet-cd"):
+        require(not out[name].get("oom"), f"{name} b{BATCH} ran out of memory")
+    # 41 BatchNorms forward and backward; at resnet_stages_num 4 the 10 of
+    # layer4 (which runs and feeds nothing) have no backward; ChangeFormer's
+    # 9 less the 4 of the prediction heads off the loss (no multi_scale_train)
+    # on the way back; TransUNet-CD's 36 each way
+    want = {"bit-cd": 82, "bit-cd dd8": 72, "changeformer": 14, "transunet-cd": 72}
+    got = {k: out[k]["pair_sums"] for k in want}
+    require(got == want, f"pair_sums a step {got}, expected {want}")
+    sa_steps = {k: out[k].get("short_attention", {}) for k in ("bit-cd dd8", "changeformer")}
+    require(sa_steps["bit-cd dd8"] == {"short_attention_fwd.wgmma": 1,
+                                       "short_attention_fwd.mma_sync": 16,
+                                       "short_attention_bwd.wgmma": 1,
+                                       "short_attention_bwd.mma_sync": 16}
+            and sa_steps["changeformer"] == {"short_attention_fwd.wgmma": 6,
+                                             "short_attention_fwd.mma_sync": 6,
+                                             "short_attention_bwd.wgmma": 6,
+                                             "short_attention_bwd.mma_sync": 6},
+            f"short-attention launches a step by kernel {sa_steps}")
+    require(not out["bit-cd"].get("short_attention") and not out["transunet-cd"].get(
+        "short_attention"), "a leg without B4 launched it")
+    out["b4"] = phase_cd_attn_b4(torch, sa, attn)
+    out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes)
+
+    runs = {}
+    for method in ("bit-cd", "changeformer", "changeformer", "transunet-cd"):
+        run = cli_run(smi, {"on_screen_prints": True, "task": "cd"}, method=(method,),
+                      extra=("--inputs", "pre_event_1", "post_event"))
+        require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
+                f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
+        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+        runs.setdefault(method, []).append({"first": first, "lines": [
+            {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
+            "miou": run["miou"]})
+        print(f"[cd-attn cli] python -m kurosiwo_torch --method {method} --inputs pre_event_1 "
+              f"post_event --seed 7 (\"task\": \"cd\"): exit 0 in {run['seconds']:.1f} s, "
+              f"first-step loss {first}, Test Mean IOU {run['miou']!r}, checkpoint_epoch=0 "
+              f"written [{smi}]", flush=True)
+    a, b = runs["changeformer"]
+    require(a == b, "two deterministic ChangeFormer CLI runs at one seed differ")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[cd-attn] the two ChangeFormer CLI runs agree in every printed number; phase wall "
+          f"{out['wall_s']:.1f} s [{smi}]", flush=True)
+    return out
+
+
 def cli_run(smi: str, config: dict | None = None, method: tuple = ("unet", "resnet18"),
             extra: tuple = ()) -> dict:
     """``python -m kurosiwo_torch --method unet --backbone resnet18 --seed 7``
@@ -2692,17 +3061,33 @@ def phase_c14(smi: str) -> None:
     require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
 
 
-def cd_summary(cd: dict, smi: str) -> str:
-    """One line of the change-detection phase's numbers, printed near the
-    end of the output so that they stay in its tail."""
-    legs = {k: {"batch": v["batch"], "patches_per_s": v["rate"], "ms_per_step": v["ms"],
+def _legs(phase: dict) -> dict:
+    return {k: {"batch": v["batch"], "patches_per_s": v["rate"], "ms_per_step": v["ms"],
                 "peak_gib": v["peak_gib"], "pair_sums_per_step": v["pair_sums"],
-                "busy_ms_per_step": v["busy_ms"], **({"eval_patches_per_s": v["eval_rate"]}
-                                                       if "eval_rate" in v else {})}
-            for k, v in cd.items() if isinstance(v, dict) and "rate" in v}
-    return "[cd summary] " + json.dumps({
-        "card": smi, "legs": legs, "hfa_bf16_over_f32_first_layer_grad": cd["hfa_bf16_ratio"],
-        "pair_sums_cd_shapes": cd["pair_sums_check"]})
+                "busy_ms_per_step": v["busy_ms"],
+                **({"short_attention_per_step": v["short_attention"]}
+                   if "short_attention" in v else {}),
+                **({"eval_patches_per_s": v["eval_rate"]} if "eval_rate" in v else {})}
+            for k, v in phase.items() if isinstance(v, dict) and "rate" in v}
+
+
+def cd_summary(cd: dict | None, smi: str, attn: dict | None = None) -> str:
+    """One line of the change-detection phases' numbers, printed near the
+    end of the output so that they stay in its tail."""
+    line = {"card": smi}
+    if cd is not None:
+        line.update(legs=_legs(cd), hfa_bf16_over_f32_first_layer_grad=cd["hfa_bf16_ratio"],
+                    pair_sums_cd_shapes=cd["pair_sums_check"])
+    if attn is not None:
+        line["attention"] = {
+            "legs": _legs(attn), "changeformer_eval": attn["changeformer eval"],
+            "changeformer_no_memory_keys": (
+                "out of memory" if attn["changeformer no memory keys"].get("oom")
+                else _legs({"x": attn["changeformer no memory keys"]})["x"]),
+            "memory_keys_peak_gib_b16_f32": attn["memory_keys"],
+            "b4_a6": attn["b4"], "pair_sums_a6_shapes": attn["pair_sums_check"],
+            "card_vs_cpu_launches": attn["parity"], "phase_wall_s": attn["wall_s"]}
+    return "[cd summary] " + json.dumps(line)
 
 
 def run_only(torch, counters, smi: str, only: set) -> None:
@@ -2725,11 +3110,13 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         phase_losses_zones(torch, counters, smi)
     if "c14" in only:
         phase_c14(smi)
-    if "cd" in only:
-        print(cd_summary(phase_cd(torch, counters, smi), smi), flush=True)
+    if "cd" in only or "cd-attn" in only:
+        cd = phase_cd(torch, counters, smi) if "cd" in only else None
+        attn = phase_cd_attn(torch, counters, smi) if "cd-attn" in only else None
+        print(cd_summary(cd, smi, attn), flush=True)
 
 
-ONLY = {"engine", "feed", "augment", "losses", "c14", "cd"}
+ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn"}
 
 
 def main(argv=None) -> int:
@@ -2813,6 +3200,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         cd = phase_cd(torch, counters, smi)
         torch.cuda.empty_cache()
+        cd_attn = phase_cd_attn(torch, counters, smi)
+        torch.cuda.empty_cache()
         mae_launches = phase_mae_main(torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = phase_scene_main(torch, counters, smi)
@@ -2840,7 +3229,11 @@ def main(argv=None) -> int:
              cd_launches_per_step={k: cd[k]["pair_sums"] for k in (
                  "snunet", "snunet_no_remat", "siam-diff", "hfa-net", "adhr-cdnet")},
              cd_shapes_checked=cd["pair_sums_check"]["shapes"],
-             cd_max_abs_err=cd["pair_sums_check"]["max_abs_err"]),
+             cd_max_abs_err=cd["pair_sums_check"]["max_abs_err"],
+             cd_attn_launches_per_step={k: cd_attn[k]["pair_sums"] for k in (
+                 "bit-cd", "bit-cd dd8", "changeformer", "transunet-cd")},
+             cd_attn_shapes_checked=cd_attn["pair_sums_check"]["shapes"],
+             cd_attn_max_abs_err=cd_attn["pair_sums_check"]["max_abs_err"]),
         row("ce_cm_fwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:128",
             ce["fwd"], launches["ce_cm_fwd_nhwc"]),
         row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
@@ -2850,7 +3243,13 @@ def main(argv=None) -> int:
                  "kurosiwo_tpu/ops/pallas_attention.py:259", attn["fwd"],
                  mae_launches["short_attention_fwd"]),
              mma_sync_ms=attn["fwd"]["mma_sync_ms"],
-             mma_sync_max_abs_err=attn["fwd"]["mma_sync_err"]),
+             mma_sync_max_abs_err=attn["fwd"]["mma_sync_err"],
+             a6_launches_per_step={k: cd_attn[k]["short_attention"] for k in (
+                 "bit-cd dd8", "changeformer")},
+             a6_shapes_checked=cd_attn["b4"]["shapes"],
+             a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["fwd"],
+             a6_bf16={k: dict(v["fwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
+                      for k, v in cd_attn["b4"]["per_shape"].items()}),
         dict(row("short_attention_bwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls; step_backward_ms: as the step runs it, into the qkv gradient's "
                  "thirds; library_qkv_backward_ms: SDPA's from one qkv leaf, with the concat)",
@@ -2859,7 +3258,11 @@ def main(argv=None) -> int:
                  mae_launches["short_attention_bwd"]),
              step_backward_ms=attn["bwd"]["step_ms"],
              library_qkv_backward_ms=attn["bwd"]["library_qkv_ms"],
-             mma_sync_backward_ms=attn["bwd"]["mma_sync_ms"]),
+             mma_sync_backward_ms=attn["bwd"]["mma_sync_ms"],
+             a6_shapes_checked=cd_attn["b4"]["shapes"],
+             a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["bwd"],
+             a6_bf16={k: dict(v["bwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
+                      for k, v in cd_attn["b4"]["per_shape"].items()}),
         row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
             "scene encode)",
             "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",
@@ -2897,7 +3300,7 @@ def main(argv=None) -> int:
              ragged_max_abs_err=cfu["ragged_max_abs_err"],
              ragged_mma_sync_max_abs_err=cfu["ragged_mma_sync_err"]),
     ]}
-    print(cd_summary(cd, smi), flush=True)
+    print(cd_summary(cd, smi, cd_attn), flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

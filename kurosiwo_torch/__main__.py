@@ -38,8 +38,7 @@ import torch
 from .config import create_checkpoint_directory, load_config
 from .data.pipeline import prepare_loaders
 from .device import configure_backends
-from .models.factory import (CD_METHODS, PORTED_CD_METHODS, initialize_cd_model,
-                             initialize_segmentation_model)
+from .models.factory import CD_METHODS, initialize_cd_model, initialize_segmentation_model
 
 # the tasks main.py dispatches that the port does not run yet
 _NOT_PORTED = {"mae": "A8", "diffusion-unsup": "A10"}
@@ -82,7 +81,7 @@ def main(argv=None) -> float:
         raise ValueError(f"{method!r} is a change-detection method and the config's task is "
                          f"{task!r}: set \"task\": \"cd\" in {args.config_root}/config.json "
                          "and pass --inputs pre_event_1 post_event")
-    if task == "cd" and method in PORTED_CD_METHODS and len(configs["inputs"]) != 2:
+    if task == "cd" and method in CD_METHODS and len(configs["inputs"]) != 2:
         raise ValueError(f"change detection requires exactly 2 inputs, got {configs['inputs']}: "
                          "pass --inputs pre_event_1 post_event")
     if args.batch_size is not None:

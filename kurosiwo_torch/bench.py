@@ -18,7 +18,12 @@ parameters, RandomEvents-weighted cross entropy, Adam at lr 1e-3, remat on
 ``--eval [--f32_eval]`` as for the UNet. ``--model siam-diff`` (and
 ``siam-conc``, ``hfa-net``, ``adhr-cdnet``) runs that model on the same
 config and code (the repository's ``bench.py`` has no such leg), Siam's
-dropout masks drawn from a generator seeded once.
+dropout masks drawn from a generator seeded once. ``--model bit-cd`` and
+``--model changeformer`` are the repository's other two change-detection
+legs, ``--model transunet-cd`` runs on the same config: the same model
+config, so BiT-CD is its ``net_G`` default (``base_resnet18``) and
+ChangeFormer runs with its defaults (embed_dim 256, ``tail_chunks`` and
+``remat_ffn`` on "auto", its five heads scored on the last one).
 
 ``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
 pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
@@ -73,9 +78,9 @@ from .training.steps import make_eval_step, make_train_step
 IMAGE = 224
 
 
-# the change-detection legs; the repository's bench.py has snunet, bit-cd and
-# changeformer, of which snunet is ported; the port runs its other ported
-# change-detection models on the same config
+# the change-detection legs: the repository's bench.py has snunet, bit-cd and
+# changeformer; the port runs its other change-detection models on the same
+# config
 CD_MODELS = PORTED_CD_METHODS
 
 
@@ -146,6 +151,7 @@ class Bench:
     device: torch.device
     # the MAE step's masking noise, the augmentations' and dropout masks' draws
     generator: torch.Generator | None = None
+    model_config: dict = dataclasses.field(default_factory=lambda: dict(MODEL_CONFIG))
 
     @property
     def task(self) -> str:
@@ -153,11 +159,11 @@ class Bench:
 
 
 def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
-          model: str = "unet") -> Bench:
+          model: str = "unet", model_config: dict | None = None) -> Bench:
     """Model, train state and a device-resident batch for the UNet step or a
     change-detection step (``CD_MODELS``; default batch 128, ``overrides``
-    update the config) or, with ``model="mae"``, the MAE step of
-    ``setup_mae``."""
+    update the config, ``model_config`` updates ``MODEL_CONFIG``) or, with
+    ``model="mae"``, the MAE step of ``setup_mae``."""
     if model == "mae":
         if overrides:
             raise ValueError("the MAE leg takes no config overrides")
@@ -170,13 +176,14 @@ def setup(batch: int | None = None, overrides: dict | None = None, device="cuda"
     cfg = build_config(model, batch)
     cfg.update(overrides or {})
     configure_backends(cfg, dev)
+    mcfg = {**MODEL_CONFIG, **(model_config or {})}
     if cfg["task"] == "cd":
-        net = initialize_cd_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
+        net = initialize_cd_model(cfg, mcfg, device=dev, seed=seed)
     else:
-        net = initialize_segmentation_model(cfg, MODEL_CONFIG, device=dev, seed=seed)
-    state = create_train_state(net, cfg, MODEL_CONFIG, cfg["task"])
+        net = initialize_segmentation_model(cfg, mcfg, device=dev, seed=seed)
+    state = create_train_state(net, cfg, mcfg, cfg["task"])
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
-    return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed))
+    return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed), mcfg)
 
 
 def setup_mae(batch: int | None = None, device="cuda", seed: int = 0,
@@ -259,7 +266,7 @@ def _timed(fn, steps: int, warmup: int, device: torch.device):
 def _train_fn(b: Bench):
     """One train step per call; returns the loss and keeps the metric bank."""
     step = make_train_step(b.state.model, create_loss(b.config, "train"), b.config,
-                           MODEL_CONFIG, task=b.task, device=b.device)
+                           b.model_config, task=b.task, device=b.device)
     metric = [MetricState.create(b.device)]
 
     def one():
@@ -281,8 +288,9 @@ def _mae_train_fn(b: Bench):
 
 
 def _eval_fn(b: Bench, f32: bool):
-    step = make_eval_step(b.state.model, create_loss(b.config, "val"), b.config, MODEL_CONFIG,
-                          task=b.task, device=b.device, dtype=torch.float32 if f32 else None)
+    step = make_eval_step(b.state.model, create_loss(b.config, "val"), b.config,
+                          b.model_config, task=b.task, device=b.device,
+                          dtype=torch.float32 if f32 else None)
     metric = [MetricState.create(b.device)]
 
     def one():

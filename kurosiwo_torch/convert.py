@@ -1,5 +1,6 @@
 """Parameter bridge between a flax model's variables and the port's
-``state_dict`` (the UNet, the MAE/ViT and the change-detection trees).
+``state_dict`` (the UNet, the MAE/ViT and the eight change-detection
+trees).
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``encoder.layer1_0.ConvBNAct_0.BatchNorm_0``, ``DecoderBlock_4.ConvBNAct_1``,
@@ -7,7 +8,9 @@ The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``), so the map is a path
 join plus layout transposes:
 
-  params/.../kernel (HWIO, conv)  <-> ....weight (OIHW)
+  params/.../kernel (HWIO, conv)  <-> ....weight (OIHW); a depthwise kernel
+                                      (HWIO with I = 1, ChangeFormer's
+                                      ``dwconv``) is the grouped (C, 1, k, k)
   params/.../kernel (HWOI, the transposed convs' torch layout)
                                   <-> ....weight (IOHW, F.conv_transpose2d's)
   params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense)

@@ -1,7 +1,8 @@
 """Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. The
-UNet, the MAE (ViT encoder) and the convolutional change-detection models
-(SNUNet-ECAM, Siam-diff, Siam-conc, HFA-Net, ADHR-CDNet) are ported; every
-other method names its ``ROADMAP.md`` item."""
+UNet, the MAE (ViT encoder) and every change-detection model (SNUNet-ECAM,
+Siam-diff, Siam-conc, BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet,
+TransUNet-CD) are ported; every other method names its ``ROADMAP.md``
+item."""
 
 from __future__ import annotations
 
@@ -13,13 +14,11 @@ _NOT_PORTED = {
     "unetplusplus": "A5", "unet++": "A5", "deeplabv3": "A5", "finetune": "A5",
     "upernet": "A9",
 }
-# the change-detection methods whose models are not ported yet
-_CD_NOT_PORTED = {"bit-cd": "A6", "changeformer": "A6", "transunet-cd": "A6"}
 #: every method the JAX package's ``initialize_cd_model`` builds
 CD_METHODS = ("siam-conc", "siam-diff", "snunet", "bit-cd", "hfa-net", "changeformer",
               "adhr-cdnet", "transunet-cd")
-#: the change-detection methods the port builds
-PORTED_CD_METHODS = tuple(m for m in CD_METHODS if m not in _CD_NOT_PORTED)
+#: the change-detection methods the port builds: all of them
+PORTED_CD_METHODS = CD_METHODS
 
 
 def compute_dtype(config: dict) -> torch.dtype:
@@ -60,7 +59,10 @@ def initialize_cd_model(config: dict, model_config: dict, phase: str = "train",
     ``num_channels`` is the channels of one frame. SNUNet's ``remat``
     defaults on at batch >= 64 unless the config sets it, as JAX's does; the
     other methods' ``remat`` is the train step's whole-forward form
-    (``training/steps.py``)."""
+    (``training/steps.py``). The model-config keys and their defaults are
+    the JAX factory's (``factory.py:91-162``). TransUNet-CD's position
+    table is sized for the patch side the JAX engine initialises at,
+    min(224, ``synthetic_patch_size``)."""
     del phase
     dev = resolve_device(device)
     method = config["method"].lower()
@@ -84,17 +86,37 @@ def initialize_cd_model(config: dict, model_config: dict, phase: str = "train",
         model = SNUNetECAM(n_in, nc, base_channel=int(model_config.get("base_channel", 32)),
                            remat=bool(remat),
                            save_bn_stats=bool(config.get("snunet_save_bn_stats", True)), **kw)
+    elif method == "bit-cd":
+        from .bit_cd import build_bit_cd
+
+        model = build_bit_cd(model_config, n_in, nc, **kw)
     elif method == "hfa-net":
         from .hfanet import HFANet
 
         model = HFANet(n_in, nc, **kw)
+    elif method == "changeformer":
+        from .changeformer import ChangeFormerV6
+
+        model = ChangeFormerV6(
+            n_in, embed_dim=int(model_config.get("embed_dim", 256)), num_classes=nc,
+            decoder_softmax=bool(model_config.get("decoder_softmax", True)),
+            tail_chunks=int(model_config.get("tail_chunks", 0)),
+            remat_ffn=model_config.get("remat_ffn", "auto"), **kw)
     elif method == "adhr-cdnet":
         from .adhr_cdnet import ADHR
 
         model = ADHR(n_in, nc, **kw)
-    elif method in _CD_NOT_PORTED:
-        raise NotImplementedError(
-            f"cd method {method!r} is not ported yet (ROADMAP.md, {_CD_NOT_PORTED[method]})")
+    elif method == "transunet-cd":
+        from .transunet_cd import TransUNetCD
+
+        model = TransUNetCD(
+            n_in, out_channels=int(model_config.get("out_channels", 128)),
+            head_num=int(model_config.get("head_num", 4)),
+            mlp_dim=int(model_config.get("mlp_dim", 512)),
+            block_num=int(model_config.get("block_num", 8)),
+            patch_dim=int(model_config.get("patch_dim", 16)), num_classes=nc,
+            siamese=bool(model_config.get("siamese", False)),
+            img_dim=min(224, int(config.get("synthetic_patch_size", 224) or 224)), **kw)
     else:
         raise NotImplementedError(f"cd method {method!r} is not supported")
     return model.to(dev)

@@ -1,6 +1,7 @@
 """ResNet encoder (NHWC); counterpart of ``kurosiwo_tpu/models/resnet.py``
-for the BasicBlock backbones (resnet18, resnet34) the UNet uses. Submodules
-carry the flax names (``stem``, ``layer1_0``, ``ConvBNAct_0``, ...)."""
+for the BasicBlock backbones (resnet18, resnet34) of the UNet and of
+BiT-CD's dilated trunk. Submodules carry the flax names (``stem``,
+``layer1_0``, ``ConvBNAct_0``, ...)."""
 
 from __future__ import annotations
 
@@ -14,11 +15,13 @@ RESNET_DEPTHS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False,
-                 generator: torch.Generator | None = None, **routes: bool):
+                 generator: torch.Generator | None = None, dilation: int = 1, **routes: bool):
         super().__init__()
         g = generator
-        self.ConvBNAct_0 = ConvBNAct(cin, features, 3, stride, generator=g, **routes)
-        self.ConvBNAct_1 = ConvBNAct(features, features, 3, 1, act=False, generator=g, **routes)
+        self.ConvBNAct_0 = ConvBNAct(cin, features, 3, stride, generator=g, dilation=dilation,
+                                     **routes)
+        self.ConvBNAct_1 = ConvBNAct(features, features, 3, 1, act=False, generator=g,
+                                     dilation=dilation, **routes)
         self.ConvBNAct_2 = (
             ConvBNAct(cin, features, 1, stride, act=False, padding=0, generator=g)
             if downsample else None
@@ -33,10 +36,18 @@ class BasicBlock(nn.Module):
 class ResNetEncoder(nn.Module):
     """5-stage pyramid: [x, s1(/2), s2(/4), s3(/8), s4(/16), s5(/32)].
     ``routes`` (``conv_bn_kernel``, ``dw_kernel``) go to every block's
-    ``ConvBNAct``, whose gates decide which conv takes them."""
+    ``ConvBNAct``, whose gates decide which conv takes them.
+
+    ``dilations`` (stages 3..5) replaces a stage's stride with dilation
+    (torchvision's replace_stride_with_dilation). ``clamp_basic_dilation``
+    is BiT-CD's vendored torchvision quirk (``resnet.py:74-96``): its
+    BasicBlock clamps a dilation above 1 back to 1, so those stages become
+    stride-1 convs that are not dilated."""
 
     def __init__(self, in_channels: int, backbone: str = "resnet18", width: int = 64,
-                 generator: torch.Generator | None = None, **routes: bool):
+                 generator: torch.Generator | None = None,
+                 dilations: tuple[bool, bool, bool] = (False, False, False),
+                 clamp_basic_dilation: bool = False, **routes: bool):
         super().__init__()
         if backbone not in RESNET_DEPTHS:
             raise NotImplementedError(
@@ -46,14 +57,20 @@ class ResNetEncoder(nn.Module):
         self.blocks = []
         self.channels = [in_channels, width]
         cin = width
+        dilation = 1
         for stage, depth in enumerate(RESNET_DEPTHS[backbone]):
             features = width * 2**stage
             stride = 1 if stage == 0 else 2
+            if stage > 0 and dilations[stage - 1]:
+                dilation *= stride
+                stride = 1
+            block_dilation = 1 if clamp_basic_dilation else dilation
             for i in range(depth):
                 name = f"layer{stage + 1}_{i}"
                 ds = i == 0 and (stride != 1 or cin != features)
                 self.add_module(name, BasicBlock(cin, features, stride if i == 0 else 1, ds,
-                                                 generator=generator, **routes))
+                                                 generator=generator, dilation=block_dilation,
+                                                 **routes))
                 self.blocks.append((stage, name))
                 cin = features
             self.channels.append(features)

@@ -1,6 +1,6 @@
 """Building blocks of the port's models; counterpart of the parts of
-``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet and the convolutional
-change-detection models use, plus flax's ``Dense``.
+``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet and the change-detection models
+use, plus flax's ``Dense`` and ChangeFormer's ``DropPath``.
 
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
@@ -12,8 +12,9 @@ them.
 Mixed precision follows flax's (dtype, param_dtype) pair: parameters are f32
 and each convolution casts its weight and input to the compute ``dtype``.
 
-The resampling ops (``replication_pad_to``, ``resize_bilinear``) are written
-in forms whose backward is deterministic on the card (slices and expands; two
+The resampling ops (``replication_pad_to``, ``resize_bilinear``,
+``resize_linear``, ``resize_nearest``) are written in forms whose backward is
+deterministic on the card (slices, expands and gathers of whole rows; two
 small interpolation-matrix products), since ``F.pad(mode="replicate")`` and
 bilinear ``F.interpolate`` have no deterministic backward there.
 """
@@ -42,19 +43,23 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | Non
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` on NHWC: ``weight`` (OIHW, f32), optional ``bias``
-    added after the convolution in the compute dtype, as flax adds it."""
+    added after the convolution in the compute dtype, as flax adds it.
+    ``groups`` is flax's ``feature_group_count`` (ChangeFormer's depthwise
+    conv: the flax (k, k, 1, C) kernel is the (C, 1, k, k) weight)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-                 bias: bool = False, generator: torch.Generator | None = None):
+                 bias: bool = False, generator: torch.Generator | None = None,
+                 dilation: int = 1, groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
-        lecun_normal_(self.weight.data, cin * kernel * kernel, generator)
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
+        lecun_normal_(self.weight.data, cin // groups * kernel * kernel, generator)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
-                     stride=self.stride, padding=self.padding)
+                     stride=self.stride, padding=self.padding, dilation=self.dilation,
+                     groups=self.groups)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
@@ -98,13 +103,14 @@ class ConvBNAct(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  act: bool = True, padding: int | None = None,
                  generator: torch.Generator | None = None, conv_bn_kernel: bool = False,
-                 dw_kernel: bool = False):
+                 dw_kernel: bool = False, dilation: int = 1):
         super().__init__()
-        pad = padding if padding is not None else kernel // 2
-        self.Conv_0 = Conv(cin, features, kernel, stride, pad, generator=generator)
+        pad = padding if padding is not None else dilation * (kernel // 2)
+        self.Conv_0 = Conv(cin, features, kernel, stride, pad, generator=generator,
+                           dilation=dilation)
         self.BatchNorm_0 = BatchNorm(features)
         self.act = act
-        routable = (kernel == 3 and stride == 1 and padding is None
+        routable = (kernel == 3 and stride == 1 and dilation == 1 and padding is None
                     and cin % 128 == 0 and features % 128 == 0)
         self.conv_bn_kernel = conv_bn_kernel and routable and min(cin, features) >= 256
         self.dw_kernel = dw_kernel and routable
@@ -137,10 +143,37 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> tor
     return y.permute(0, 2, 3, 1)
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x upsample on NHWC (broadcast + reshape, as the JAX package)."""
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHWC to ``size`` (JAX ``resize_nearest``,
+    ``ops/nn.py:220``): integer upscale factors as a broadcast and a
+    reshape; any other size with ``jax.image.resize(..., "nearest")``'s
+    sampling, source index floor((i + 0.5) * in / out) computed in f32."""
     b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+    oh, ow = size
+    if oh % h == 0 and ow % w == 0 and oh >= h and ow >= w:
+        fy, fx = oh // h, ow // w
+        return x[:, :, None, :, None, :].expand(b, h, fy, w, fx, c).reshape(b, oh, ow, c)
+
+    def index(n_in: int, n_out: int) -> torch.Tensor:
+        pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in) \
+            / np.float32(n_out)
+        return torch.from_numpy(np.floor(pos).astype(np.int64)).to(x.device)
+
+    if oh != h:
+        x = x.index_select(1, index(h, oh))
+    if ow != w:
+        x = x.index_select(2, index(w, ow))
+    return x
+
+
+def upsample2x(x: torch.Tensor, method: str = "nearest",
+               align_corners: bool = False) -> torch.Tensor:
+    """2x upsample of NHWC: nearest (broadcast + reshape, as the JAX package)
+    or bilinear (``resize_bilinear``)."""
+    h, w = x.shape[1:3]
+    if method == "nearest":
+        return resize_nearest(x, (2 * h, 2 * w))
+    return resize_bilinear(x, (2 * h, 2 * w), align_corners=align_corners)
 
 
 class TorchConvTranspose(nn.Module):
@@ -215,22 +248,23 @@ class ChannelAttention(nn.Module):
         return torch.sigmoid(avg + mx)
 
 
-class Dropout2d(nn.Module):
-    """Channel dropout (torch ``Dropout2d``, the JAX ``Dropout2d`` of
-    ``ops/nn.py:630``): in training, each (sample, channel) map is kept with
-    probability 1 - rate and scaled by 1 / (1 - rate). The mask is drawn
-    from ``generator`` (the step's; None: torch's default generator of the
-    device) by :meth:`draw_mask`. Inside a remat region the recompute
-    applies the mask the first forward drew (``ops/remat.py``)."""
+class _MaskedDrop(nn.Module):
+    """A dropout whose keep-mask is drawn by :meth:`draw_mask` from
+    ``generator`` (the step's; None: torch's default generator of the
+    device); in training the kept values are scaled by 1 / (1 - rate).
+    Inside a remat region the recompute applies the mask the first forward
+    drew (``ops/remat.py``)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
+    def mask_shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        raise NotImplementedError
+
     def draw_mask(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-        """A (B, 1, 1, C) bool keep-mask for ``x``."""
-        b, c = x.shape[0], x.shape[-1]
-        u = torch.rand((b, 1, 1, c), generator=generator, device=x.device)
+        """A bool keep-mask of ``mask_shape(x)``."""
+        u = torch.rand(self.mask_shape(x), generator=generator, device=x.device)
         return u < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -245,6 +279,24 @@ class Dropout2d(nn.Module):
             if region is not None:
                 region.record_mask(mask)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout2d(_MaskedDrop):
+    """Channel dropout (torch ``Dropout2d``, the JAX ``Dropout2d`` of
+    ``ops/nn.py:630``): in training, each (sample, channel) map of an NHWC
+    tensor is kept with probability 1 - rate, a (B, 1, 1, C) mask."""
+
+    def mask_shape(self, x):
+        return (x.shape[0], 1, 1, x.shape[-1])
+
+
+class DropPath(_MaskedDrop):
+    """Stochastic depth (ChangeFormer's ``DropPath``, ``changeformer.py:38-48``):
+    in training, each sample's residual branch is kept with probability
+    1 - rate, a (B, 1, ..., 1) mask."""
+
+    def mask_shape(self, x):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
 
 
 class PReLU(nn.Module):
@@ -278,20 +330,22 @@ def replication_pad_to(x: torch.Tensor, target_h: int, target_w: int) -> torch.T
 
 @functools.lru_cache(maxsize=64)
 def _interp_matrix(in_dim: int, out_dim: int, align_corners: bool,
-                   device: torch.device) -> torch.Tensor:
+                   device: torch.device, antialias: bool = False) -> torch.Tensor:
     """:func:`_interp_weights` as an f32 tensor on ``device``, made once per
     geometry: a host-to-device copy in every forward would wait on the
     card."""
-    return torch.from_numpy(_interp_weights(in_dim, out_dim, align_corners)).to(
+    return torch.from_numpy(_interp_weights(in_dim, out_dim, align_corners, antialias)).to(
         device, torch.float32)
 
 
-def _interp_weights(in_dim: int, out_dim: int, align_corners: bool) -> np.ndarray:
+def _interp_weights(in_dim: int, out_dim: int, align_corners: bool,
+                    antialias: bool = False) -> np.ndarray:
     """(out_dim, in_dim) linear-interpolation weights. align_corners=False
     is ``jax.image.resize``'s "linear": half-pixel centres, the triangle
     kernel's taps outside the input dropped and the rest renormalized (for
-    upsampling, which is all the port asks of it, the same as torch's
-    ``align_corners=False``); align_corners=True samples i * (in - 1) /
+    upsampling the same as torch's ``align_corners=False``); a downsample
+    needs ``antialias``, jax.image.resize's default, which widens the
+    kernel by in / out. align_corners=True samples i * (in - 1) /
     (out - 1)."""
     m = np.zeros((out_dim, in_dim), np.float64)
     if align_corners:
@@ -305,12 +359,13 @@ def _interp_weights(in_dim: int, out_dim: int, align_corners: bool) -> np.ndarra
             m[i, hi[i]] += frac[i]
         return m
     scale = out_dim / in_dim
-    if scale < 1.0:
+    if scale < 1.0 and not antialias:
         raise NotImplementedError("resize_bilinear downsamples only with antialiasing "
-                                  "(jax.image.resize), which no ported model asks for")
+                                  "(jax.image.resize; resize_linear), which no model asks for")
+    widen = max(1.0 / scale, 1.0)
     centres = (np.arange(out_dim) + 0.5) / scale - 0.5
     for i in range(out_dim):
-        w = np.maximum(0.0, 1.0 - np.abs(np.arange(in_dim) - centres[i]))
+        w = np.maximum(0.0, 1.0 - np.abs(np.arange(in_dim) - centres[i]) / widen)
         m[i] = w / w.sum()
     return m
 
@@ -322,10 +377,23 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
     in f32, cast back to x's dtype (the JAX form of ``adaptive_avg_pool``).
     Its backward is two products too, deterministic on the card, where
     bilinear ``F.interpolate``'s backward is not."""
+    return _resize(x, size, align_corners, antialias=False)
+
+
+def resize_linear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, (B, *size, C), "bilinear")`` of NHWC: as
+    ``resize_bilinear`` upward, and antialiased downward (the kernel widened
+    by in / out, jax.image.resize's default). The multi-scale loss resizes
+    ChangeFormer's heads with it, as the JAX step does (``steps.py:207``)."""
+    return _resize(x, size, False, antialias=True)
+
+
+def _resize(x: torch.Tensor, size: tuple[int, int], align_corners: bool,
+            antialias: bool) -> torch.Tensor:
     b, h, w, c = x.shape
     oh, ow = size
-    my = _interp_matrix(h, oh, align_corners, x.device)
-    mx = _interp_matrix(w, ow, align_corners, x.device)
+    my = _interp_matrix(h, oh, align_corners, x.device, antialias)
+    mx = _interp_matrix(w, ow, align_corners, x.device, antialias)
     y = torch.einsum("oh,bhwc->bowc", my, x.float())
     y = torch.einsum("pw,bowc->bopc", mx, y)
     # einsum may return a permuted view; the NHWC layout is dense

@@ -17,15 +17,19 @@ it:
   the recompute reduces again. Either way the recompute leaves the running
   statistics alone, as ``jax.checkpoint`` discards the mutations of its
   recompute.
-* each ``Dropout2d`` (``ops/nn.py``) records its mask, which the recompute
-  applies again. ``torch.utils.checkpoint``'s ``preserve_rng_state``
-  restores only the default generators, not the explicit
-  ``torch.Generator`` a step draws from, so without this the recompute
-  would draw new masks and the gradient would belong to another forward.
+* each ``Dropout2d`` and ``DropPath`` (``ops/nn.py``) records its mask,
+  which the recompute applies again. ``torch.utils.checkpoint``'s
+  ``preserve_rng_state`` restores only the default generators, not the
+  explicit ``torch.Generator`` a step draws from, so without this the
+  recompute would draw new masks and the gradient would belong to another
+  forward.
 
 The layers find the active region through a context variable that ``remat``
 sets around each run of ``fn``; outside a region they behave as usual.
-Under ``torch.no_grad`` (eval) ``remat`` calls ``fn`` directly.
+Under ``torch.no_grad`` (eval) ``remat`` calls ``fn`` directly, and so it
+does inside another region (ChangeFormer's Mix-FFN and tail chunks under
+the whole-forward remat): the outer region recomputes it, and its layers
+record into and replay from the outer region.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ def active_region() -> Region | None:
 def remat(fn: Callable, *args, save_bn_stats: bool = True):
     """``fn(*args)``, its activations recomputed in the backward pass (see
     the module docstring). Each call is a region of its own."""
-    if not torch.is_grad_enabled():
+    if not torch.is_grad_enabled() or active_region() is not None:
         return fn(*args)
     region = Region(save_bn_stats)
 

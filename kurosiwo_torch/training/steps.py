@@ -11,13 +11,19 @@ given; with ``log_zone_metrics`` both steps also fill the per-zone banks.
 
 Change detection (``task="cd"``) feeds the model two frames
 (``assemble_cd_inputs``) and hands it the step's generator for its dropout
-masks. With ``remat`` the forward of every method but SNUNet runs as one
-rematerialized region (``ops/remat.remat``; JAX's whole-forward
-``jax.checkpoint``, ``steps.py:144``); SNUNet checkpoints its own blocks
-and columns, as the factory configures it. The JAX whole-forward policy,
-``nothing_saveable``, recomputes the BatchNorm statistics; the port keeps
-them across the region instead, the same values at (C,) floats a layer,
-so remat adds no pair-sum launch.
+and drop-path masks. A model that returns a list of heads (ChangeFormer)
+goes through ``combine_multiscale``: training scores the last head, and
+with ``multi_scale_train`` and ``multi_pred_weights`` the loss is the
+weighted sum over the heads, each first resized to the mask's size with
+``jax.image.resize``'s "bilinear" (``ops/nn.resize_linear``); eval takes
+the last head, or with ``multi_scale_infer`` the mean of the heads after an
+integer-factor nearest resize. With ``remat`` the forward of every method
+but SNUNet runs as one rematerialized region (``ops/remat.remat``; JAX's
+whole-forward ``jax.checkpoint``, ``steps.py:144``); SNUNet checkpoints its
+own blocks and columns, as the factory configures it. The JAX whole-forward
+policy, ``nothing_saveable``, recomputes the BatchNorm statistics; the port
+keeps them across the region instead, the same values at (C,) floats a
+layer, so remat adds no pair-sum launch.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..data.augment import augment_batch, check_augmentations
 from ..device import resolve_device
 from ..ops.fused_tail import fused_ce_cm, resolve_fused_tail
 from ..ops.metrics import MetricState, per_sample_confusion
+from ..ops.nn import resize_linear, resize_nearest
 from ..ops.optim import set_learning_rate
 from ..ops.remat import remat
 from .state import TrainState
@@ -109,7 +116,7 @@ def _check_ported_keys(config: dict, train: bool) -> None:
 
 def _forward(model: torch.nn.Module, batch: dict, config: dict, task: str,
              dtype: torch.dtype | None = None, generator: torch.Generator | None = None,
-             use_remat: bool = False) -> torch.Tensor:
+             use_remat: bool = False) -> torch.Tensor | list[torch.Tensor]:
     """The model's output on the batch's assembled input(s)."""
     if task == "segmentation":
         inputs, kw = (assemble_segmentation_input(batch, config),), {"dtype": dtype}
@@ -118,6 +125,49 @@ def _forward(model: torch.nn.Module, batch: dict, config: dict, task: str,
     if use_remat:
         return remat(lambda *xs: model(*xs, **kw), *inputs)
     return model(*inputs, **kw)
+
+
+def combine_multiscale(outputs, model_config: dict, train: bool):
+    """(logits, heads) of a model's output (JAX ``_combine_multiscale``,
+    ``steps.py:91-109``): a tensor is the logits; of a list, training takes
+    the last head for the metrics and all of them for deep supervision;
+    eval takes the last head, or with ``multi_scale_infer`` the mean of the
+    heads resized (nearest) to the last one's size."""
+    if not isinstance(outputs, (list, tuple)):
+        return outputs, None
+    if train:
+        return outputs[-1], outputs
+    if model_config.get("multi_scale_infer"):
+        size = tuple(outputs[-1].shape[1:3])
+        acc = torch.zeros_like(outputs[-1])
+        for o in outputs:
+            acc = acc + (resize_nearest(o, size) if tuple(o.shape[1:3]) != size else o)
+        return acc / len(outputs), None
+    return outputs[-1], None
+
+
+def multiscale_loss(criterion: Callable, heads: list, mask: torch.Tensor,
+                    weights) -> torch.Tensor:
+    """sum_i w_i * criterion(head_i at the mask's size, mask), the JAX step's
+    deep-supervision loss (``steps.py:201-210``)."""
+    size = tuple(mask.shape[1:3])
+    loss = None
+    for w, head in zip(weights, heads):
+        if tuple(head.shape[1:3]) != size:
+            head = resize_linear(head, size)
+        term = w * criterion(head, mask)
+        loss = term if loss is None else loss + term
+    return loss
+
+
+def _fill_missing_grads(model: torch.nn.Module) -> None:
+    """A zero gradient for every parameter the forward did not reach (BiT's
+    layer4 at ``resnet_stages_num`` 4, which runs but feeds nothing), so the
+    optimizer updates the whole tree as optax does: SGD's weight decay and
+    Adam's moments move them too."""
+    for p in model.parameters():
+        if p.grad is None and p.requires_grad:
+            p.grad = torch.zeros_like(p)
 
 
 def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
@@ -134,8 +184,8 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
     device), else ``criterion`` plus a confusion matrix of the argmax (and
     the zone banks with ``log_zone_metrics``). A change-detection model
     draws its dropout masks from ``generator`` (None: torch's default
-    generator of the device); ``remat`` is honoured as the module docstring
-    says."""
+    generator of the device); ``remat`` and the multi-scale heads are
+    honoured as the module docstring says."""
     _check_task(task)
     _check_ported_keys(config, train=True)
     dev = resolve_device(device)
@@ -143,6 +193,8 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
     use_fused = bool(resolve_fused_tail(config, task, model_config, device=dev))
     use_augment = bool(config.get("data_augmentations")) and bool(config.get("augmentations"))
     with_zones = bool(config.get("log_zone_metrics"))
+    multi_weights = model_config.get("multi_pred_weights")
+    use_multiscale_loss = bool(model_config.get("multi_scale_train")) and multi_weights is not None
     cw = torch.tensor(config.get("class_weights", [1.0, 1.0, 1.0]), dtype=torch.float32,
                       device=dev)
 
@@ -156,13 +208,17 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
         model.train()
         set_learning_rate(state.optimizer, lr)
         mask = batch["mask"]
-        logits = _forward(model, batch, config, task, generator=generator, use_remat=use_remat)
+        out = _forward(model, batch, config, task, generator=generator, use_remat=use_remat)
+        logits, heads = combine_multiscale(out, model_config, train=True)
         if use_fused:
             loss, cm = fused_ce_cm(logits, mask, cw)
+        elif use_multiscale_loss and heads is not None:
+            loss = multiscale_loss(criterion, heads, mask, multi_weights)
         else:
             loss = criterion(logits, mask)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        _fill_missing_grads(model)
         if with_grad_norm:
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -218,7 +274,8 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
         batch = _to_device(batch, dev)
         model.eval()
         mask = batch["mask"]
-        logits = _forward(model, batch, config, task, dtype=dtype)
+        logits, _ = combine_multiscale(_forward(model, batch, config, task, dtype=dtype),
+                                       model_config, train=False)
         sample_w = batch.get("sample_weight")
         bank_mask = mask
         if sample_w is not None:

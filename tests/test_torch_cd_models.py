@@ -18,6 +18,7 @@ import torch
 
 import torch_cd_parity as cdp
 from kurosiwo_torch.convert import flax_to_torch, torch_to_flax
+from kurosiwo_torch.models.factory import CD_METHODS, PORTED_CD_METHODS
 from kurosiwo_torch.models.factory import initialize_cd_model as t_init
 
 torch.set_num_threads(2)
@@ -131,13 +132,26 @@ def test_snunet_tpu_layout_variants_are_refused(key):
         t_init(cdp.config("snunet", **{key: True}), cdp.MCFG, device="cpu")
 
 
-@pytest.mark.parametrize("method", ["bit-cd", "changeformer", "transunet-cd"])
+@pytest.mark.parametrize("method", CD_METHODS)
 def test_attention_cd_models_name_a6(method):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, A6\)"):
-        t_init(cdp.config(method), {}, device="cpu")
+    """Every change-detection method the JAX factory builds, the attention
+    models of ROADMAP A6 among them (they raised naming A6 until they were
+    ported), builds in the port from its shipped model config, and takes
+    two frames to (B, H, W, 3) logits or ChangeFormer's list of heads."""
+    small = {"snunet": cdp.MCFG, "changeformer": {"embed_dim": 16},
+             "transunet-cd": {"out_channels": 8, "mlp_dim": 16, "block_num": 1}}
+    mcfg = cdp.method_config(method, **small.get(method, {}))
+    model = t_init(cdp.config(method, batch=1), mcfg, device="cpu").eval()
+    side = cdp.SIZES[method]
+    with torch.no_grad():
+        out = model(torch.zeros(1, side, side, 2), torch.zeros(1, side, side, 2))
+    last = out[-1] if isinstance(out, list) else out
+    assert isinstance(out, list) == (method == "changeformer")
+    assert tuple(last.shape) == (1, side, side, 3) and last.dtype == torch.float32
 
 
-@pytest.mark.parametrize("method", METHODS + ["hfa-net"])
+@pytest.mark.parametrize("method", METHODS + ["hfa-net", "bit-cd", "changeformer",
+                                              "transunet-cd"])
 def test_every_batchnorm_input_is_dense_channels_last(monkeypatch, method):
     """B3's kernel takes dense (..., C) tensors only (its wrapper raises on
     anything else on the card): every train-mode BatchNorm input of each
@@ -150,7 +164,14 @@ def test_every_batchnorm_input_is_dense_channels_last(monkeypatch, method):
     monkeypatch.setattr(batchnorm, "pair_sums_plain", lambda a, b: seen.append(
         a.is_contiguous() and b.is_contiguous()) or real(a, b))
     batch = 1 if method == "hfa-net" else 2
-    model = t_init(cdp.config(method, batch=batch), cdp.MCFG, device="cpu").train()
+    mcfg = dict(cdp.MCFG, net_G="base_transformer_pos_s4", embed_dim=16, out_channels=8,
+                mlp_dim=16, block_num=1)
+    model = t_init(cdp.config(method, batch=batch), mcfg, device="cpu").train()
     x1, x2 = (torch.from_numpy(a) for a in cdp.frames(method, batch=batch))
-    model(x1, x2).sum().backward()
+    out = model(x1, x2)
+    sum(o.sum() for o in out).backward() if isinstance(out, list) else out.sum().backward()
     assert seen and all(seen)
+
+
+def test_every_cd_method_is_ported():
+    assert PORTED_CD_METHODS == CD_METHODS and len(CD_METHODS) == 8

@@ -134,3 +134,57 @@ def test_shipped_configs_build_both_steps(model, step):
 def test_keys_the_jax_step_ignores_stay_accepted(model, step, overrides):
     cfg = dict(build_config("unet", 2), **overrides)
     assert callable(build(step, model, cfg))
+
+
+# ChangeFormer's model-config keys, which the JAX step (multi_scale_train,
+# steps.py:196-215; multi_scale_infer, :91-109) and model (tail_chunks,
+# remat_ffn, changeformer.py:159-161, :272-331) honour, are ported (A6;
+# tests/test_torch_cd_changeformer.py holds them to JAX's): the step built
+# with each does what it asks
+CF_KEYS = ["multi_scale_train", "multi_scale_infer", "tail_chunks", "remat_ffn"]
+
+
+@pytest.mark.parametrize("key", CF_KEYS)
+def test_changeformer_keys_are_honoured(monkeypatch, key):
+    from kurosiwo_torch.models import changeformer as tcf
+    from kurosiwo_torch.models.factory import initialize_cd_model
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.nn import resize_linear, resize_nearest
+
+    cfg = dict(build_config("changeformer", 2), mixed_precision=False)
+    weights = [0.5, 0.5, 0.5, 0.8, 1.0]
+    mcfg = {"embed_dim": 16, "optimizer": "sgd", "learning_rate": 1e-3,
+            "multi_pred_weights": weights, key: 2 if key == "tail_chunks" else True}
+    model = initialize_cd_model(cfg, mcfg, device="cpu", seed=1)
+    batch = _batch(b=2)
+    x = (torch.from_numpy(batch["pre1"]), torch.from_numpy(batch["post"]))
+    mask = torch.from_numpy(batch["mask"])
+    crit = create_loss(cfg, "train")
+    if key in ("multi_scale_train", "tail_chunks", "remat_ffn"):
+        regions = []
+        real = tcf.remat
+        monkeypatch.setattr(tcf, "remat", lambda fn, *a: regions.append(1) or real(fn, *a))
+        heads = model.train()(*x, generator=torch.Generator().manual_seed(0))
+        want = (sum(w * crit(resize_linear(h, mask.shape[1:]), mask)
+                    for w, h in zip(weights, heads))
+                if key == "multi_scale_train" else crit(heads[-1], mask))
+        state = create_train_state(model, cfg, mcfg, "cd")
+        step = make_train_step(model, crit, cfg, mcfg, task="cd", device="cpu")
+        regions.clear()
+        _, _, loss = step(state, batch, MetricState.create(), 1e-3,
+                          torch.Generator().manual_seed(0))
+        assert float(loss) == float(want.detach())
+        if key == "multi_scale_train":
+            assert float(loss) != float(crit(heads[-1], mask))
+        # remat_ffn: one region a Mix-FFN (13 blocks, 2 frames); tail_chunks: one a chunk
+        assert len(regions) == {"multi_scale_train": 0, "tail_chunks": 2, "remat_ffn": 26}[key]
+    else:
+        ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mcfg, task="cd", device="cpu")
+        ms, _, _ = ev(None, batch, MetricState.create())
+        with torch.no_grad():
+            heads = model.eval()(*x)
+        mean = sum(resize_nearest(h, mask.shape[1:]) for h in heads) / len(heads)
+        want = MetricState.create().update(mean.argmax(-1), mask.int(), torch.tensor(0.0), 2.0)
+        np.testing.assert_array_equal(ms.cm.numpy(), want.cm.numpy())
+        assert not np.array_equal(ms.cm.numpy(), MetricState.create().update(
+            heads[-1].argmax(-1), mask.int(), torch.tensor(0.0), 2.0).cm.numpy())

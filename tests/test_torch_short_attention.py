@@ -28,9 +28,13 @@ from kurosiwo_tpu.ops import pallas_attention as jpa
 torch.set_num_threads(2)
 
 # (B, Nq, Nk, H, D): the tiny MAE's N = 16 and its 4 kept tokens, a ragged
-# N, Nq != Nk both ways, and D = 32 / 64
+# N, Nq != Nk both ways, and D = 32 / 64; then the change-detection shapes
+# cut to size (A6_CASES): BiT's decoder (pixels against 4 tokens) and
+# ChangeFormer's reduced keys (49), each with a ragged Nq
 CASES = [(2, 16, 16, 2, 64), (2, 4, 4, 2, 64), (2, 13, 13, 4, 32), (2, 9, 21, 2, 64),
          (1, 40, 7, 4, 32)]
+A6_CASES = [(2, 37, 4, 2, 64), (1, 70, 49, 2, 64)]
+CASES += A6_CASES
 
 
 def _inputs(b, nq, nk, heads, d, seed):
@@ -85,7 +89,7 @@ def test_short_attention_autograd_matches_pallas_vjp(b, nq, nk, heads, d):
     np.testing.assert_allclose(qkv.grad.numpy(), np.concatenate(grads, -1), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,d", [CASES[0], CASES[2], CASES[4]])
+@pytest.mark.parametrize("b,nq,nk,heads,d", [CASES[0], CASES[2], CASES[4]] + A6_CASES)
 def test_short_attention_bf16_matches_pallas(b, nq, nk, heads, d):
     q, k, v, do = _inputs(b, nq, nk, heads, d, seed=11)
     scale = d**-0.5
@@ -104,6 +108,29 @@ def test_short_attention_bf16_matches_pallas(b, nq, nk, heads, d):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), want, atol=1e-2 * np.abs(want).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,d", A6_CASES)
+def test_short_attention_on_kv_halves_matches_pallas_vjp(b, nq, nk, heads, d):
+    """_ShortAttention on separate q and the two column halves of one kv
+    projection (strided views, as ChangeFormer's efficient attention passes
+    them): out, dq and the kv gradient (autograd assembles it from dk and
+    dv) against JAX's custom-VJP short attention, f32 on the CPU."""
+    q, k, v, do = _inputs(b, nq, nk, heads, d, seed=nq + 5 * nk)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    fn = lambda a, b_, c: jpa.short_attention(a, b_, c, heads, None, True)
+    want_out, vjp = jax.vjp(fn, jq, jk, jv)
+    dq, dk, dv = (np.asarray(g) for g in vjp(jdo))
+    tq = torch.from_numpy(q).requires_grad_(True)
+    kv = torch.from_numpy(np.concatenate([k, v], -1)).requires_grad_(True)
+    tk, tv = kv.chunk(2, dim=-1)
+    assert tk.stride() == (nk * 2 * heads * d, 2 * heads * d, 1) and not tv.is_contiguous()
+    out = tattn.attention_packed(tq, tk, tv, heads)
+    assert "ShortAttention" in type(out.grad_fn).__name__
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=1e-5, rtol=0)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(tq.grad.numpy(), dq, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(kv.grad.numpy(), np.concatenate([dk, dv], -1), atol=1e-4, rtol=0)
 
 
 def _grad_views(b, nq, nk, hd):

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from kurosiwo_torch.ops import short_attention as sa
-from kurosiwo_torch.ops.attention import _flash_route
+from kurosiwo_torch.ops.attention import _flash_route, _short_route
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -32,6 +32,30 @@ PLANS = [
     ("D32", BF16, 32, 77, 77, "mma_sync"),
     ("f32 encoder", F32, 64, 49, 49, "simt"),
     ("f32 D128", F32, 128, 200, 130, "simt"),
+    # the change-detection calls that take B4 (A6_SHAPES below), in bf16 and f32
+    ("ChangeFormer stage 2", BF16, 64, 784, 49, "mma_sync"),
+    ("BiT decoder", BF16, 64, 3136, 4, "mma_sync"),
+    ("ChangeFormer stage 4", BF16, 64, 49, 49, "wgmma"),
+    ("BiT encoder", BF16, 64, 8, 8, "wgmma"),
+    ("f32 ChangeFormer stage 2", F32, 64, 784, 49, "simt"),
+    ("f32 BiT decoder", F32, 64, 3136, 4, "simt"),
+]
+
+# (name, Nq, Nk, heads, D, takes B4) of every attention call of the
+# change-detection models at 224x224: ChangeFormer's four stages (spatial
+# reduction 8, 4, 2, 1 to 7x7 keys), BiT's token encoder and its decoder
+# (pixels of the 56x56 map against 4 tokens; dim_head 64, or 8 in
+# ..._dedim8) and TransUNet's ViT (196 tokens and the cls token, 4 heads
+# of 256)
+A6_SHAPES = [
+    ("ChangeFormer stage 1", 3136, 49, 1, 64, False),   # H*D 64
+    ("ChangeFormer stage 2", 784, 49, 2, 64, True),
+    ("ChangeFormer stage 3", 196, 49, 4, 80, False),    # D 80
+    ("ChangeFormer stage 4", 49, 49, 8, 64, True),
+    ("BiT encoder", 8, 8, 8, 64, True),
+    ("BiT decoder", 3136, 4, 8, 64, True),
+    ("BiT decoder dedim8", 3136, 4, 8, 8, False),       # D 8
+    ("TransUNet ViT", 197, 197, 4, 256, False),          # D 256
 ]
 
 
@@ -121,3 +145,25 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [(fn.launches, fn.kernel_launches)
             for fn in (sa.short_attention_fwd, sa.short_attention_bwd)] == counts
+
+
+@pytest.mark.parametrize("name,nq,nk,heads,d,short", A6_SHAPES, ids=[s[0] for s in A6_SHAPES])
+def test_change_detection_shapes_route_as_jax(monkeypatch, name, nq, nk, heads, d, short):
+    """The port's router sends each change-detection attention shape where
+    the JAX package sends it on the TPU: its attention_packed, traced with
+    the short kernel's gate open (kurosiwo_tpu/ops/attention.py:121-125),
+    calls short_attention exactly for the shapes that take B4 in the port."""
+    import jax
+    import jax.numpy as jnp
+
+    from kurosiwo_tpu.ops import attention as jattn
+    from kurosiwo_tpu.ops import pallas_attention as jpa
+
+    calls = []
+    monkeypatch.setattr(jattn, "_use_short_kernel", lambda: True)
+    monkeypatch.setattr(jpa, "short_attention", lambda q, k, v, h, s: calls.append(1) or q)
+    q = jax.ShapeDtypeStruct((1, nq, heads * d), jnp.bfloat16)
+    kv = jax.ShapeDtypeStruct((1, nk, heads * d), jnp.bfloat16)
+    jax.eval_shape(lambda a, b, c: jattn.attention_packed(a, b, c, heads), q, kv, kv)
+    assert bool(calls) == short
+    assert _short_route(nq, nk, d, heads * d) == short
