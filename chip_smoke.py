@@ -87,17 +87,17 @@ its lines; any failed phase exits non-zero.
    test banks have the trained engine's totals and mIoU (within 0.01);
    ``latest`` restored on the card equals the file mapped to the CPU. These
    short epochs' times include the loader's start-up. Then the timed
-   epoch: 20 steps (2,560 synthetic samples) of the trained engine, with
+   epoch: 12 steps (1,536 synthetic samples) of the trained engine, with
    the loader alone on the same split (both after the loader's start-up),
-   and the same 20 steps from 4
+   and the same 12 steps from 4
    decoded batches held in memory (no loader running). It prints each epoch's seconds,
    patches/s and the share of host time spent waiting on the loader
    (without the smoke's own pixel counting), the loader alone, the train
    step's rate from phase 5, the card's busy time a step (torch.profiler)
    and so its idle share of the timed epoch, and the peak memory.
-   The packed feed: a synthetic split of 2,560 samples at 224^2 packed in
-   float16 (1.80 GB) into a temporary directory and read from the warm
-   page cache; the 20-step b128 epoch of one engine, the loader alone and
+   The packed feed: a synthetic split of 1,536 samples at 224^2 packed in
+   float16 (1.08 GB) into a temporary directory and read from the warm
+   page cache; the 12-step b128 epoch of one engine, the loader alone and
    the step's host time outside the wait, from the decoded source and from
    the pack, by the Loader's decode processes and by decode threads (the
    A/B's other arm, ``ThreadRows`` here); batch 0 bitwise equal across the
@@ -112,10 +112,11 @@ its lines; any failed phase exits non-zero.
 7. The CLI: ``python -m kurosiwo_torch --method unet --backbone resnet18
    --seed 7`` in a subprocess and a temporary directory, on the shipped
    configs (b128, one epoch, the default synthetic splits, AOI banks on):
-   exit 0 and a ``Test Mean IOU:`` line. Then ROADMAP C14: the same run
-   twice with ``deterministic: false`` (cuDNN's autotuner) and twice with
-   ``deterministic: true``, printing the first-step loss, the train and val
-   metrics and the test mIoU; the deterministic pair must agree.
+   exit 0 and a ``Test Mean IOU:`` line. Beside it (the five runs at once)
+   ROADMAP C14: the same run twice with ``deterministic: false`` (cuDNN's
+   autotuner) and twice with ``deterministic: true``, printing the
+   first-step loss, the train and val metrics and the test mIoU; the
+   deterministic pair must agree.
    Then change detection: each of the five convolutional methods
    (SNUNet-ECAM at base_channel 8, Siam-diff, Siam-conc, ADHR-CDNet,
    HFA-Net at 224^2) in one f32 train and eval step, card against CPU, the
@@ -124,9 +125,10 @@ its lines; any failed phase exits non-zero.
    card (SNUNet's column plan, Siam-diff's whole-forward region with
    dropout): equal running statistics, gradients in the f32 band, equal
    pair-sum launches; the SNUNet b128 bf16 train step with remat on (the
-   default) and off (3 warm-up, 10 timed; its peak memory must be lower
-   with remat) and its f32-twin eval, the Siam-diff b128 train step, HFA-Net
-   and ADHR-CDNet at the largest of b128, b64, b32 that fits, each with
+   default) and off (2 warm-up, 5 timed, as every change-detection leg;
+   its peak memory must be lower with remat) and its f32-twin eval, the
+   Siam-diff b128 train step, HFA-Net and ADHR-CDNet at the larger of b64,
+   b32 that fits, each with
    patches/s, peak memory, pair-sum launches a step and the card's busy
    time a step (torch.profiler); one SNUNet b128 step with ``fused_tail:
    true`` (B2) against the plain tail; and ``python -m kurosiwo_torch
@@ -134,11 +136,31 @@ its lines; any failed phase exits non-zero.
    pre_event_1 and post_event, deterministic by default): exit 0, a
    ``Test Mean IOU:`` line, ``checkpoint_epoch=0`` written, the same
    printed numbers. The phase prints its wall time.
+   Then the rest of the segmentation zoo (the seg-zoo phase): UNet++ and
+   DeepLabV3+ (resnet18, resnet50), UperNet (ConvNeXt, Swin) and the
+   FloodViT finetuner (mlp, decoder, linear heads) each in one f32 train and
+   eval step at a small size, card against CPU, B3 and B4 launched once for
+   each plain call of the CPU step; Swin's relative-position gradients
+   bitwise equal over two deterministic backwards; the b128 bf16 train step
+   (3 warm-up, 10 timed) and f32-twin eval (2 warm-up, 5 timed) of unet++
+   resnet18, deeplabv3 resnet18, upernet convnext_tiny, finetune (ViT-L
+   1024 x 24, 16 heads, mlp 2048, mlp head; at the larger of b64, b32 that
+   fits, b128 does not), upernet swin_tiny and deeplabv3 resnet50, with
+   patches/s, peak memory, B3 and
+   B4 launches a step (B3 twice a BatchNorm; B4 24 each way on the wgmma
+   kernels for the finetuner) and the card's busy time a step; B3 against
+   its plain version at every BatchNorm input shape of those steps, B4 at
+   the finetuner's (B, 197, 16 x 64), its time beside SDPA's and its bound;
+   the CLI twice at one seed for unet++, deeplabv3, upernet (the six runs
+   at once) and finetune (at the batch its leg fit, one run at a time) on
+   the shipped configs, every printed number equal. C14's four CLI runs
+   run at once, the change-detection pairs (SNUNet, ChangeFormer) two at
+   once.
 8. The kernel table as one JSON line (B3's row with the change-detection
-   steps' pair-sum launches), then the result line
-   ``{"ok": true, "device": {...}}``.
+   and zoo steps' pair-sum launches, B4's with the finetuner's), then the
+   result line ``{"ok": true, "device": {...}}``.
 
-``--only engine,feed,augment,losses,c14,cd`` runs the device and build phases
+``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo`` runs the device and build phases
 and then only those phases: a partial run, which prints no kernel table and
 no result line.
 """
@@ -1573,10 +1595,11 @@ def phase_main_path(torch, counters, smi: str) -> dict:
 # train steps of b128 (64 samples dropped) and 3 val or test batches, the
 # last padded with 64 zero-weight samples; these short epochs check the
 # engine, and their times include the loader's start-up (the first batch is
-# decoded before any step). The timed epoch has ENGINE_LONG_SAMPLES: 20
-# steps, where the start-up is one batch in 20.
+# decoded before any step). The timed epoch has ENGINE_LONG_SAMPLES: 12
+# steps, where the start-up is one batch in 12 (20 before the zoo phase
+# joined the script, within its time limit).
 ENGINE_SAMPLES = 320
-ENGINE_LONG_SAMPLES = 2560
+ENGINE_LONG_SAMPLES = 1536
 ENGINE_SEED = 11
 
 
@@ -1839,9 +1862,10 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
 
 
 # the packed-feed phase: a synthetic train split of PACK_SAMPLES packed in
-# float16, and the 20-step b128 epoch fed from the decoded source and from
-# the pack, by decode processes (the Loader's) and by decode threads
-PACK_SAMPLES = 2560
+# float16, and the 12-step b128 epoch fed from the decoded source and from
+# the pack, by decode processes (the Loader's) and by decode threads (20
+# steps before the zoo phase joined the script)
+PACK_SAMPLES = 1536
 PACK_RECORD_BYTES = 702472  # 3 x 224 x 224 x 2 float16, mask and valid int8, clz, activation
 FEED_SEED = 11
 
@@ -1900,10 +1924,10 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
     """A synthetic split of PACK_SAMPLES at 224^2 packed in float16 (the
     port's pack_split) into a temporary directory, read back from the warm
     page cache (it was just written; a cold read is not measured); then,
-    for the decoded source and the pack, the 20-step b128 epoch of one
+    for the decoded source and the pack, the 12-step b128 epoch of one
     engine, the loader alone, the step's host time outside the wait, by
-    decode processes and by decode threads (the pack's arms in the order
-    processes, threads, threads, processes). Batch 0 must be bitwise the
+    decode processes and by decode threads (in the order pack processes,
+    pack threads, decoded processes, decoded threads). Batch 0 must be bitwise the
     same in both arms of a source, and the pack's that of the plain decode
     stacked. Then the card's busy time a step and its idle share of each
     epoch, and the peak memory."""
@@ -1947,8 +1971,7 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
         # memory, each taken 10 times
         unloaded = engine.run_train_epoch(held * (PACK_SAMPLES // BATCH // 2), 0)
         arms = {}
-        order = [("pack", False), ("pack", True), ("pack", True), ("pack", False),
-                 ("decoded", False), ("decoded", True)]
+        order = [("pack", False), ("pack", True), ("decoded", False), ("decoded", True)]
         for src, threads in order:
             arm = feed_arm(torch, engine, packed_cfg if src == "pack" else cfg, threads)
             arms.setdefault((src, threads), []).append(arm)
@@ -2201,7 +2224,7 @@ def cd_batch(torch, batch: int, side: int, seed: int = 1) -> dict:
 
 
 def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device: str,
-               masks: list):
+               masks: list, task: str = "cd"):
     """One train step of ``model`` on ``device``; the Dropout2d and DropPath
     masks are drawn there and recorded into ``masks`` (card) or replayed
     from it (CPU). Returns the loss, bank, state after the step, the
@@ -2239,8 +2262,8 @@ def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device:
     for k, (mod, name) in plains.items():  # the CPU's calls of the plain versions
         setattr(mod, name, counting(k))
     try:
-        state = create_train_state(model, cfg, mc, "cd")
-        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, task="cd",
+        state = create_train_state(model, cfg, mc, task)
+        step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, task=task,
                                device=device)
         zero_counters(counters)
         state, ms, loss = step(state, batch, MetricState.create(device), 1e-3,
@@ -2259,7 +2282,7 @@ def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device:
                 moment=moment, sgd=sgd, launched=launched, plain_calls=plain)
 
 
-def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict):
+def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict, task: str = "cd"):
     """The eval step's loss and cm of ``model`` with ``weights`` loaded."""
     from kurosiwo_torch.ops.losses import create_loss
     from kurosiwo_torch.ops.metrics import MetricState
@@ -2267,13 +2290,13 @@ def cd_eval(torch, model, cfg: dict, mc: dict, batch: dict, weights: dict):
 
     model.load_state_dict(weights)
     dev = next(model.parameters()).device
-    ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, task="cd", device=dev)
+    ev = make_eval_step(model, create_loss(cfg, "val"), cfg, mc, task=task, device=dev)
     ms, loss, _ = ev(None, batch, MetricState.create(dev))
     return loss.item(), ms.cm.cpu()
 
 
 def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
-                   side: int) -> dict:
+                   side: int, task: str = "cd", keys: dict | None = None) -> dict:
     """One f32 train step of a change-detection method on the card
     (kernels) against the same on the CPU (plain versions), from the same
     weights and batch, the card's Dropout2d and DropPath masks replayed on
@@ -2285,23 +2308,40 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     forced to) within 2% in L2; Adam's parameters all within 2*lr and 99%
     within 3e-4, SGD's within 1e-4 (lr times a tenth of a gradient); batch
     statistics atol 1e-4. The card's train step launches the pair-sum and
-    short-attention kernels once for each plain call of the CPU's. Returns
-    the card step's launches."""
+    short-attention kernels once for each plain call of the CPU's. With
+    ``task="segmentation"`` the model is the segmentation factory's on the
+    bench's UNet config with ``keys``, fed the 6-channel image, and where it
+    misses the gradient, parameter-share or statistics band, the bands widen
+    to twice what the CPU step itself moves under a 1e-6 normal change of
+    the images (a train-mode Bottleneck trunk's conditioning), the
+    printed band. Returns the
+    card step's launches."""
+    from kurosiwo_torch import bench
     from kurosiwo_torch.device import configure_backends
-    from kurosiwo_torch.models.factory import initialize_cd_model
+    from kurosiwo_torch.models.factory import initialize_cd_model, initialize_segmentation_model
 
-    cfg = cd_config(method, bsz, mixed_precision=False, synthetic_patch_size=side)
+    if task == "cd":
+        cfg = cd_config(method, bsz, mixed_precision=False, synthetic_patch_size=side)
+        cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
+    else:
+        cfg = dict(bench.build_config(method, bsz), mixed_precision=False,
+                   synthetic_patch_size=side, **(keys or {}))
+        cpu_model = initialize_segmentation_model(cfg, mc, device="cpu", seed=3)
     configure_backends(cfg, "cuda")
     batch = cd_batch(torch, bsz, side)
-    cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
     masks: list = []
     card_model = copy.deepcopy(cpu_model).to("cuda")
-    g = cd_step_on(torch, counters, card_model, cfg, mc, batch, "cuda", masks)
+    g = cd_step_on(torch, counters, card_model, cfg, mc, batch, "cuda", masks, task)
     drawn = len(masks)
-    c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks)
+    # the CPU step's own movement under a 1e-6 change of the images is the
+    # conditioning floor of the gradient, parameter and statistics bands of a
+    # segmentation model (no dropout) that misses them: resnet50's train-mode
+    # trunk moves its gradient by 3.5-4.4% in L2 under it
+    start = copy.deepcopy(cpu_model) if task != "cd" else None
+    c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks, task)
     # the eval step of both from the CPU's trained weights: the same function
     for r, model in ((g, card_model), (c, cpu_model)):
-        r["eloss"], r["ecm"] = cd_eval(torch, model, cfg, mc, batch, c["state"])
+        r["eloss"], r["ecm"] = cd_eval(torch, model, cfg, mc, batch, c["state"], task)
     valid = int((batch["mask"] != 3).sum())
     for key in ("loss", "eloss"):
         require(abs(g[key] - c[key]) <= 1e-4 * abs(c[key]),
@@ -2309,25 +2349,41 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     for key in ("cm", "ecm"):
         require(torch.equal(g[key].sum(1), c[key].sum(1)), f"cd {tag} {key} row sums")
         require((g[key] - c[key]).abs().max().item() <= 1e-3 * valid, f"cd {tag} {key} cells")
-    l2 = ((g["moment"] - c["moment"]).norm() / c["moment"].norm()).item()
-    require(l2 <= 2e-2, f"cd {tag} gradients: relative L2 {l2}")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    l2 = rel(g["moment"], c["moment"])
     params = [k for k, _ in cpu_model.named_parameters()]
     stats = [k for k in c["state"] if k not in params]
-    sgd = c["sgd"]
+    l2_band, share_band = 2e-2, 0.99
     pmax, pshare = adam_step_close({k: g["state"][k] for k in params},
                                    {k: c["state"][k] for k in params}, 1e-3)
-    require(pmax <= (1e-4 if sgd else 2e-3 + 1e-6) and (sgd or pshare >= 0.99),
-            f"cd {tag} params: max {pmax}, share {pshare}")
-    smax = max((g["state"][k] - c["state"][k]).abs().max().item() for k in stats)
-    require(smax <= 1e-4, f"cd {tag} batch stats: {smax}")
+    smax = max([(g["state"][k] - c["state"][k]).abs().max().item() for k in stats] + [0.0])
+    noisy = None
+    if start is not None and (l2 > l2_band or pshare < share_band or smax > 1e-4):
+        gen = torch.Generator().manual_seed(5)
+        nb = {k: v + 1e-6 * torch.randn(v.shape, generator=gen) if k in ("post", "pre1", "pre2")
+              else v for k, v in batch.items()}
+        noisy = cd_step_on(torch, counters, start, cfg, mc, nb, "cpu", [], task)
+        _, noisy_share = adam_step_close({k: noisy["state"][k] for k in params},
+                                         {k: c["state"][k] for k in params}, 1e-3)
+        l2_band = max(l2_band, 2 * rel(noisy["moment"], c["moment"]))
+        share_band = min(share_band, noisy_share - 0.01)
+    require(l2 <= l2_band, f"cd {tag} gradients: relative L2 {l2} (band {l2_band})")
+    sgd = c["sgd"]
+    require(pmax <= (1e-4 if sgd else 2e-3 + 1e-6) and (sgd or pshare >= share_band),
+            f"cd {tag} params: max {pmax}, share {pshare} (band {share_band})")
+    s_band = 1e-4 if noisy is None else max([1e-4] + [
+        2 * (noisy["state"][k] - c["state"][k]).abs().max().item() for k in stats])
+    require(smax <= s_band, f"cd {tag} batch stats: {smax} (band {s_band})")
     launched = g["launched"]
     require(launched == {k: 0 for k in counters} | c["plain_calls"],
             f"cd {tag} card train step launched {launched}, the CPU step made the plain calls "
             f"{c['plain_calls']}")
-    print(f"[cd parity] {tag} f32 ({bsz},{side},{side},2)x2 card vs CPU: loss "
+    shape = f"({bsz},{side},{side},2)x2" if task == "cd" else f"({bsz},{side},{side},6)"
+    print(f"[{'cd' if task == 'cd' else 'seg-zoo'} parity] {tag} f32 {shape} card vs CPU: loss "
           f"{g['loss']:.6f} vs {c['loss']:.6f}, eval loss {g['eloss']:.6f} vs "
           f"{c['eloss']:.6f}, cm max diff {(g['cm'] - c['cm']).abs().max().item():.0f} of "
-          f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e}, params "
+          f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e} (band "
+          f"{l2_band:.2e}), params "
           f"max {pmax:.2e}, batch stats max {smax:.2e}, {drawn} masks drawn "
           f"({len(masks)} left over), launches a step "
           f"{ {k: v for k, v in launched.items() if v} }", flush=True)
@@ -2429,13 +2485,15 @@ def recording_attention_shapes(shapes):
 
 def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
              warmup: int, steps: int, eval_too: bool = False, profile_steps: int = 3,
+             eval_steps: tuple[int, int] | None = None,
              bn_shapes: set | None = None, model_config: dict | None = None,
-             attn_shapes=None, tag: str | None = None) -> dict:
+             attn_shapes=None, tag: str | None = None, label: str = "cd main") -> dict:
     """``steps`` timed bf16 train steps (after ``warmup``) of a
     change-detection bench leg at ``batch`` (``model_config`` over the bench's):
     patches/s, peak memory, pair-sum and short-attention launches a step
     (the latter by kernel) and the card's busy time a step (torch.profiler);
-    with ``eval_too`` the f32-twin eval step too. The shapes of the train
+    with ``eval_too`` the f32-twin eval step too (``eval_steps``: its
+    (warm-up, timed) steps, default the train's). The shapes of the train
     step's BatchNorm inputs are added to ``bn_shapes``, its short-attention
     calls counted in ``attn_shapes``."""
     import collections
@@ -2462,8 +2520,11 @@ def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
     require(all(launches[k] % n == 0 for k in ("pair_sums",) + ATTN_WRAPPERS) and all(
         v == 0 for k, v in launches.items() if k not in ("pair_sums",) + ATTN_WRAPPERS),
         f"{tag} b{batch} train launches {launches}")
+    from kurosiwo_torch.ops.batchnorm import BatchNorm
+
     out = {"rate": steps * batch / seconds, "ms": seconds / steps * 1e3, "peak_gib": peak,
            "pair_sums": launches["pair_sums"] // n, "batch": batch,
+           "batchnorms": sum(isinstance(m, BatchNorm) for m in b.state.model.modules()),
            "remat": bool(b.config.get("remat", getattr(b.state.model, "remat", False)))}
     if any(launches[k] for k in ATTN_WRAPPERS):
         out["short_attention"] = {k: v // n for k, v in by_kernel.items()}
@@ -2473,24 +2534,26 @@ def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
         prof = bench.profile(one, profile_steps, b.device, out["ms"], file=sys.stdout)
         out["busy_ms"] = prof["kernel_ms"]
     attn = f", short_attention a step {out['short_attention']}" if "short_attention" in out else ""
-    print(f"[cd main] {tag} train b{batch} bf16 (remat {'on' if out['remat'] else 'off'}"
+    print(f"[{label}] {tag} train b{batch} bf16 (remat {'on' if out['remat'] else 'off'}"
           f"{', ' + json.dumps(overrides) if overrides else ''}): "
           f"{out['rate']:.2f} patches/s ({out['ms']:.2f} ms/step), loss {loss.item():.5f}, "
           f"peak {peak:.2f} GiB, pair_sums {out['pair_sums']} a step{attn}, device busy "
           f"{out['busy_ms']:.2f} ms/step [{smi}]", flush=True)
     if eval_too:
+        ewarm, esteps = eval_steps or (warmup, steps)
+        en = ewarm + esteps
         torch.cuda.reset_peak_memory_stats()
         zero_counters(counters)
-        seconds, eloss, emetric = bench.run_eval(b, steps, warmup, f32=True)
+        seconds, eloss, emetric = bench.run_eval(b, esteps, ewarm, f32=True)
         elaunch = read_counters(counters)  # eval: attention forwards only (f32: simt)
-        require(bool(torch.isfinite(eloss).item()) and elaunch["short_attention_fwd"] % n == 0
+        require(bool(torch.isfinite(eloss).item()) and elaunch["short_attention_fwd"] % en == 0
                 and all(v == 0 for k, v in elaunch.items() if k != "short_attention_fwd"),
                 f"{tag} eval: loss {eloss.item()}, launches {elaunch}")
-        require(bank_counts_all(emetric, n * valid), f"{tag} b{batch} eval bank count")
-        out["eval_rate"] = steps * batch / seconds
+        require(bank_counts_all(emetric, en * valid), f"{tag} b{batch} eval bank count")
+        out["eval_rate"] = esteps * batch / seconds
         out["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[cd main] {tag} eval b{batch} f32 twin: {out['eval_rate']:.2f} patches/s "
-              f"({seconds / steps * 1e3:.2f} ms/step), peak {out['eval_peak_gib']:.2f} GiB "
+        print(f"[{label}] {tag} eval b{batch} f32 twin: {out['eval_rate']:.2f} patches/s "
+              f"({seconds / esteps * 1e3:.2f} ms/step), peak {out['eval_peak_gib']:.2f} GiB "
               f"[{smi}]", flush=True)
     del b
     torch.cuda.empty_cache()
@@ -2518,7 +2581,8 @@ def cd_fitting(torch, counters, smi: str, model: str, bn_shapes: set) -> dict:
     raise PhaseFailed(f"{model}: no batch of {batches} fits")
 
 
-def phase_cd_pair_sums(torch, shapes: set) -> dict:
+def phase_cd_pair_sums(torch, shapes: set, label: str = "cd",
+                       what: str = "CD train steps") -> dict:
     """B3 against its plain version at every BatchNorm input shape that the
     change-detection train steps above gave it (SNUNet and Siam-diff at
     b128, HFA-Net and ADHR-CDNet at the batch that fit), on random inputs
@@ -2540,8 +2604,8 @@ def phase_cd_pair_sums(torch, shapes: set) -> dict:
             del x, dy
         torch.cuda.empty_cache()
     big = max(shapes, key=math.prod)
-    print(f"[cd pair_sums] kernel vs plain at the {len(shapes)} BatchNorm input shapes of the "
-          f"CD train steps (largest {big}, C from {min(x[-1] for x in shapes)} to "
+    print(f"[{label} pair_sums] kernel vs plain at the {len(shapes)} BatchNorm input shapes of "
+          f"the {what} (largest {big}, C from {min(x[-1] for x in shapes)} to "
           f"{max(x[-1] for x in shapes)}), f32 and bf16, (x,x) and (dy,x): max error "
           f"{out['max_abs_err']:.3e} absolute, {out['max_rel_err']:.3e} of the sum of |terms|; "
           "deterministic", flush=True)
@@ -2591,13 +2655,15 @@ def phase_cd(torch, counters, smi: str) -> dict:
     out = {"parity": phase_cd_parity(torch, counters)}
     phase_cd_remat(torch, counters)
     bn_shapes: set = set()
-    out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, 3, 10, eval_too=True,
-                             bn_shapes=bn_shapes)
+    # the legs at 2 warm-up and 5 timed steps, 2 profiled (3, 10 and 3 before
+    # the zoo phase joined the script, within its time limit)
+    out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, 2, 5, eval_too=True,
+                             bn_shapes=bn_shapes, profile_steps=2)
     out["snunet_no_remat"] = cd_timed(torch, counters, smi, "snunet", BATCH, {"remat": False},
-                                      3, 10)
+                                      2, 5, profile_steps=2)
     # ROADMAP C14's question for cd: what deterministic algorithms cost the step
     out["snunet_autotuned"] = cd_timed(torch, counters, smi, "snunet", BATCH,
-                                       {"deterministic": False}, 3, 10, profile_steps=0)
+                                       {"deterministic": False}, 2, 5, profile_steps=0)
     print(f"[cd main] SNUNet b{BATCH} deterministic algorithms cost "
           f"{100 * (1 - out['snunet']['rate'] / out['snunet_autotuned']['rate']):.1f}% of the "
           f"autotuned step's rate in this run [{smi}]", flush=True)
@@ -2609,8 +2675,8 @@ def phase_cd(torch, counters, smi: str) -> dict:
     require(on["peak_gib"] < off["peak_gib"],
             f"SNUNet peak memory with remat {on['peak_gib']:.2f} GiB not below "
             f"{off['peak_gib']:.2f} without")
-    out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, 3, 10,
-                                bn_shapes=bn_shapes)
+    out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, 2, 5,
+                                bn_shapes=bn_shapes, profile_steps=2)
     require(out["siam-diff"]["pair_sums"] == 58, "Siam-diff pair_sums a step")
     for model in ("hfa-net", "adhr-cdnet"):
         out[model] = cd_fitting(torch, counters, smi, model, bn_shapes)
@@ -2643,9 +2709,8 @@ def phase_cd(torch, counters, smi: str) -> dict:
     # the CLI twice at one seed on the shipped configs with the cd task and two
     # inputs, as main.py takes them (deterministic by default for cd)
     runs = []
-    for _ in range(2):
-        run = cli_run(smi, {"on_screen_prints": True, "task": "cd"}, method=("snunet",),
-                      extra=("--inputs", "pre_event_1", "post_event"))
+    for run in cli_pair({"on_screen_prints": True, "task": "cd"}, method=("snunet",),
+                        extra=("--inputs", "pre_event_1", "post_event")):
         require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
                 f"the CD CLI left no checkpoint_epoch=0: {run['files']}")
         first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
@@ -2654,7 +2719,7 @@ def phase_cd(torch, counters, smi: str) -> dict:
             "miou": run["miou"]})
         print(f"[cd cli] python -m kurosiwo_torch --method snunet --inputs pre_event_1 "
               f"post_event --seed 7 (\"task\": \"cd\"): exit 0 in "
-              f"{run['seconds']:.1f} s, first-step loss {first}, Test Mean IOU "
+              f"{run['seconds']:.1f} s (two runs at once), first-step loss {first}, Test Mean IOU "
               f"{run['miou']!r}, checkpoint_epoch=0 written [{smi}]", flush=True)
     require(runs[0] == runs[1], "two deterministic CD CLI runs at one seed differ")
     print(f"[cd] the two CLI runs agree in every printed number; phase wall "
@@ -2744,7 +2809,8 @@ def attention_work_qk(b: int, nq: int, nk: int, h: int, d: int, elem: int) -> di
                                                                  5 * prods)}
 
 
-def phase_cd_attn_b4(torch, sa, shapes: dict) -> dict:
+def phase_cd_attn_b4(torch, sa, shapes: dict, label: str = "cd-attn",
+                     what: str = "b128 change-detection steps") -> dict:
     """B4 against its plain version at every short-attention shape the b128
     change-detection train steps launched (``shapes``: {(B, Nq, Nk, H*D,
     H): (leg, calls a step)}), forward and backward, f32 and bf16, q a
@@ -2796,7 +2862,7 @@ def phase_cd_attn_b4(torch, sa, shapes: dict) -> dict:
                         f"{tag}: launches {f.kernel_launches}, expected 2 more on {plan.kernel}")
             out["max_abs_err"]["fwd"] = max(out["max_abs_err"]["fwd"], oerr)
             out["max_abs_err"]["bwd"] = max(out["max_abs_err"]["bwd"], gerr)
-            print(f"[cd-attn b4] {tag} x{calls}/step: kernel {plan.kernel}, max abs error out "
+            print(f"[{label} b4] {tag} x{calls}/step: kernel {plan.kernel}, max abs error out "
                   f"{oerr:.3e}, lse {lerr:.3e}, grads {gerr:.3e}; deterministic", flush=True)
             del o1, o2, l1, l2, grads, again, want
             if f32:
@@ -2820,21 +2886,21 @@ def phase_cd_attn_b4(torch, sa, shapes: dict) -> dict:
                 bms, by = bound(*work[kdir], BF16_FLOP_PER_S)
                 row[kdir] = {"ms": ms, "plain_ms": pl, "sdpa_ms": lib, "bound_ms": bms,
                              "bound_by": by}
-                print(f"[cd-attn b4 {kdir}] {leg} {(b, nq, nk, hd)} H{h} bf16 x{calls}/step: "
+                print(f"[{label} b4 {kdir}] {leg} {(b, nq, nk, hd)} H{h} bf16 x{calls}/step: "
                       f"{plan.kernel} kernel {ms:.4f} ms, plain {pl:.4f} ms, SDPA {lib:.4f} ms, "
                       f"bound {bms * 1e3:.1f} us ({by})", flush=True)
             out["per_shape"][f"{leg} ({b},{nq},{nk},{hd}) H{h}"] = row
             del lq, lk, lv, lib_out
         torch.cuda.empty_cache()
-    print(f"[cd-attn b4] kernel vs plain at the {len(shapes)} short-attention shapes of the "
-          f"b128 change-detection steps, f32 and bf16: max abs error fwd "
+    print(f"[{label} b4] kernel vs plain at the {len(shapes)} short-attention shapes of the "
+          f"{what}, f32 and bf16: max abs error fwd "
           f"{out['max_abs_err']['fwd']:.3e}, bwd {out['max_abs_err']['bwd']:.3e}", flush=True)
     return out
 
 
-def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 3,
-                 steps: int = 10) -> dict:
-    """The b128 f32-twin eval step of a bench leg (3 warm-up, 10 timed), or
+def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 2,
+                 steps: int = 5) -> dict:
+    """The b128 f32-twin eval step of a bench leg (2 warm-up, 5 timed), or
     with ``eval_microbatch`` 32 when the whole batch does not fit: patches/s,
     peak memory; every launch a short-attention forward (f32: simt)."""
     from kurosiwo_torch import bench
@@ -2877,22 +2943,23 @@ def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 3,
 
 def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
                 bn_shapes: set, attn: dict, overrides: dict | None = None) -> dict:
-    """A b128 bf16 train leg (3 warm-up, 10 timed) through ``cd_timed``, its
+    """A b128 bf16 train leg (2 warm-up, 5 timed, 2 profiled; 3, 10 and 3
+    before the zoo phase joined the script) through ``cd_timed``, its
     short-attention shapes added to ``attn`` ({shape: (leg, calls a
     step)}); an out-of-memory leg prints a line and returns {"oom": True}."""
     import collections
 
     shapes = collections.Counter()
     try:
-        res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, 3, 10,
+        res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, 2, 5,
                        bn_shapes=bn_shapes, model_config=model_config, attn_shapes=shapes,
-                       tag=tag)
+                       tag=tag, profile_steps=2)
     except torch.cuda.OutOfMemoryError:
         print(f"[cd-attn main] {tag} b{BATCH}: out of memory [{smi}]", flush=True)
         torch.cuda.empty_cache()
         return {"oom": True}
     for shape, calls in shapes.items():
-        attn.setdefault(shape, (tag, calls // 13))
+        attn.setdefault(shape, (tag, calls // 7))
     return res
 
 
@@ -2953,9 +3020,13 @@ def phase_cd_attn(torch, counters, smi: str) -> dict:
     out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes)
 
     runs = {}
-    for method in ("bit-cd", "changeformer", "changeformer", "transunet-cd"):
-        run = cli_run(smi, {"on_screen_prints": True, "task": "cd"}, method=(method,),
-                      extra=("--inputs", "pre_event_1", "post_event"))
+    cfg, inputs = {"on_screen_prints": True, "task": "cd"}, ("--inputs", "pre_event_1",
+                                                             "post_event")
+    # one at a time: ChangeFormer's and TransUNet-CD's f32 evals at b128 take
+    # 35 GiB and more each
+    done = [(m, cli_wave([(cfg, (m,), inputs)])[0])
+            for m in ("bit-cd", "changeformer", "changeformer", "transunet-cd")]
+    for method, run in done:
         require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
                 f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
         first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
@@ -2974,19 +3045,189 @@ def phase_cd_attn(torch, counters, smi: str) -> dict:
     return out
 
 
-def cli_run(smi: str, config: dict | None = None, method: tuple = ("unet", "resnet18"),
-            extra: tuple = ()) -> dict:
-    """``python -m kurosiwo_torch --method unet --backbone resnet18 --seed 7``
-    (``method``: the method and backbone; a change-detection method takes no
-    backbone; ``extra``: more flags) in a subprocess and a temporary
-    directory, on a copy of the shipped configs with ``config`` merged into
-    train/train_config.json, the
-    last file merged (none: the shipped files as they are); it reuses the
-    kernels already built. Exit 0 and a ``Test Mean IOU:`` line are
-    required. Returns the seconds, the test mIoU, the JSON lines it printed
-    (with on_screen_prints) and the files it wrote under checkpoints/."""
+# the rest of the segmentation zoo at a small size, card against CPU: (tag,
+# method, model config, config keys, batch, side). DeepLabV3+ at batch 4 (its
+# global-pool BatchNorm normalizes B values a channel); UperNet through the
+# tests' backbone_spec (Swin at 56^2: windows of 7, 7, 4, 2); the finetuner's
+# ViT with 2 heads of 64 over 17 tokens (B4's simt kernels in f32).
+ZOO_VIT = {"image_size": 64, "dim": 128, "depth": 2, "heads": 2, "mlp_dim": 256}
+ZOO_SMALL = (
+    ("unet++ resnet18", "unet++", {"backbone": "resnet18"}, {}, 2, 64),
+    ("deeplabv3 resnet18", "deeplabv3", {"backbone": "resnet18"}, {}, 4, 64),
+    ("deeplabv3 resnet50", "deeplabv3", {"backbone": "resnet50"}, {}, 4, 64),
+    ("upernet convnext", "upernet", {"backbone": "convnext_tiny",
+                                     "backbone_spec": [[1, 1, 2, 1], [32, 64, 96, 128]]}, {}, 2,
+     64),
+    ("upernet swin", "upernet", {"backbone": "swin_tiny",
+                                 "backbone_spec": [[2, 2, 2, 2], 32, [1, 2, 2, 4]]}, {}, 2, 56),
+    ("finetune mlp", "finetune", {}, dict(ZOO_VIT, mlp=True), 2, 64),
+    ("finetune decoder", "finetune", {}, dict(ZOO_VIT, mlp=False, decoder=True), 2, 64),
+    ("finetune linear", "finetune", {}, dict(ZOO_VIT, mlp=False, decoder=False), 2, 64),
+)
+# the full-width legs on the bench's config: (tag, bench model, model config,
+# the batches to try). The finetuner's b128 step does not fit an 80 GB card
+# (its f32 224^2 x 1024 resize alone is 26 GB; measured out of memory in
+# an NVIDIA H100 80GB HBM3 at 700 W; PERF.md), so its search starts at b64,
+# as HFA-Net's does
+ZOO_LEGS = (
+    ("unet++ resnet18", "unet++", None, (BATCH,)),
+    ("deeplabv3 resnet18", "deeplabv3", None, (BATCH,)),
+    ("upernet convnext_tiny", "upernet", None, (BATCH,)),
+    ("finetune ViT-L", "finetune", None, (BATCH // 2, BATCH // 4)),
+    ("upernet swin_tiny", "upernet", {"backbone": "swin_tiny"}, (BATCH,)),
+    ("deeplabv3 resnet50", "deeplabv3", {"backbone": "resnet50"}, (BATCH,)),
+)
+ZOO_CLI = ("unet++", "deeplabv3", "upernet", "finetune")
+
+
+def zoo_swin_deterministic(torch) -> None:
+    """The relative-position table's gradient (an ``index_select``, whose
+    backward accumulates by index) on the card with deterministic
+    algorithms on: two backward passes of a small Swin UperNet, bitwise
+    equal."""
+    from kurosiwo_torch.device import configure_backends
+    from kurosiwo_torch.models.upernet import UperNet
+
+    configure_backends({"deterministic": True}, "cuda")
+    model = UperNet(6, 3, "swin_tiny", channels=32, backbone_spec=ZOO_SMALL[4][2]["backbone_spec"],
+                    image_size=56, generator=torch.Generator().manual_seed(0)).cuda()
+    x = torch.randn(2, 56, 56, 6, generator=torch.Generator().manual_seed(1)).cuda()
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        model(x, torch.bfloat16).float().square().mean().backward()
+        grads.append([p.grad.clone() for n, p in model.named_parameters()
+                      if n.endswith("relative_position_bias")])
+    require(len(grads[0]) == 8 and all(torch.equal(a, b) for a, b in zip(*grads)),
+            "Swin's relative-position gradients differ between two deterministic backwards")
+    print(f"[seg-zoo swin] relative-position table gradients of {len(grads[0])} blocks: two "
+          "bf16 backward passes on the card bitwise equal (deterministic algorithms)", flush=True)
+
+
+def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
+            bn_shapes: set, attn: dict, batches: tuple = (BATCH, BATCH // 2, BATCH // 4)) -> dict:
+    """A full-width bf16 train leg (3 warm-up, 10 timed) and its f32-twin
+    eval (2 warm-up, 5 timed) through ``cd_timed`` at the first of
+    ``batches`` that fits (named on its line); its short-attention shapes
+    go to ``attn``."""
+    import collections
+    import gc
+
+    for batch in batches:
+        shapes = collections.Counter()
+        try:
+            res = cd_timed(torch, counters, smi, model, batch, {}, 3, 10, eval_too=True,
+                           eval_steps=(2, 5), bn_shapes=bn_shapes, model_config=model_config,
+                           attn_shapes=shapes, tag=tag, label="seg-zoo main")
+        except torch.cuda.OutOfMemoryError:
+            print(f"[seg-zoo main] {tag} b{batch}: out of memory [{smi}]", flush=True)
+            res = None
+        if res is not None:
+            for shape, calls in shapes.items():
+                attn.setdefault(shape, (tag, calls // 13))
+            return res
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise PhaseFailed(f"{tag}: no batch of {batches} fits")
+
+
+def phase_seg_zoo(torch, counters, smi: str) -> dict:
+    """The rest of the segmentation zoo (UNet++, DeepLabV3+ on resnet18 and
+    resnet50, UperNet on ConvNeXt and Swin, the FloodViT finetuner): card
+    against CPU (f32, one train and one eval step) for each model and head at
+    a small size; Swin's relative-position gradients deterministic on the
+    card; the b128 bf16 train steps and f32-twin evals of the six shipped
+    legs on the bench's config, each BatchNorm model launching B3 twice a
+    BatchNorm a step and the finetuner B4 24 times each way on the wgmma
+    kernels; B3 against its plain version at every BatchNorm input shape of
+    those steps and B4 at the finetuner's shapes; the CLI twice at one seed
+    for unet++, deeplabv3, upernet (the six at once) and finetune (at the
+    batch its leg fit, one at a time). Returns the numbers of each."""
+    from kurosiwo_torch.ops import short_attention as sa
+
+    t0 = time.perf_counter()
+    out = {"parity": {}}
+    for tag, method, mc, keys, bsz, side in ZOO_SMALL:
+        mc = dict(mc, optimizer="adam", learning_rate=1e-3)
+        launched = cd_card_vs_cpu(torch, counters, tag, method, mc, bsz, side,
+                                  task="segmentation", keys=keys)
+        require(launched["pair_sums"] > 0 if method != "finetune"
+                else launched["short_attention_fwd"] == launched["short_attention_bwd"] == 2,
+                f"{tag}: card step launched {launched}")
+        out["parity"][tag] = {k: v for k, v in launched.items() if v}
+    torch.cuda.empty_cache()
+    zoo_swin_deterministic(torch)
+    marks = {"parity": time.perf_counter() - t0}
+    bn_shapes: set = set()
+    attn: dict = {}
+    for tag, model, mc, batches in ZOO_LEGS:
+        res = zoo_leg(torch, counters, smi, tag, model, mc, bn_shapes, attn, batches)
+        want = 2 * res["batchnorms"]
+        require(res["pair_sums"] == want and (want > 0) == (model != "finetune"), f"{tag}: pair_sums a step {res['pair_sums']}, "
+                                          f"expected {want} (each BatchNorm, both ways)")
+        sa_step = res.get("short_attention", {})
+        require(sa_step == ({"short_attention_fwd.wgmma": 24, "short_attention_bwd.wgmma": 24}
+                            if model == "finetune" else {}),
+                f"{tag}: short-attention launches a step {sa_step}")
+        out[tag] = res
+        torch.cuda.empty_cache()
+    marks["legs"] = time.perf_counter() - t0 - sum(marks.values())
+    out["b4"] = phase_cd_attn_b4(torch, sa, attn, label="seg-zoo", what="finetuner's step")
+    out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes, label="seg-zoo",
+                                                what="zoo's b128 train steps")
+    marks["kernels"] = time.perf_counter() - t0 - sum(marks.values())
+    # the CLI twice a method at one seed: the six runs of the convolutional
+    # models at once (at most 15 GiB each in their legs), then the finetuner's
+    # two one at a time, at the batch its leg fit (b128 does not fit an 80 GB
+    # card; b64 peaks at 35 GiB)
+    fit = out["finetune ViT-L"]["batch"]
+    extra = {m: ("--batch_size", str(fit)) if m == "finetune" and fit != BATCH else ()
+             for m in ZOO_CLI}
+    cfg = {"on_screen_prints": True}
+    waves = [["unet++", "unet++", "deeplabv3", "deeplabv3", "upernet", "upernet"],
+             ["finetune"], ["finetune"]]
+    runs: dict = {}
+    for wave in waves:
+        for method, run in zip(wave, cli_wave([(cfg, (m,), extra[m]) for m in wave])):
+            first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+            runs.setdefault(method, []).append({"first": first, "lines": [
+                {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
+                "miou": run["miou"]})
+            print(f"[seg-zoo cli] python -m kurosiwo_torch --method {method} "
+                  f"{' '.join(extra[method])} --seed 7: exit 0 in {run['seconds']:.1f} s "
+                  f"({len(wave)} runs at once), first-step loss {first}, Test Mean IOU "
+                  f"{run['miou']!r} [{smi}]", flush=True)
+    out["cli"] = {}
+    for method in ZOO_CLI:
+        a, b = runs[method]
+        require(a == b, f"two deterministic {method} CLI runs at one seed differ")
+        out["cli"][method] = a["miou"]
+    out["wall_s"] = time.perf_counter() - t0
+    marks["cli"] = out["wall_s"] - sum(marks.values())
+    print(f"[seg-zoo] each method's two CLI runs agree in every printed number; phase wall "
+          f"{out['wall_s']:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}) "
+          f"[{smi}]", flush=True)
+    return out
+
+
+def zoo_summary(zoo: dict, smi: str) -> str:
+    """One line of the seg-zoo phase's numbers, printed near the end."""
+    return "[seg-zoo summary] " + json.dumps({
+        "card": smi, "legs": _legs(zoo), "b4_finetune": zoo["b4"],
+        "pair_sums_zoo_shapes": zoo["pair_sums_check"], "card_vs_cpu_launches": zoo["parity"],
+        "cli_test_miou": zoo["cli"], "phase_wall_s": zoo["wall_s"]})
+
+
+def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
+              extra: tuple = ()) -> dict:
+    """Starts ``python -m kurosiwo_torch --method unet --backbone resnet18
+    --seed 7`` (``method``: the method and backbone; a method without a
+    backbone takes its model config's; ``extra``: more flags) in a
+    subprocess and a temporary directory, on a copy of the shipped configs
+    with ``config`` merged into train/train_config.json, the last file
+    merged (none: the shipped files as they are); it reuses the kernels
+    already built. ``cli_finish`` waits for it."""
     import os
-    import re
     import shutil
     import tempfile
     from pathlib import Path
@@ -2995,53 +3236,98 @@ def cli_run(smi: str, config: dict | None = None, method: tuple = ("unet", "resn
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     argv = ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra]
-    with tempfile.TemporaryDirectory() as tmp:
-        configs = root / "configs"
-        if config:
-            from kurosiwo_torch.config import load_json5
+    tmp = tempfile.TemporaryDirectory()
+    configs = root / "configs"
+    if config:
+        from kurosiwo_torch.config import load_json5
 
-            configs = Path(tmp) / "configs"
-            shutil.copytree(root / "configs", configs)
-            path = configs / "train" / "train_config.json"
-            path.write_text(json.dumps({**load_json5(path), **config}))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
-             "--config_root", str(configs)],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        written = sorted(str(f.relative_to(tmp)) for f in (Path(tmp) / "checkpoints").rglob("*")
-                         if f.is_file()) if (Path(tmp) / "checkpoints").exists() else []
-    found = re.search(r"^Test Mean IOU:\s+(\S+)$", proc.stdout, re.M)
+        configs = Path(tmp.name) / "configs"
+        shutil.copytree(root / "configs", configs)
+        path = configs / "train" / "train_config.json"
+        path.write_text(json.dumps({**load_json5(path), **config}))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
+         "--config_root", str(configs)],
+        cwd=tmp.name, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def cli_finish(run: dict) -> dict:
+    """Waits for a ``cli_start`` run (600 s at most). Exit 0 and a ``Test
+    Mean IOU:`` line are required. Returns the seconds, the test mIoU, the
+    JSON lines it printed (with on_screen_prints) and the files it wrote
+    under checkpoints/."""
+    import re
+    from pathlib import Path
+
+    proc, tmp = run["proc"], run["tmp"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    seconds = time.perf_counter() - run["t0"]
+    ckpt = Path(tmp.name) / "checkpoints"
+    written = sorted(str(f.relative_to(tmp.name)) for f in ckpt.rglob("*")
+                     if f.is_file()) if ckpt.exists() else []
+    tmp.cleanup()
+    found = re.search(r"^Test Mean IOU:\s+(\S+)$", stdout, re.M)
     if proc.returncode or not found:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", flush=True)
+        print(stdout[-3000:], stderr[-3000:], sep="\n", flush=True)
     require(proc.returncode == 0, f"the CLI exited {proc.returncode}")
     require(found is not None, "the CLI printed no 'Test Mean IOU:' line")
     miou = float(found.group(1))
     require(math.isfinite(miou) and 0.0 <= miou <= 100.0, f"the CLI's test mIoU {miou}")
-    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"')]
+    lines = [json.loads(x) for x in stdout.splitlines() if x.startswith('{"')]
     return {"seconds": seconds, "miou": miou, "lines": lines, "files": written}
 
 
-def phase_cli(smi: str) -> float:
-    """The CLI on the shipped configs (b128, 1 epoch, the default synthetic
-    splits of 256/64/64, AOI banks on)."""
-    run = cli_run(smi)
-    print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
-          f"{run['seconds']:.1f} s, Test Mean IOU {run['miou']:.4f} [{smi}]", flush=True)
-    return run["miou"]
+def cli_wave(specs: list[tuple]) -> list[dict]:
+    """``cli_start`` runs of ``specs`` ((config, method, extra) each) at once
+    on the card (their seconds overlap), waited for in order. This process's
+    cached blocks go back to the card first, for the runs to use."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [cli_start(*spec) for spec in specs]
+    try:
+        return [cli_finish(r) for r in runs]
+    finally:
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].communicate()
+
+
+def cli_pair(config: dict | None = None, method: tuple = ("unet", "resnet18"),
+             extra: tuple = ()) -> list[dict]:
+    """Two runs of the same command at once (``cli_wave``): a repeatability
+    check at half the wall."""
+    return cli_wave([(config, method, extra)] * 2)
 
 
 def phase_c14(smi: str) -> None:
-    """ROADMAP C14: the CLI at one seed, twice with cuDNN's autotuner
-    (deterministic: false) and twice with deterministic algorithms
-    (deterministic: true), on_screen_prints on. Prints each run's first-step
+    """The CLI on the shipped configs as they are (b128, 1 epoch, the
+    default synthetic splits of 256/64/64, AOI banks on), and ROADMAP C14:
+    the CLI at one seed, twice with cuDNN's autotuner (deterministic: false)
+    and twice with deterministic algorithms (deterministic: true),
+    on_screen_prints on; the five at once. Prints each C14 run's first-step
     loss, the train epoch's and the val eval's metrics (functions of their
     banks) and the test mIoU; the two deterministic runs must agree in all
     of them."""
     runs = {}
-    for det in (False, False, True, True):
-        run = cli_run(smi, {"on_screen_prints": True, "deterministic": det})
+    dets = (False, False, True, True)
+    shipped, *wave = cli_wave([(None, ("unet", "resnet18"), ())] + [
+        ({"on_screen_prints": True, "deterministic": det}, ("unet", "resnet18"), ())
+        for det in dets])
+    print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
+          f"{shipped['seconds']:.1f} s (five runs at once), Test Mean IOU "
+          f"{shipped['miou']:.4f} [{smi}]", flush=True)
+    for det, run in zip(dets, wave):
         first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
         train = next(x for x in run["lines"] if "Train epoch time (s)" in x)
         val = next(x for x in run["lines"] if "Val MeanIoU" in x)
@@ -3049,7 +3335,7 @@ def phase_c14(smi: str) -> None:
         runs.setdefault(det, []).append({"first": first, "banks": banks, "miou": run["miou"]})
         print(f"[c14] deterministic={str(det).lower()}: first-step loss {first}, train mIoU "
               f"{train['Train MeanIoU']:.5f}, val mIoU {val['Val MeanIoU']:.5f}, test mIoU "
-              f"{run['miou']!r}, {run['seconds']:.1f} s [{smi}]", flush=True)
+              f"{run['miou']!r}, {run['seconds']:.1f} s (five runs at once) [{smi}]", flush=True)
     for det, (a, b) in runs.items():
         same = a == b
         differing = sorted(k for k in a["banks"] if a["banks"][k] != b["banks"].get(k))
@@ -3114,9 +3400,11 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         cd = phase_cd(torch, counters, smi) if "cd" in only else None
         attn = phase_cd_attn(torch, counters, smi) if "cd-attn" in only else None
         print(cd_summary(cd, smi, attn), flush=True)
+    if "seg-zoo" in only:
+        print(zoo_summary(phase_seg_zoo(torch, counters, smi), smi), flush=True)
 
 
-ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn"}
+ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo"}
 
 
 def main(argv=None) -> int:
@@ -3161,6 +3449,16 @@ def main(argv=None) -> int:
                 "conv3x3_dw": conv_dw.conv3x3_dw,
                 "conv3x3_fused": conv_fused.conv3x3_fused}
     t0 = time.perf_counter()
+    seconds: dict = {}
+
+    def timed(phase, *args, **kw):
+        start = time.perf_counter()
+        try:
+            return phase(*args, **kw)
+        finally:
+            seconds[phase.__name__] = seconds.get(phase.__name__, 0.0) + (
+                time.perf_counter() - start)
+
     try:
         smi = phase_device(torch)
         phase_build(kernels)
@@ -3169,44 +3467,47 @@ def main(argv=None) -> int:
             print(f"[done] partial run ({', '.join(sorted(only))}) in "
                   f"{time.perf_counter() - t0:.1f}s", flush=True)
             return 0
-        pair = phase_pair_sums(torch, batchnorm)
-        ce = phase_ce_cm(torch, fused_tail, "nhwc")
-        phase = phase_ce_cm(torch, fused_tail, "phase")
+        pair = timed(phase_pair_sums, torch, batchnorm)
+        ce = timed(phase_ce_cm, torch, fused_tail, "nhwc")
+        phase = timed(phase_ce_cm, torch, fused_tail, "phase")
         print(f"[ce_cm phase] PHASE instantiation (no port path launches it yet): fwd "
               f"{phase['fwd']['ms']:.4f} ms, bwd {phase['bwd']['ms']:.4f} ms", flush=True)
         torch.cuda.empty_cache()
-        attn = phase_short_attention(torch, sa)
-        flash = phase_flash_attention(torch, fa)
+        attn = timed(phase_short_attention, torch, sa)
+        flash = timed(phase_flash_attention, torch, fa)
         torch.cuda.empty_cache()
-        cbn = phase_conv_bn(torch, conv_bn)
-        cdw = phase_conv_dw(torch, conv_dw)
-        cfu = phase_conv_fused(torch, conv_fused)
+        cbn = timed(phase_conv_bn, torch, conv_bn)
+        cdw = timed(phase_conv_dw, torch, conv_dw)
+        cfu = timed(phase_conv_fused, torch, conv_fused)
         torch.cuda.empty_cache()
-        phase_parity(torch, counters)
-        phase_parity(torch, counters, routes=True)
-        phase_mae_parity(torch, counters)
-        phase_scene_parity(torch, fa)
-        unet = phase_main_path(torch, counters, smi)
+        timed(phase_parity, torch, counters)
+        timed(phase_parity, torch, counters, routes=True)
+        timed(phase_mae_parity, torch, counters)
+        timed(phase_scene_parity, torch, fa)
+        unet = timed(phase_main_path, torch, counters, smi)
         launches, routed = unet["train"], unet["train_routes"]
         torch.cuda.empty_cache()
-        phase_engine(torch, counters, smi, unet["train_rate"])
+        timed(phase_engine, torch, counters, smi, unet["train_rate"])
         torch.cuda.empty_cache()
-        phase_packed_feed(torch, counters, smi, unet["train_rate"])
+        timed(phase_packed_feed, torch, counters, smi, unet["train_rate"])
         torch.cuda.empty_cache()
-        phase_augment(torch, counters, smi)
-        phase_losses_zones(torch, counters, smi)
-        phase_cli(smi)
-        phase_c14(smi)
+        timed(phase_augment, torch, counters, smi)
+        timed(phase_losses_zones, torch, counters, smi)
+        timed(phase_c14, smi)
         torch.cuda.empty_cache()
-        cd = phase_cd(torch, counters, smi)
+        cd = timed(phase_cd, torch, counters, smi)
         torch.cuda.empty_cache()
-        cd_attn = phase_cd_attn(torch, counters, smi)
+        cd_attn = timed(phase_cd_attn, torch, counters, smi)
         torch.cuda.empty_cache()
-        mae_launches = phase_mae_main(torch, counters, smi)
+        zoo = timed(phase_seg_zoo, torch, counters, smi)
         torch.cuda.empty_cache()
-        scene_launches = phase_scene_main(torch, counters, smi)
+        mae_launches = timed(phase_mae_main, torch, counters, smi)
+        torch.cuda.empty_cache()
+        scene_launches = timed(phase_scene_main, torch, counters, smi)
     except (PhaseFailed, RuntimeError, ValueError, TypeError, subprocess.SubprocessError,
             OSError) as e:
+        print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
+              flush=True)
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
 
@@ -3233,7 +3534,11 @@ def main(argv=None) -> int:
              cd_attn_launches_per_step={k: cd_attn[k]["pair_sums"] for k in (
                  "bit-cd", "bit-cd dd8", "changeformer", "transunet-cd")},
              cd_attn_shapes_checked=cd_attn["pair_sums_check"]["shapes"],
-             cd_attn_max_abs_err=cd_attn["pair_sums_check"]["max_abs_err"]),
+             cd_attn_max_abs_err=cd_attn["pair_sums_check"]["max_abs_err"],
+             zoo_launches_per_step={k: zoo[k]["pair_sums"] for k, *_ in ZOO_LEGS},
+             zoo_batch={k: zoo[k]["batch"] for k, *_ in ZOO_LEGS},
+             zoo_shapes_checked=zoo["pair_sums_check"]["shapes"],
+             zoo_max_abs_err=zoo["pair_sums_check"]["max_abs_err"]),
         row("ce_cm_fwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:128",
             ce["fwd"], launches["ce_cm_fwd_nhwc"]),
         row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
@@ -3249,7 +3554,12 @@ def main(argv=None) -> int:
              a6_shapes_checked=cd_attn["b4"]["shapes"],
              a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["fwd"],
              a6_bf16={k: dict(v["fwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
-                      for k, v in cd_attn["b4"]["per_shape"].items()}),
+                      for k, v in cd_attn["b4"]["per_shape"].items()},
+             finetune_launches_per_step=zoo["finetune ViT-L"]["short_attention"],
+             finetune_max_abs_err=zoo["b4"]["max_abs_err"]["fwd"],
+             finetune_bf16={k: dict(v["fwd"], kernel=v["kernel"],
+                                    calls_per_step=v["calls_per_step"])
+                            for k, v in zoo["b4"]["per_shape"].items()}),
         dict(row("short_attention_bwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls; step_backward_ms: as the step runs it, into the qkv gradient's "
                  "thirds; library_qkv_backward_ms: SDPA's from one qkv leaf, with the concat)",
@@ -3262,7 +3572,12 @@ def main(argv=None) -> int:
              a6_shapes_checked=cd_attn["b4"]["shapes"],
              a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["bwd"],
              a6_bf16={k: dict(v["bwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
-                      for k, v in cd_attn["b4"]["per_shape"].items()}),
+                      for k, v in cd_attn["b4"]["per_shape"].items()},
+             finetune_launches_per_step=zoo["finetune ViT-L"]["short_attention"],
+             finetune_max_abs_err=zoo["b4"]["max_abs_err"]["bwd"],
+             finetune_bf16={k: dict(v["bwd"], kernel=v["kernel"],
+                                    calls_per_step=v["calls_per_step"])
+                            for k, v in zoo["b4"]["per_shape"].items()}),
         row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
             "scene encode)",
             "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",
@@ -3301,6 +3616,9 @@ def main(argv=None) -> int:
              ragged_mma_sync_max_abs_err=cfu["ragged_mma_sync_err"]),
     ]}
     print(cd_summary(cd, smi, cd_attn), flush=True)
+    print(zoo_summary(zoo, smi), flush=True)
+    print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
+          flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

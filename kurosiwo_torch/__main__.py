@@ -5,6 +5,10 @@ the segmentation and change-detection tasks: the same flags, plus
     python -m kurosiwo_torch --method unet --backbone resnet18 [--seed 999]
         [--batch_size N] [--inputs ...] [--dem [--slope]]
         [--config_root configs] [--device cuda|cpu]
+    python -m kurosiwo_torch --method unet++ [--backbone resnet18|resnet34|resnet50|resnet101]
+        # or unetplusplus, deeplabv3 (the same backbones); upernet
+        # [--backbone convnext_tiny|convnext_small|convnext_base|swin_tiny|swin_small|swin_base];
+        # finetune (FloodViT, its ViT and head from configs/method/finetune/finetune.json)
     python -m kurosiwo_torch --method snunet --inputs pre_event_1 post_event
         # with "task": "cd" in configs/config.json; or siam-diff, siam-conc,
         # hfa-net, adhr-cdnet

@@ -25,6 +25,16 @@ config, so BiT-CD is its ``net_G`` default (``base_resnet18``) and
 ChangeFormer runs with its defaults (embed_dim 256, ``tail_chunks`` and
 ``remat_ffn`` on "auto", its five heads scored on the last one).
 
+``--model unet++`` (or ``unetplusplus``), ``deeplabv3``, ``upernet`` and
+``finetune``: the rest of the segmentation zoo on the UNet leg's config
+(the same batch, loss, Adam and bf16 policy) with the method swapped in
+and its shipped model config (``configs/method/<method>/*.json``): UNet++
+and DeepLabV3+ on resnet18, UperNet on convnext_tiny, each at lr 1e-3 as
+the UNet leg; ``--set backbone=...`` picks another backbone (resnet34/50/101;
+convnext_small/base, swin_tiny/small/base). ``finetune`` is the FloodViT
+finetuner with ``finetune.json``'s ViT-L (dim 1024, depth 24, 16 heads,
+mlp 2048, 16x16 patches of 224x224) and mlp head, at its lr 1e-4.
+
 ``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
 pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
 224x224x6 images in 16x16 patches, decoder 512 x 8 layers, mask ratio 0.75,
@@ -48,7 +58,8 @@ on the card, ``device.configure_backends``; on by default for the UNet and
 change-detection legs, off for the ViT legs); the other keys set the UNet's
 or the change-detection leg's config.
 
-Usage: python -m kurosiwo_torch.bench [--model unet|snunet|siam-diff|...|mae|scene] [--batch N]
+Usage: python -m kurosiwo_torch.bench [--model unet|unet++|deeplabv3|upernet|finetune|snunet|
+       siam-diff|...|mae|scene] [--batch N]
        [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
        [--scene 1024] [--profile]
 """
@@ -84,11 +95,27 @@ IMAGE = 224
 CD_MODELS = PORTED_CD_METHODS
 
 
+# the rest of the segmentation zoo: the shipped model config's keys that
+# build each model (configs/method/<method>/*.json), and each leg's lr
+ZOO_MODEL_CONFIGS = {"unet++": {"backbone": "resnet18"}, "unetplusplus": {"backbone": "resnet18"},
+                     "deeplabv3": {"backbone": "resnet18"},
+                     "upernet": {"backbone": "convnext_tiny"}, "finetune": {}}
+ZOO_MODELS = tuple(ZOO_MODEL_CONFIGS)
+# finetune.json's ViT-L and head, read by the factory from the config
+FINETUNE_CONFIG = {"image_size": 224, "finetuning_patch_size": 16, "dim": 1024, "depth": 24,
+                   "heads": 16, "mlp_dim": 2048, "mlp": True, "decoder": False}
+FINETUNE_LR = 1e-4
+TRAIN_LR = 1e-3
+# the model-config key a --set may give a zoo leg
+ZOO_MODEL_KEYS = ("backbone",)
+
+
 def build_config(model: str, batch: int) -> dict:
     """The benchmark config of a model, as the repository's
     ``bench.build_config``: a change-detection model gets two 2-channel
-    frames."""
+    frames; the finetuner adds ``FINETUNE_CONFIG``."""
     cd = model in CD_MODELS
+    extra = FINETUNE_CONFIG if model == "finetune" else {}
     return {
         "task": "cd" if cd else "segmentation",
         "method": model,
@@ -106,6 +133,7 @@ def build_config(model: str, batch: int) -> dict:
         "log_zone_metrics": False,
         "log_AOI_metrics": False,
         "num_channels": 2 if cd else 6,
+        **extra,
     }
 
 
@@ -152,6 +180,7 @@ class Bench:
     # the MAE step's masking noise, the augmentations' and dropout masks' draws
     generator: torch.Generator | None = None
     model_config: dict = dataclasses.field(default_factory=lambda: dict(MODEL_CONFIG))
+    lr: float = TRAIN_LR
 
     @property
     def task(self) -> str:
@@ -160,30 +189,35 @@ class Bench:
 
 def setup(batch: int | None = None, overrides: dict | None = None, device="cuda", seed: int = 0,
           model: str = "unet", model_config: dict | None = None) -> Bench:
-    """Model, train state and a device-resident batch for the UNet step or a
-    change-detection step (``CD_MODELS``; default batch 128, ``overrides``
-    update the config, ``model_config`` updates ``MODEL_CONFIG``) or, with
-    ``model="mae"``, the MAE step of ``setup_mae``."""
+    """Model, train state and a device-resident batch for the UNet step, a
+    zoo step (``ZOO_MODELS``: ``ZOO_MODEL_CONFIGS`` over ``MODEL_CONFIG``;
+    ``backbone`` in ``overrides`` goes to the model config) or a change-detection step (``CD_MODELS``; default batch 128,
+    ``overrides`` update the config, ``model_config`` updates the model
+    config) or, with ``model="mae"``, the MAE step of ``setup_mae``."""
     if model == "mae":
         if overrides:
             raise ValueError("the MAE leg takes no config overrides")
         return setup_mae(batch, device, seed)
-    if model != "unet" and model not in CD_MODELS:
-        raise NotImplementedError(f"bench model {model!r} is not ported "
-                                  f"(unet, {', '.join(CD_MODELS)}, mae)")
+    if model != "unet" and model not in CD_MODELS + ZOO_MODELS:
+        raise NotImplementedError(f"bench model {model!r} is not ported (unet, "
+                                  f"{', '.join(ZOO_MODELS + CD_MODELS)}, mae)")
     dev = resolve_device(device)
     batch = batch or 128
     cfg = build_config(model, batch)
-    cfg.update(overrides or {})
+    overrides = dict(overrides or {})
+    mcfg = {**MODEL_CONFIG, **ZOO_MODEL_CONFIGS.get(model, {}),
+            **{k: overrides.pop(k) for k in ZOO_MODEL_KEYS if k in overrides},
+            **(model_config or {})}
+    cfg.update(overrides)
     configure_backends(cfg, dev)
-    mcfg = {**MODEL_CONFIG, **(model_config or {})}
     if cfg["task"] == "cd":
         net = initialize_cd_model(cfg, mcfg, device=dev, seed=seed)
     else:
         net = initialize_segmentation_model(cfg, mcfg, device=dev, seed=seed)
     state = create_train_state(net, cfg, mcfg, cfg["task"])
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
-    return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed), mcfg)
+    return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed), mcfg,
+                 FINETUNE_LR if model == "finetune" else TRAIN_LR)
 
 
 def setup_mae(batch: int | None = None, device="cuda", seed: int = 0,
@@ -270,7 +304,7 @@ def _train_fn(b: Bench):
     metric = [MetricState.create(b.device)]
 
     def one():
-        _, metric[0], loss = step(b.state, b.batch, metric[0], 1e-3, b.generator)
+        _, metric[0], loss = step(b.state, b.batch, metric[0], b.lr, b.generator)
         return loss
 
     return one, metric
@@ -388,7 +422,8 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=["unet", *CD_MODELS, "mae", "scene"], default="unet")
+    p.add_argument("--model", choices=["unet", *ZOO_MODELS, *CD_MODELS, "mae", "scene"],
+                   default="unet")
     p.add_argument("--batch", type=int, default=None, help="default 128 for unet, 64 for mae")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=5)
@@ -435,6 +470,9 @@ def main(argv=None) -> dict:
         "unit": "patches/sec",
         "device": torch.cuda.get_device_name(b.device),
     }
+    if args.model in ZOO_MODELS:
+        result["model_config"] = {k: b.model_config[k] for k in ZOO_MODEL_KEYS
+                                  if k in b.model_config}
     if args.model == "unet":
         result["routes"] = {k: bool(b.config.get(k, False)) for k in ROUTE_KEYS}
     if b.task == "cd":  # SNUNet's plan is the model's, the others' the step's

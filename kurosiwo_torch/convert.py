@@ -1,20 +1,32 @@
 """Parameter bridge between a flax model's variables and the port's
-``state_dict`` (the UNet, the MAE/ViT and the eight change-detection
-trees).
+``state_dict``: every segmentation tree (UNet, UNet++, DeepLabV3+ on the
+BasicBlock and Bottleneck ResNets, UperNet on ConvNeXt and Swin, the
+FloodViT finetuner with its three heads), the MAE/ViT and the eight
+change-detection trees.
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``encoder.layer1_0.ConvBNAct_0.BatchNorm_0``, ``DecoderBlock_4.ConvBNAct_1``,
-``head``; ``encoder.transformer.attn_3.to_qkv``, ``decoder.ff_0.fc1``,
-``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``), so the map is a path
-join plus layout transposes:
+``head``; ``dec_1_2``, ``final_block``; the flax auto-names ``ASPP_0`` and
+its ``ConvBNAct_0``-``ConvBNAct_5``; ``backbone.stage2_block4.dwconv``,
+``decode_head.psp.branch3``, ``decode_head.fpn_bottleneck``;
+``backbone.stage0_block1.attn.qkv``, ``merge2``; ``encoder.transformer.attn_3.to_qkv``,
+``decoder.ff_0.fc1``, ``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``,
+``head_fc1``, ``head.deconv2``), so the map is a path join plus layout
+transposes:
 
-  params/.../kernel (HWIO, conv)  <-> ....weight (OIHW); a depthwise kernel
-                                      (HWIO with I = 1, ChangeFormer's
+  params/.../kernel (HWIO, conv)  <-> ....weight (OIHW): the 7x7 stem, the
+                                      4x4/s4 and 2x2/s2 patchify convs; a
+                                      depthwise kernel (HWIO with I = 1,
+                                      ChangeFormer's and ConvNeXt's
                                       ``dwconv``) is the grouped (C, 1, k, k)
   params/.../kernel (HWOI, the transposed convs' torch layout)
-                                  <-> ....weight (IOHW, F.conv_transpose2d's)
-  params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense)
-  params/.../{bias, scale, alpha, embedding, pos_embedding, cls_token, mask_token}
+                                  <-> ....weight (IOHW, F.conv_transpose2d's;
+                                      Siam's ``up``, the finetuner's
+                                      ``deconv1``-``deconv3``)
+  params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense; Swin's
+                                      bias-free ``merge{s}`` has no bias)
+  params/.../{bias, scale, alpha, gamma, relative_position_bias, embedding,
+              pos_embedding, cls_token, mask_token}
                                   <-> the same name, as it is
   batch_stats/.../{mean, var}     <-> ....{mean, var}   (buffers)
 

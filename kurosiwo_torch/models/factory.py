@@ -1,8 +1,10 @@
-"""Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. The
-UNet, the MAE (ViT encoder) and every change-detection model (SNUNet-ECAM,
-Siam-diff, Siam-conc, BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet,
-TransUNet-CD) are ported; every other method names its ``ROADMAP.md``
-item."""
+"""Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. Every
+segmentation method (UNet, UNet++, DeepLabV3+ on resnet18/34/50/101;
+UperNet on convnext_tiny/small/base and swin_tiny/small/base; the FloodViT
+finetuner with its mlp, decoder and linear heads), the MAE (ViT encoder)
+and every change-detection model (SNUNet-ECAM, Siam-diff, Siam-conc,
+BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet, TransUNet-CD) is ported; the
+diffusion task raises, naming its ``ROADMAP.md`` item (A10)."""
 
 from __future__ import annotations
 
@@ -10,10 +12,6 @@ import torch
 
 from ..device import resolve_device
 
-_NOT_PORTED = {
-    "unetplusplus": "A5", "unet++": "A5", "deeplabv3": "A5", "finetune": "A5",
-    "upernet": "A9",
-}
 #: every method the JAX package's ``initialize_cd_model`` builds
 CD_METHODS = ("siam-conc", "siam-diff", "snunet", "bit-cd", "hfa-net", "changeformer",
               "adhr-cdnet", "transunet-cd")
@@ -28,28 +26,79 @@ def compute_dtype(config: dict) -> torch.dtype:
 def initialize_segmentation_model(config: dict, model_config: dict,
                                   device: str | torch.device | None = "cuda", seed: int = 0):
     """The segmentation model on ``device`` (the card unless the caller
-    asks for the CPU), f32 parameters from a seeded ``torch.Generator``.
+    asks for the CPU), f32 parameters from a seeded ``torch.Generator``,
+    with the JAX factory's keys and defaults (``factory.py:25-84``):
+    ``backbone`` from the model config (resnet18 for the UNet, UNet++ and
+    DeepLabV3+, convnext_tiny for UperNet; ``backbone_spec``, a key of the
+    port's that the JAX factory does not read, sizes UperNet's backbone as
+    the JAX tests' override does, for small builds); the finetuner's ViT from the config's
+    ``image_size``, ``finetuning_patch_size``, ``dim``, ``depth``,
+    ``heads`` and ``mlp_dim`` (defaults 224, 16, 1024, 24, 16, 2048), its
+    head ``mlp`` if the config sets ``mlp``, else ``decoder`` if it sets
+    ``decoder``, else ``linear``. The finetune config's ``encoder`` key (a
+    FloodViT checkpoint path) is read by neither package's engine and is
+    left unread here; training starts from the seeded init. The finetuner
+    is built for inputs of side ``image_size``: a ``synthetic_patch_size``
+    that differs raises, naming both keys. A Swin UperNet is built for
+    min(224, ``synthetic_patch_size``), the side the JAX engine inits at.
     Config keys ``conv_bn_kernel`` and ``dw_kernel`` (default off) open the
-    UNet's B6 and B7 conv routes (``ops/nn.ConvBNAct``)."""
+    UNet's B6 and B7 conv routes (``ops/nn.ConvBNAct``), UNet-only as in
+    the JAX package."""
     dev = resolve_device(device)
     method = config["method"].lower()
     if config.get("task") == "diffusion-unsup":
         raise NotImplementedError("diffusion is not ported yet (ROADMAP.md, A10)")
+    nc, n_in = int(config["num_classes"]), int(config["num_channels"])
+    kw = dict(dtype=compute_dtype(config), generator=torch.Generator().manual_seed(seed))
+    backbone = model_config.get("backbone")
     if method == "unet":
         from .unet import UNet
 
-        model = UNet(
-            in_channels=int(config["num_channels"]), num_classes=int(config["num_classes"]),
-            backbone=model_config.get("backbone", "resnet18"), dtype=compute_dtype(config),
-            generator=torch.Generator().manual_seed(seed),
-            conv_bn_kernel=bool(config.get("conv_bn_kernel", False)),
-            dw_kernel=bool(config.get("dw_kernel", False)),
-        )
-        return model.to(dev)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"segmentation method {method!r} is not ported yet (ROADMAP.md, {_NOT_PORTED[method]})")
-    raise NotImplementedError(f"segmentation method {method!r} is not supported")
+        model = UNet(in_channels=n_in, num_classes=nc, backbone=backbone or "resnet18",
+                     conv_bn_kernel=bool(config.get("conv_bn_kernel", False)),
+                     dw_kernel=bool(config.get("dw_kernel", False)), **kw)
+    elif method in ("unetplusplus", "unet++"):
+        from .unet import UNetPlusPlus
+
+        model = UNetPlusPlus(n_in, nc, backbone=backbone or "resnet18", **kw)
+    elif method == "deeplabv3":
+        from .unet import DeepLabV3Plus
+
+        model = DeepLabV3Plus(n_in, nc, backbone=backbone or "resnet18", **kw)
+    elif method == "upernet":
+        from .upernet import UperNet
+
+        model = UperNet(n_in, nc, backbone=backbone or "convnext_tiny",
+                        backbone_spec=model_config.get("backbone_spec"),
+                        image_size=min(224, int(config.get("synthetic_patch_size", 224) or 224)),
+                        **kw)
+    elif method == "finetune":
+        model = _finetuner(config, n_in, nc, **kw)
+    else:
+        raise NotImplementedError(f"segmentation method {method!r} is not supported")
+    return model.to(dev)
+
+
+def _finetuner(config: dict, n_in: int, nc: int, dtype: torch.dtype,
+               generator: torch.Generator):
+    from .finetuner import FinetunerSegmentation
+    from .vit import ViT
+
+    size = int(config.get("image_size", 224))
+    patch = int(config.get("finetuning_patch_size", 16))
+    data = config.get("synthetic_patch_size")
+    if data is not None and int(data) != size:
+        raise ValueError(f"finetune builds its ViT for {size}x{size} patches (image_size) and "
+                         f"the synthetic patches are {data}x{data} (synthetic_patch_size): "
+                         "set the two keys to one value")
+    encoder = ViT(image_size=size, patch_size=patch, dim=int(config.get("dim", 1024)),
+                  depth=int(config.get("depth", 24)), heads=int(config.get("heads", 16)),
+                  mlp_dim=int(config.get("mlp_dim", 2048)), channels=n_in, pool="cls",
+                  dtype=dtype, generator=generator)
+    head = "mlp" if config.get("mlp") else ("decoder" if config.get("decoder") else "linear")
+    return FinetunerSegmentation(encoder, num_classes=nc, head=head,
+                                 finetuning_patch_size=patch, image_size=size, dtype=dtype,
+                                 generator=generator)
 
 
 def initialize_cd_model(config: dict, model_config: dict, phase: str = "train",

@@ -1,6 +1,6 @@
-"""Building blocks of the port's models; counterpart of the parts of
-``kurosiwo_tpu/ops/nn.py`` that UNet-ResNet and the change-detection models
-use, plus flax's ``Dense`` and ChangeFormer's ``DropPath``.
+"""Building blocks of the port's models; counterpart of
+``kurosiwo_tpu/ops/nn.py`` (every function the models call, and
+``avg_pool``), plus flax's ``Dense`` and ChangeFormer's ``DropPath``.
 
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
@@ -13,10 +13,11 @@ Mixed precision follows flax's (dtype, param_dtype) pair: parameters are f32
 and each convolution casts its weight and input to the compute ``dtype``.
 
 The resampling ops (``replication_pad_to``, ``resize_bilinear``,
-``resize_linear``, ``resize_nearest``) are written in forms whose backward is
-deterministic on the card (slices, expands and gathers of whole rows; two
-small interpolation-matrix products), since ``F.pad(mode="replicate")`` and
-bilinear ``F.interpolate`` have no deterministic backward there.
+``resize_linear``, ``resize_nearest``, ``adaptive_avg_pool``) are written in
+forms whose backward is deterministic on the card (slices, expands and
+gathers of whole rows; two small interpolation- or averaging-matrix
+products), since ``F.pad(mode="replicate")``, bilinear ``F.interpolate`` and
+``F.adaptive_avg_pool2d`` have no deterministic backward there.
 """
 
 from __future__ import annotations
@@ -41,15 +42,26 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | Non
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis, (low, high): the output has
+    ceil(size / stride) positions and the odd pixel of padding goes high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` on NHWC: ``weight`` (OIHW, f32), optional ``bias``
     added after the convolution in the compute dtype, as flax adds it.
-    ``groups`` is flax's ``feature_group_count`` (ChangeFormer's depthwise
-    conv: the flax (k, k, 1, C) kernel is the (C, 1, k, k) weight)."""
+    ``groups`` is flax's ``feature_group_count`` (ChangeFormer's and
+    ConvNeXt's depthwise convs: the flax (k, k, 1, C) kernel is the
+    (C, 1, k, k) weight). ``padding="SAME"`` is flax's default padding
+    (``same_padding``; the patchify convs of ConvNeXt and Swin), zeros
+    added before the convolution."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-                 bias: bool = False, generator: torch.Generator | None = None,
-                 dilation: int = 1, groups: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int | str = 0, bias: bool = False,
+                 generator: torch.Generator | None = None, dilation: int = 1, groups: int = 1):
         super().__init__()
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
@@ -57,9 +69,17 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
-                     stride=self.stride, padding=self.padding, dilation=self.dilation,
-                     groups=self.groups)
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        padding = self.padding
+        if padding == "SAME":
+            k = self.dilation * (self.weight.shape[-1] - 1) + 1
+            (top, bottom), (left, right) = (same_padding(n, k, self.stride)
+                                            for n in x.shape[2:])
+            if top or bottom or left or right:
+                x = F.pad(x, (left, right, top, bottom))
+            padding = 0
+        y = F.conv2d(x, self.weight.to(dtype), stride=self.stride, padding=padding,
+                     dilation=self.dilation, groups=self.groups)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
@@ -218,6 +238,42 @@ class ConvTranspose2x(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return self.up(x, dtype)
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
+             padding: str | tuple = "VALID") -> torch.Tensor:
+    """flax ``nn.avg_pool`` of NHWC (JAX ``avg_pool``, ``ops/nn.py:181``):
+    ``padding`` "VALID", or ((top, bottom), (left, right)) of zeros, which
+    count in the window's mean, as flax counts them."""
+    y = x.permute(0, 3, 1, 2)
+    if padding != "VALID":
+        (top, bottom), (left, right) = padding
+        y = F.pad(y, (left, right, top, bottom))
+    return F.avg_pool2d(y, window, stride).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_matrix(in_dim: int, out_dim: int, device: torch.device) -> torch.Tensor:
+    """(out_dim, in_dim) f32 averaging weights of torch ``AdaptiveAvgPool2d``:
+    bin i averages rows [floor(i * in / out), ceil((i + 1) * in / out))."""
+    m = np.zeros((out_dim, in_dim), np.float32)
+    for i in range(out_dim):
+        lo, hi = (i * in_dim) // out_dim, -(-((i + 1) * in_dim) // out_dim)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    return torch.from_numpy(m).to(device)
+
+
+def adaptive_avg_pool(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` of NHWC to ``size`` (JAX
+    ``adaptive_avg_pool``, ``ops/nn.py:241``), any ratio (7 -> 2, 3, 6 have
+    overlapping bins): two small averaging-matrix products in f32, cast
+    back to x's dtype. Its backward is two products too, deterministic on
+    the card, where ``F.adaptive_avg_pool2d``'s is not."""
+    h, w = x.shape[1:3]
+    oh, ow = size
+    y = torch.einsum("oh,bhwc->bowc", _pool_matrix(h, oh, x.device), x.float())
+    y = torch.einsum("pw,bowc->bopc", _pool_matrix(w, ow, x.device), y)
+    return y.to(x.dtype).contiguous()
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -56,9 +56,9 @@ def run():
     x1, x2 = cdp.frames(METHOD, batch=1)
     cfg = _cfg()
     model = cdp.j_init(cfg, MCFG)
-    ev = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(v, x1, x2)
-    out, upd = jax.jit(lambda v, a, b: model.apply(v, a, b, train=True,
-                                                   mutable=["batch_stats"]))(v, x1, x2)
+    ev = cdp.jit_fast(lambda v, a, b: model.apply(v, a, b, train=False), v, x1, x2)
+    out, upd = cdp.jit_fast(lambda v, a, b: model.apply(v, a, b, train=True,
+                                                        mutable=["batch_stats"]), v, x1, x2)
     tx = j_optim.create_optimizer(cfg, MCFG, "cd")
     params = jax.tree.map(jnp.asarray, v["params"])
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
@@ -66,10 +66,10 @@ def run():
                         opt_state=tx.init(params))
     rs = np.random.RandomState(5)
     batch = {"pre1": x1, "post": x2, "mask": rs.randint(0, 4, (1, 224, 224)).astype(np.int32)}
-    step = jax.jit(j_steps.make_train_step(model, tx, j_create_loss(cfg, "train"), cfg, MCFG,
-                                           "cd"))
-    new_state, _, loss = step(state, jax.tree.map(jnp.asarray, batch), JMetricState.create(),
-                              jnp.asarray(LR, jnp.float32), jax.random.PRNGKey(1))
+    step = j_steps.make_train_step(model, tx, j_create_loss(cfg, "train"), cfg, MCFG, "cd")
+    new_state, _, loss = cdp.jit_fast(step, state, jax.tree.map(jnp.asarray, batch),
+                                      JMetricState.create(), jnp.asarray(LR, jnp.float32),
+                                      jax.random.PRNGKey(1))
     trace = new_state.opt_state.inner_state[1][0].trace  # chain(decay, sgd(trace, scale))
     return {"v": v, "x": (x1, x2), "eval": np.asarray(ev), "train": np.asarray(out),
             "batch_stats": cdp.tree(upd["batch_stats"]), "batch": batch, "loss": float(loss),
@@ -176,7 +176,7 @@ def test_jax_bf16_high_pass_bank_is_the_fault_the_port_departs_from(run):
                                  train=True, mutable=["batch_stats"])
             return loss_fn(out.astype(jnp.float32), mask)
 
-        return np.asarray(jax.jit(jax.grad(loss))(params)["encoder"]["pre_treat"]["kernel"])
+        return np.asarray(cdp.jit_fast(jax.grad(loss), params)["encoder"]["pre_treat"]["kernel"])
 
     norms = {mp: float(np.linalg.norm(grads_of(dict(_cfg(), mixed_precision=mp))))
              for mp in (False, True)}

@@ -148,15 +148,43 @@ def test_vit_ring_axis_names_its_roadmap_item():
         SelfAttention(64, 2, 64, ring_axis="seq")
 
 
-@pytest.mark.parametrize("method,item", [
-    ("unetplusplus", "A5"), ("deeplabv3", "A5"), ("upernet", "A9"), ("finetune", "A5"),
-])
+# the finetuner at a CPU size (its ViT-L takes 10 s to initialise here); the
+# other methods at their factory defaults
+ZOO_KEYS = {"finetune": {"mlp": True, "image_size": 64, "dim": 64, "depth": 2, "heads": 2,
+                         "mlp_dim": 64}}
+
+
+@pytest.mark.parametrize("method", ["unetplusplus", "unet++", "deeplabv3", "upernet", "finetune"])
+def test_zoo_methods_build_with_the_flax_tree_names(method):
+    """Each segmentation method the JAX factory builds, built by the port's
+    factory on the CPU, with the flax tree's state_dict names and shapes
+    (JAX's init by shape only, at 64x64)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from kurosiwo_torch.convert import flax_to_torch
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_tpu.models.factory import initialize_segmentation_model as j_init
+
+    cfg = {"method": method, "num_classes": 3, "num_channels": 6, **ZOO_KEYS.get(method, {})}
+    model = initialize_segmentation_model(cfg, {}, device="cpu")
+    shapes = jax.eval_shape(lambda: j_init(dict(cfg, mixed_precision=False), {}).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 6), jnp.float32)))
+    want = flax_to_torch(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes)))
+    assert {k: tuple(t.shape) for k, t in model.state_dict().items()} == {
+        k: tuple(t.shape) for k, t in want.items()}
+
+
+@pytest.mark.parametrize("method,item", [("unet", "A10")])
 def test_unported_methods_name_their_roadmap_item(method, item):
+    """Diffusion (the ``diffusion-unsup`` task, whatever the method) is the
+    one segmentation factory branch not ported."""
     from kurosiwo_torch.models.factory import initialize_segmentation_model
 
     with pytest.raises(NotImplementedError, match=item):
-        initialize_segmentation_model({"method": method, "num_classes": 3, "num_channels": 6},
-                                      {}, device="cpu")
+        initialize_segmentation_model({"method": method, "num_classes": 3, "num_channels": 6,
+                                       "task": "diffusion-unsup"}, {}, device="cpu")
 
 
 def test_bench_config_matches_the_jax_bench():

@@ -22,6 +22,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 PLANS = [
     ("MAE encoder", BF16, 64, 49, 49, "wgmma"),
     ("MAE decoder", BF16, 64, 196, 196, "wgmma"),
+    ("finetune ViT-L", BF16, 64, 197, 197, "wgmma"),
     ("small MAE encoder", BF16, 64, 13, 13, "wgmma"),
     ("small MAE decoder", BF16, 64, 50, 50, "wgmma"),
     ("ragged D64", BF16, 64, 200, 130, "wgmma"),
@@ -167,3 +168,31 @@ def test_change_detection_shapes_route_as_jax(monkeypatch, name, nq, nk, heads, 
     jax.eval_shape(lambda a, b, c: jattn.attention_packed(a, b, c, heads), q, kv, kv)
     assert bool(calls) == short
     assert _short_route(nq, nk, d, heads * d) == short
+
+
+def test_finetuner_attention_routes_as_jax(monkeypatch):
+    """The FloodViT finetuner's encoder (ViT-L widths: dim 1024, 16 heads of
+    64, 197 tokens at 224x224, depth cut to 2): the JAX model, traced with
+    the short kernel's gate open, calls short_attention in every layer, and
+    the port's router sends (197, 197, D 64, H*D 1024) to B4, whose plan
+    takes it on the wgmma kernels in bf16."""
+    import jax
+    import jax.numpy as jnp
+
+    from kurosiwo_tpu.models.finetuner import FinetunerSegmentation
+    from kurosiwo_tpu.models.vit import ViT
+    from kurosiwo_tpu.ops import attention as jattn
+    from kurosiwo_tpu.ops import pallas_attention as jpa
+
+    calls = []
+    monkeypatch.setattr(jattn, "_use_short_kernel", lambda: True)
+    monkeypatch.setattr(jpa, "short_attention",
+                        lambda q, k, v, h, s: calls.append((q.shape, h)) or q)
+    vit = ViT(image_size=224, patch_size=16, dim=1024, depth=2, heads=16, mlp_dim=2048,
+              channels=6, pool="cls", dtype=jnp.bfloat16)
+    model = FinetunerSegmentation(vit, 3, "mlp", 16, 224, dtype=jnp.bfloat16)
+    x = jax.ShapeDtypeStruct((1, 224, 224, 6), jnp.float32)
+    jax.eval_shape(lambda x: model.init_with_output(jax.random.PRNGKey(0), x), x)
+    assert calls and all(c == ((1, 197, 1024), 16) for c in calls) and len(calls) % 2 == 0
+    assert _short_route(197, 197, 64, 1024)
+    assert sa.short_plan(BF16, 64, 197, 197).kernel == "wgmma"
