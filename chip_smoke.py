@@ -95,9 +95,9 @@ its lines; any failed phase exits non-zero.
    (without the smoke's own pixel counting), the loader alone, the train
    step's rate from phase 5, the card's busy time a step (torch.profiler)
    and so its idle share of the timed epoch, and the peak memory.
-   The packed feed: a synthetic split of 1,536 samples at 224^2 packed in
-   float16 (1.08 GB) into a temporary directory and read from the warm
-   page cache; the 12-step b128 epoch of one engine, the loader alone and
+   The packed feed: a synthetic split of 768 samples at 224^2 packed in
+   float16 (0.54 GB) into a temporary directory and read from the warm
+   page cache; the 6-step b128 epoch of one engine, the loader alone and
    the step's host time outside the wait, from the decoded source and from
    the pack, by the Loader's decode processes and by decode threads (the
    A/B's other arm, ``ThreadRows`` here); batch 0 bitwise equal across the
@@ -112,11 +112,12 @@ its lines; any failed phase exits non-zero.
 7. The CLI: ``python -m kurosiwo_torch --method unet --backbone resnet18
    --seed 7`` in a subprocess and a temporary directory, on the shipped
    configs (b128, one epoch, the default synthetic splits, AOI banks on):
-   exit 0 and a ``Test Mean IOU:`` line. Beside it (the five runs at once)
-   ROADMAP C14: the same run twice with ``deterministic: false`` (cuDNN's
-   autotuner) and twice with ``deterministic: true``, printing the
-   first-step loss, the train and val metrics and the test mIoU; the
-   deterministic pair must agree.
+   exit 0 and a ``Test Mean IOU:`` line. Beside it ROADMAP C14: the same
+   run twice with ``deterministic: false`` (cuDNN's autotuner) and twice
+   with ``deterministic: true``, printing the first-step loss, the train
+   and val metrics and the test mIoU; the deterministic pair must agree.
+   These runs and every later phase's CLI runs go to one pool, run after
+   the last phase (9.), beside no timed step.
    Then change detection: each of the five convolutional methods
    (SNUNet-ECAM at base_channel 8, Siam-diff, Siam-conc, ADHR-CDNet,
    HFA-Net at 224^2) in one f32 train and eval step, card against CPU, the
@@ -142,7 +143,8 @@ its lines; any failed phase exits non-zero.
    eval step at a small size, card against CPU, B3 and B4 launched once for
    each plain call of the CPU step; Swin's relative-position gradients
    bitwise equal over two deterministic backwards; the b128 bf16 train step
-   (3 warm-up, 10 timed) and f32-twin eval (2 warm-up, 5 timed) of unet++
+   (2 warm-up, 5 timed; 3 and 10 before the MAE-loop and recurrent phases
+   joined the script) and f32-twin eval (2 warm-up, 5 timed) of unet++
    resnet18, deeplabv3 resnet18, upernet convnext_tiny, finetune (ViT-L
    1024 x 24, 16 heads, mlp 2048, mlp head; at the larger of b64, b32 that
    fits, b128 does not), upernet swin_tiny and deeplabv3 resnet50, with
@@ -151,16 +153,44 @@ its lines; any failed phase exits non-zero.
    kernels for the finetuner) and the card's busy time a step; B3 against
    its plain version at every BatchNorm input shape of those steps, B4 at
    the finetuner's (B, 197, 16 x 64), its time beside SDPA's and its bound;
-   the CLI twice at one seed for unet++, deeplabv3, upernet (the six runs
-   at once) and finetune (at the batch its leg fit, one run at a time) on
-   the shipped configs, every printed number equal. C14's four CLI runs
-   run at once, the change-detection pairs (SNUNet, ChangeFormer) two at
-   once.
-8. The kernel table as one JSON line (B3's row with the change-detection
-   and zoo steps' pair-sum launches, B4's with the finetuner's), then the
-   result line ``{"ok": true, "device": {...}}``.
+   the CLI twice at one seed for unet++, deeplabv3, upernet and finetune
+   (at the batch its leg fit) on the shipped configs, every printed number
+   equal.
+   Then MAE pretraining end to end (the mae-train phase): the loop
+   (``training/mae.train``: the SSL loader, the schedule, bf16-moment Adam
+   with ``lr_scales``, mae_{e}/vit_{e}) at a small size, f32, card against
+   CPU with the card's masking noise replayed, B4 launched once for each
+   plain call; the loop at full width (the shipped mae.json: ViT-L, accum
+   4, b128, synthetic SSL source, 2 epochs of 8 steps, the second timed):
+   patches/s, the host time a step outside the loader wait, the SSL loader
+   alone, the card's idle share (torch.profiler), the peak memory, B4
+   launches a step (128 each way, all wgmma) and the seconds and bytes of
+   each save; B4 against its plain version at the loop's microbatch shapes
+   beside SDPA and its bound; ``python -m kurosiwo_torch --method mae`` with
+   ``"task": "mae"`` (exit 0, finite losses, mae_0 and vit_0 written). And
+   the recurrent task (the recurrent phase): the ConvLSTM's f32 train and
+   eval step card against CPU at (2, 3, 64, 64, 2); its b128 bf16 train
+   step (b64 or b32 where b128 does not fit) and f32-twin eval with
+   patches/s, peak memory and the card's busy time a step; one step with
+   ``fused_tail: true`` (B2 once each way) against the plain tail; B2
+   against its plain version at the step's f32 probabilities; ``python -m
+   kurosiwo_torch --method convlstm --seed 7`` twice (``checkpoint_epoch=0``
+   written, every printed number equal). Their numbers close the output in
+   a ``[slice summary]`` line.
+8. Phase 5's MAE ViT-L train step and serving paths, run after the other
+   phases (their launch counts fill the kernel table).
+9. The CLI pool: every CLI run of the phases above (22), at most 6 at once
+   while their estimated peaks (each model's leg peak plus its context) sum
+   to at most 62 GiB, the largest first; then each phase's checks of its
+   runs, in phase order. It prints its wall time and the card's memory in
+   use at most (nvidia-smi).
+10. The kernel table as one JSON line (B3's row with the change-detection
+   and zoo steps' pair-sum launches, B4's with the finetuner's and the MAE
+   loop's, B2's with the recurrent step's), then the result line
+   ``{"ok": true, "device": {...}}``.
 
-``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo`` runs the device and build phases
+``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo,mae-train,recurrent`` runs the
+device and build phases
 and then only those phases: a partial run, which prints no kernel table and
 no result line.
 """
@@ -394,21 +424,54 @@ def ce_cm_check(torch, fused_tail, layout, logits, labels, cw, tag) -> tuple[flo
     return lerr, derr, plan.kernel
 
 
+def ce_cm_times(torch, fused_tail, layout: str, logits, labels, cw) -> dict:
+    """{"fwd", "bwd"}: the kernels' device times at ``logits`` beside the
+    plain versions', the library yardstick's (F.cross_entropy with the
+    class weights and ignore_index 3, plus a bincount for the cm, on the
+    (B*H*W, 3) view of the interleaved logits; its autograd backward) and
+    the bound."""
+    import torch.nn.functional as F
+
+    nhwc = layout == "nhwc"
+    fwd = fused_tail.ce_cm_fwd_nhwc if nhwc else fused_tail.ce_cm_fwd_phase
+    bwd = fused_tail.ce_cm_bwd_nhwc if nhwc else fused_tail.ce_cm_bwd_phase
+    plain_f = fused_tail.ce_cm_forward_plain if nhwc else fused_tail.ce_cm_phase_forward_plain
+    plain_b = fused_tail.ce_cm_backward_plain if nhwc else fused_tail.ce_cm_phase_backward_plain
+    n = labels.numel()
+    full = logits if nhwc else fused_tail.depth_to_space(logits).contiguous()
+    lab64 = labels.reshape(-1).long()
+    flat = full.reshape(-1, 3).float().requires_grad_(True)
+
+    def lib_fwd():
+        lv = F.cross_entropy(flat, lab64, weight=cw, ignore_index=3)
+        cmv = torch.bincount(lab64 * 4 + flat.detach().argmax(-1), minlength=16)
+        return lv, cmv
+
+    gs = (1.0 / fwd(logits, labels, cw)[2]).reshape(1)
+    lib_loss, _ = lib_fwd()
+    times = {"fwd": dict(ms=event_ms(torch, lambda: fwd(logits, labels, cw)),
+                         plain_ms=event_ms(torch, lambda: plain_f(logits, labels, cw)),
+                         library_ms=event_ms(torch, lib_fwd)),
+             "bwd": dict(ms=event_ms(torch, lambda: bwd(logits, labels, cw, gs)),
+                         plain_ms=event_ms(torch, lambda: plain_b(logits, labels, cw, gs)),
+                         library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                             lib_loss, flat, retain_graph=True)))}
+    in_bytes = logits.numel() * logits.element_size() + n * 4
+    for k, (nbytes, ops) in (("fwd", (in_bytes + 18 * 4, 40 * n)),
+                             ("bwd", (in_bytes + logits.numel() * logits.element_size(),
+                                      30 * n))):
+        times[k]["bound_ms"], times[k]["bound_by"] = bound(nbytes, ops)
+    return times
+
+
 def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
     """CE+cm forward and backward at the main path's logits shape, in f32 and
     bf16 on the vector unit, then CE_CM_EXTRA. Bands: loss and weight sum
     rtol 1e-5 (f32 sums in another order), cm exact, dlogits within 1e-5
     (f32) or 1e-2 (bf16, one rounding) of max |dlogits|."""
-    import torch.nn.functional as F
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    nhwc = layout == "nhwc"
-    lay = fused_tail.NHWC if nhwc else fused_tail.PHASE
-    fwd = fused_tail.ce_cm_fwd_nhwc if nhwc else fused_tail.ce_cm_fwd_phase
-    bwd = fused_tail.ce_cm_bwd_nhwc if nhwc else fused_tail.ce_cm_bwd_phase
-    plain_f = fused_tail.ce_cm_forward_plain if nhwc else fused_tail.ce_cm_phase_forward_plain
-    plain_b = fused_tail.ce_cm_backward_plain if nhwc else fused_tail.ce_cm_phase_backward_plain
+    lay = fused_tail.NHWC if layout == "nhwc" else fused_tail.PHASE
     cw = torch.tensor(CW, device=dev)
     out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
     n = BATCH * IMAGE * IMAGE
@@ -428,39 +491,14 @@ def phase_ce_cm(torch, fused_tail, layout: str) -> dict:
                           for k, (gb, ps, rg) in zip(("fwd", "bwd"), grids)), flush=True)
         if dtype != torch.bfloat16:
             continue
-        # library yardstick: F.cross_entropy(weight, ignore_index=3) + bincount, on the
-        # (B*H*W, 3) view of the interleaved logits; timed here only
-        full = logits if nhwc else fused_tail.depth_to_space(logits).contiguous()
-        lab64 = labels.reshape(-1).long()
-        flat = full.reshape(-1, 3).float().requires_grad_(True)
-
-        def lib_fwd():
-            lv = F.cross_entropy(flat, lab64, weight=cw, ignore_index=3)
-            cmv = torch.bincount(lab64 * 4 + flat.detach().argmax(-1), minlength=16)
-            return lv, cmv
-
-        gs = (1.0 / fwd(logits, labels, cw)[2]).reshape(1)
-        lib_loss, _ = lib_fwd()
-        fwd_ms = event_ms(torch, lambda: fwd(logits, labels, cw))
-        bwd_ms = event_ms(torch, lambda: bwd(logits, labels, cw, gs))
-        plain_fwd_ms = event_ms(torch, lambda: plain_f(logits, labels, cw))
-        plain_bwd_ms = event_ms(torch, lambda: plain_b(logits, labels, cw, gs))
-        lib_fwd_ms = event_ms(torch, lib_fwd)
-        lib_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(lib_loss, flat, retain_graph=True))
-        in_bytes = logits.numel() * logits.element_size() + n * 4
-        fb, fby = bound(in_bytes + 18 * 4, 40 * n)
-        bb, bby = bound(in_bytes + logits.numel() * logits.element_size(), 30 * n)
-        out["fwd"].update(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
-                          bound_ms=fb, bound_by=fby)
-        out["bwd"].update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-                          bound_ms=bb, bound_by=bby)
+        for k, times in ce_cm_times(torch, fused_tail, layout, logits, labels, cw).items():
+            out[k].update(times)
         for k in ("fwd", "bwd"):
             o = out[k]
             print(f"[ce_cm {layout} {k}] {shape} bf16: kernel {o['ms']:.4f} ms "
                   f"({o['bound_ms'] / o['ms'] * 100:.1f}% of the bound), plain "
                   f"{o['plain_ms']:.4f} ms, library {o['library_ms']:.4f} ms, bound "
                   f"{o['bound_ms'] * 1e3:.1f} us", flush=True)
-        del flat, lib_loss
     for name, (b, h, w), offset, ignore_all in CE_CM_EXTRA:
         for dtype in (torch.float32, torch.bfloat16):
             logits, labels = ce_cm_inputs(torch, dev, g, layout, dtype, b, h, w, offset,
@@ -1862,10 +1900,11 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
 
 
 # the packed-feed phase: a synthetic train split of PACK_SAMPLES packed in
-# float16, and the 12-step b128 epoch fed from the decoded source and from
+# float16, and the 6-step b128 epoch fed from the decoded source and from
 # the pack, by decode processes (the Loader's) and by decode threads (20
-# steps before the zoo phase joined the script)
-PACK_SAMPLES = 1536
+# steps before the zoo phase joined the script, 12 before the CLI pool, all
+# within the script's time limit)
+PACK_SAMPLES = 768
 PACK_RECORD_BYTES = 702472  # 3 x 224 x 224 x 2 float16, mask and valid int8, clz, activation
 FEED_SEED = 11
 
@@ -1924,7 +1963,7 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
     """A synthetic split of PACK_SAMPLES at 224^2 packed in float16 (the
     port's pack_split) into a temporary directory, read back from the warm
     page cache (it was just written; a cold read is not measured); then,
-    for the decoded source and the pack, the 12-step b128 epoch of one
+    for the decoded source and the pack, the 6-step b128 epoch of one
     engine, the loader alone, the step's host time outside the wait, by
     decode processes and by decode threads (in the order pack processes,
     pack threads, decoded processes, decoded threads). Batch 0 must be bitwise the
@@ -1968,7 +2007,7 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
         source.close()
         engine.run_train_epoch(held, 0)  # warm-up
         # the same steps with no loader running: 2 decoded batches held in
-        # memory, each taken 10 times
+        # memory, each taken 3 times
         unloaded = engine.run_train_epoch(held * (PACK_SAMPLES // BATCH // 2), 0)
         arms = {}
         order = [("pack", False), ("pack", True), ("decoded", False), ("decoded", True)]
@@ -2262,7 +2301,7 @@ def cd_step_on(torch, counters, model, cfg: dict, mc: dict, batch: dict, device:
     for k, (mod, name) in plains.items():  # the CPU's calls of the plain versions
         setattr(mod, name, counting(k))
     try:
-        state = create_train_state(model, cfg, mc, task)
+        state = create_train_state(model, cfg, mc, "cd" if task == "cd" else "segmentation")
         step = make_train_step(model, create_loss(cfg, "train"), cfg, mc, task=task,
                                device=device)
         zero_counters(counters)
@@ -2314,8 +2353,9 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     misses the gradient, parameter-share or statistics band, the bands widen
     to twice what the CPU step itself moves under a 1e-6 normal change of
     the images (a train-mode Bottleneck trunk's conditioning), the
-    printed band. Returns the
-    card step's launches."""
+    printed band. With ``task="recurrent"`` the model is the ConvLSTM on
+    the bench's config (three frames of 2 channels). Returns the card
+    step's launches."""
     from kurosiwo_torch import bench
     from kurosiwo_torch.device import configure_backends
     from kurosiwo_torch.models.factory import initialize_cd_model, initialize_segmentation_model
@@ -2323,6 +2363,12 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     if task == "cd":
         cfg = cd_config(method, bsz, mixed_precision=False, synthetic_patch_size=side)
         cpu_model = initialize_cd_model(cfg, mc, device="cpu", seed=3)
+    elif task == "recurrent":
+        from kurosiwo_torch.models.factory import initialize_recurrent_model
+
+        cfg = dict(bench.build_config(method, bsz), mixed_precision=False,
+                   synthetic_patch_size=side, **(keys or {}))
+        cpu_model = initialize_recurrent_model(cfg, mc, device="cpu", seed=3)
     else:
         cfg = dict(bench.build_config(method, bsz), mixed_precision=False,
                    synthetic_patch_size=side, **(keys or {}))
@@ -2337,7 +2383,7 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     # conditioning floor of the gradient, parameter and statistics bands of a
     # segmentation model (no dropout) that misses them: resnet50's train-mode
     # trunk moves its gradient by 3.5-4.4% in L2 under it
-    start = copy.deepcopy(cpu_model) if task != "cd" else None
+    start = copy.deepcopy(cpu_model) if task == "segmentation" else None
     c = cd_step_on(torch, counters, cpu_model, cfg, mc, batch, "cpu", masks, task)
     # the eval step of both from the CPU's trained weights: the same function
     for r, model in ((g, card_model), (c, cpu_model)):
@@ -2378,8 +2424,10 @@ def cd_card_vs_cpu(torch, counters, tag: str, method: str, mc: dict, bsz: int,
     require(launched == {k: 0 for k in counters} | c["plain_calls"],
             f"cd {tag} card train step launched {launched}, the CPU step made the plain calls "
             f"{c['plain_calls']}")
-    shape = f"({bsz},{side},{side},2)x2" if task == "cd" else f"({bsz},{side},{side},6)"
-    print(f"[{'cd' if task == 'cd' else 'seg-zoo'} parity] {tag} f32 {shape} card vs CPU: loss "
+    shape = {"cd": f"({bsz},{side},{side},2)x2", "recurrent": f"({bsz},3,{side},{side},2)"}.get(
+        task, f"({bsz},{side},{side},6)")
+    label = {"cd": "cd", "recurrent": "recurrent"}.get(task, "seg-zoo")
+    print(f"[{label} parity] {tag} f32 {shape} card vs CPU: loss "
           f"{g['loss']:.6f} vs {c['loss']:.6f}, eval loss {g['eloss']:.6f} vs "
           f"{c['eloss']:.6f}, cm max diff {(g['cm'] - c['cm']).abs().max().item():.0f} of "
           f"{valid} px, {'SGD buffer' if sgd else 'Adam moment'} rel L2 {l2:.2e} (band "
@@ -2641,19 +2689,53 @@ def phase_cd_hfanet_bf16(torch, smi: str, batch: int = 8) -> float:
     return ratio
 
 
-def phase_cd(torch, counters, smi: str) -> dict:
+def fused_tail_step(torch, counters, model: str, batch: int, launches: dict, label: str):
+    """One bf16 train step of a bench leg with ``fused_tail`` false, then
+    true: the fused step launches B2 once each way besides ``launches``
+    (and the plain step not at all), its loss within rtol 1e-5 of the plain
+    tail's, its cm's row sums equal and cells within 0.1% of the valid
+    pixels. Returns the fused step's launches and its Bench (after the
+    step)."""
+    from kurosiwo_torch import bench
+
+    res = {}
+    for fused in (False, True):
+        b = bench.setup(batch, overrides={"fused_tail": fused}, model=model)
+        zero_counters(counters)
+        one, metric = bench._train_fn(b)
+        res[fused] = (one().item(), metric[0].cm.cpu(), read_counters(counters))
+        del one
+        if not fused:
+            del b
+            torch.cuda.empty_cache()
+    (lp, cmp_, lau_p), (lf, cmf, lau_f) = res[False], res[True]
+    valid = int(cmp_.sum().item())
+    require(lau_f == {k: 0 for k in counters} | launches | {"ce_cm_fwd_nhwc": 1,
+                                                             "ce_cm_bwd_nhwc": 1},
+            f"{model} fused-tail step launched {lau_f}")
+    require(lau_p["ce_cm_fwd_nhwc"] == lau_p["ce_cm_bwd_nhwc"] == 0, "plain tail launched B2")
+    require(abs(lf - lp) <= 1e-5 * abs(lp), f"{model} fused-tail loss {lf} vs plain {lp}")
+    require(torch.equal(cmf.sum(1), cmp_.sum(1)) and (cmf - cmp_).abs().max().item()
+            <= 1e-3 * valid, f"{model} fused-tail cm")
+    lau_f = {k: v for k, v in lau_f.items() if v}
+    print(f"[{label} fused_tail] {model} b{batch} bf16 step with fused_tail true: loss {lf:.6f} "
+          f"vs plain tail {lp:.6f}, cm max diff {(cmf - cmp_).abs().max().item():.0f} of "
+          f"{valid} px, launches {lau_f}", flush=True)
+    return lau_f, b
+
+
+def phase_cd(torch, counters, smi: str, cli: list) -> dict:
     """The change-detection slice: card against CPU for the five methods,
     remat on the card, the SNUNet b128 main path (remat on and off, the
     f32-twin eval), Siam-diff at b128, HFA-Net and ADHR-CDNet at the largest
     batch that fits, B3 against its plain version at every BatchNorm input
     shape those steps gave it, HFA-Net's bf16 gradient scale, one SNUNet
-    b128 step with the fused CE + cm tail (B2) against the plain tail, and
-    the CLI twice at one seed. Returns the numbers of each."""
-    from kurosiwo_torch import bench
-
+    b128 step with the fused CE + cm tail (B2) against the plain tail; adds
+    to ``cli`` the CLI twice at one seed. Returns the numbers of each."""
     t0 = time.perf_counter()
     out = {"parity": phase_cd_parity(torch, counters)}
     phase_cd_remat(torch, counters)
+    marks = {"parity": time.perf_counter() - t0}
     bn_shapes: set = set()
     # the legs at 2 warm-up and 5 timed steps, 2 profiled (3, 10 and 3 before
     # the zoo phase joined the script, within its time limit)
@@ -2680,50 +2762,26 @@ def phase_cd(torch, counters, smi: str) -> dict:
     require(out["siam-diff"]["pair_sums"] == 58, "Siam-diff pair_sums a step")
     for model in ("hfa-net", "adhr-cdnet"):
         out[model] = cd_fitting(torch, counters, smi, model, bn_shapes)
+    marks["legs"] = time.perf_counter() - t0 - sum(marks.values())
     out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes)
     out["hfa_bf16_ratio"] = phase_cd_hfanet_bf16(torch, smi)
 
     # the fused CE + confusion-matrix tail (B2) on the SNUNet step, against the plain tail
-    res = {}
-    for fused in (False, True):
-        b = bench.setup(BATCH, overrides={"fused_tail": fused}, model="snunet")
-        zero_counters(counters)
-        one, metric = bench._train_fn(b)
-        loss = one()
-        res[fused] = (loss.item(), metric[0].cm.cpu(), read_counters(counters))
-        del b, one
-        torch.cuda.empty_cache()
-    (lp, cmp_, lau_p), (lf, cmf, lau_f) = res[False], res[True]
-    valid = int(cmp_.sum().item())
-    require(lau_f == {k: 0 for k in counters} | {"pair_sums": 76, "ce_cm_fwd_nhwc": 1,
-                                                  "ce_cm_bwd_nhwc": 1},
-            f"SNUNet fused-tail step launched {lau_f}")
-    require(lau_p["ce_cm_fwd_nhwc"] == lau_p["ce_cm_bwd_nhwc"] == 0, "plain tail launched B2")
-    require(abs(lf - lp) <= 1e-5 * abs(lp), f"SNUNet fused-tail loss {lf} vs plain {lp}")
-    require(torch.equal(cmf.sum(1), cmp_.sum(1)) and (cmf - cmp_).abs().max().item()
-            <= 1e-3 * valid, "SNUNet fused-tail cm")
-    print(f"[cd fused_tail] SNUNet b{BATCH} bf16 step with fused_tail true: loss {lf:.6f} vs "
-          f"plain tail {lp:.6f}, cm max diff {(cmf - cmp_).abs().max().item():.0f} of {valid} "
-          f"px, launches {lau_f}", flush=True)
+    lau_f, b = fused_tail_step(torch, counters, "snunet", BATCH, {"pair_sums": 76}, "cd")
+    del b
+    torch.cuda.empty_cache()
+
+    marks["checks"] = time.perf_counter() - t0 - sum(marks.values())
 
     # the CLI twice at one seed on the shipped configs with the cd task and two
     # inputs, as main.py takes them (deterministic by default for cd)
-    runs = []
-    for run in cli_pair({"on_screen_prints": True, "task": "cd"}, method=("snunet",),
-                        extra=("--inputs", "pre_event_1", "post_event")):
-        require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
-                f"the CD CLI left no checkpoint_epoch=0: {run['files']}")
-        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
-        runs.append({"first": first, "lines": [
-            {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
-            "miou": run["miou"]})
-        print(f"[cd cli] python -m kurosiwo_torch --method snunet --inputs pre_event_1 "
-              f"post_event --seed 7 (\"task\": \"cd\"): exit 0 in "
-              f"{run['seconds']:.1f} s (two runs at once), first-step loss {first}, Test Mean IOU "
-              f"{run['miou']!r}, checkpoint_epoch=0 written [{smi}]", flush=True)
-    require(runs[0] == runs[1], "two deterministic CD CLI runs at one seed differ")
-    print(f"[cd] the two CLI runs agree in every printed number; phase wall "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    inputs = ("--inputs", "pre_event_1", "post_event")
+    cli.append(CliJob([({"on_screen_prints": True, "task": "cd"}, ("snunet",), inputs)] * 2,
+                      lambda results: cli_pair_check("cd", "snunet", " ".join(inputs) + " ", smi,
+                                                     results, note=' ("task": "cd")')))
+    print(f"[cd] phase wall {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI pair runs in the "
+          f"CLI pool) [{smi}]", flush=True)
     out["fused_tail"] = lau_f
     return out
 
@@ -2963,7 +3021,7 @@ def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: d
     return res
 
 
-def phase_cd_attn(torch, counters, smi: str) -> dict:
+def phase_cd_attn(torch, counters, smi: str, cli: list) -> dict:
     """The attention change-detection models: card against CPU (f32, one
     train and one eval step) for BiT-CD base_resnet18 and
     base_transformer_pos_s4_dd8, ChangeFormer with multi_scale_train and
@@ -2972,8 +3030,9 @@ def phase_cd_attn(torch, counters, smi: str) -> dict:
     ChangeFormer (its defaults, the f32-twin eval, and tail_chunks 1 with
     remat_ffn false) and TransUNet-CD, on the bench's config; B4 against its
     plain version at every short-attention shape those steps launched and
-    B3 at every BatchNorm input shape; the CLI once for BiT-CD and
-    TransUNet-CD and twice for ChangeFormer. Returns the numbers of each."""
+    B3 at every BatchNorm input shape; adds to ``cli`` the CLI once for
+    BiT-CD and TransUNet-CD and twice for ChangeFormer. Returns the numbers
+    of each."""
     from kurosiwo_torch.ops import short_attention as sa
 
     t0 = time.perf_counter()
@@ -2982,7 +3041,9 @@ def phase_cd_attn(torch, counters, smi: str) -> dict:
         mc = dict(mc, optimizer="adam", learning_rate=1e-3)
         out["parity"][tag] = cd_card_vs_cpu(torch, counters, tag, method, mc, bsz, side)
     torch.cuda.empty_cache()
+    marks = {"parity": time.perf_counter() - t0}
     out["memory_keys"] = phase_cd_attn_memory(torch, counters, smi)
+    marks["memory keys"] = time.perf_counter() - t0 - sum(marks.values())
     bn_shapes: set = set()
     attn: dict = {}
     leg = lambda *a, **kw: cd_attn_leg(torch, counters, smi, *a, bn_shapes=bn_shapes,
@@ -3016,32 +3077,34 @@ def phase_cd_attn(torch, counters, smi: str) -> dict:
             f"short-attention launches a step by kernel {sa_steps}")
     require(not out["bit-cd"].get("short_attention") and not out["transunet-cd"].get(
         "short_attention"), "a leg without B4 launched it")
+    marks["legs"] = time.perf_counter() - t0 - sum(marks.values())
     out["b4"] = phase_cd_attn_b4(torch, sa, attn)
     out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes)
+    marks["kernels"] = time.perf_counter() - t0 - sum(marks.values())
 
-    runs = {}
     cfg, inputs = {"on_screen_prints": True, "task": "cd"}, ("--inputs", "pre_event_1",
                                                              "post_event")
-    # one at a time: ChangeFormer's and TransUNet-CD's f32 evals at b128 take
-    # 35 GiB and more each
-    done = [(m, cli_wave([(cfg, (m,), inputs)])[0])
-            for m in ("bit-cd", "changeformer", "changeformer", "transunet-cd")]
-    for method, run in done:
-        require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
-                f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
-        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
-        runs.setdefault(method, []).append({"first": first, "lines": [
-            {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
-            "miou": run["miou"]})
-        print(f"[cd-attn cli] python -m kurosiwo_torch --method {method} --inputs pre_event_1 "
-              f"post_event --seed 7 (\"task\": \"cd\"): exit 0 in {run['seconds']:.1f} s, "
-              f"first-step loss {first}, Test Mean IOU {run['miou']!r}, checkpoint_epoch=0 "
-              f"written [{smi}]", flush=True)
-    a, b = runs["changeformer"]
-    require(a == b, "two deterministic ChangeFormer CLI runs at one seed differ")
+    flags = " ".join(inputs) + " "
+
+    def check(results: list) -> None:
+        for method, res in zip(("bit-cd", "transunet-cd"), results):
+            run = cli_finish(res)
+            require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
+                    f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
+            first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+            print(f"[cd-attn cli] python -m kurosiwo_torch --method {method} {flags}--seed 7 "
+                  f"(\"task\": \"cd\"): exit 0 in {run['seconds']:.1f} s ({run['at_once']} at "
+                  f"once at most), first-step loss {first}, Test Mean IOU {run['miou']!r}, "
+                  f"checkpoint_epoch=0 written [{smi}]", flush=True)
+        cli_pair_check("cd-attn", "changeformer", flags, smi, results[2:],
+                       note=' ("task": "cd")')
+
+    cli.append(CliJob([(cfg, (m,), inputs) for m in ("bit-cd", "transunet-cd", "changeformer",
+                                                      "changeformer")], check))
     out["wall_s"] = time.perf_counter() - t0
-    print(f"[cd-attn] the two ChangeFormer CLI runs agree in every printed number; phase wall "
-          f"{out['wall_s']:.1f} s [{smi}]", flush=True)
+    print(f"[cd-attn] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI runs in the CLI "
+          f"pool) [{smi}]", flush=True)
     return out
 
 
@@ -3078,6 +3141,9 @@ ZOO_LEGS = (
     ("deeplabv3 resnet50", "deeplabv3", {"backbone": "resnet50"}, (BATCH,)),
 )
 ZOO_CLI = ("unet++", "deeplabv3", "upernet", "finetune")
+# the zoo and recurrent legs' train steps: warm-up, timed (3 and 10 before
+# the MAE-loop and recurrent phases joined the script, within its time limit)
+ZOO_STEPS = (2, 5)
 
 
 def zoo_swin_deterministic(torch) -> None:
@@ -3105,33 +3171,35 @@ def zoo_swin_deterministic(torch) -> None:
 
 
 def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
-            bn_shapes: set, attn: dict, batches: tuple = (BATCH, BATCH // 2, BATCH // 4)) -> dict:
-    """A full-width bf16 train leg (3 warm-up, 10 timed) and its f32-twin
-    eval (2 warm-up, 5 timed) through ``cd_timed`` at the first of
-    ``batches`` that fits (named on its line); its short-attention shapes
-    go to ``attn``."""
+            bn_shapes: set, attn: dict, batches: tuple = (BATCH, BATCH // 2, BATCH // 4),
+            label: str = "seg-zoo main") -> dict:
+    """A full-width bf16 train leg (ZOO_STEPS: 2 warm-up, 5 timed, 2
+    profiled) and its f32-twin eval (2 warm-up, 5 timed) through
+    ``cd_timed`` at the first of ``batches`` that fits (named on its line);
+    its short-attention shapes go to ``attn``."""
     import collections
     import gc
 
     for batch in batches:
         shapes = collections.Counter()
         try:
-            res = cd_timed(torch, counters, smi, model, batch, {}, 3, 10, eval_too=True,
-                           eval_steps=(2, 5), bn_shapes=bn_shapes, model_config=model_config,
-                           attn_shapes=shapes, tag=tag, label="seg-zoo main")
+            res = cd_timed(torch, counters, smi, model, batch, {}, *ZOO_STEPS, eval_too=True,
+                           eval_steps=(2, 5), profile_steps=2, bn_shapes=bn_shapes,
+                           model_config=model_config,
+                           attn_shapes=shapes, tag=tag, label=label)
         except torch.cuda.OutOfMemoryError:
-            print(f"[seg-zoo main] {tag} b{batch}: out of memory [{smi}]", flush=True)
+            print(f"[{label}] {tag} b{batch}: out of memory [{smi}]", flush=True)
             res = None
         if res is not None:
             for shape, calls in shapes.items():
-                attn.setdefault(shape, (tag, calls // 13))
+                attn.setdefault(shape, (tag, calls // sum(ZOO_STEPS)))
             return res
         gc.collect()
         torch.cuda.empty_cache()
     raise PhaseFailed(f"{tag}: no batch of {batches} fits")
 
 
-def phase_seg_zoo(torch, counters, smi: str) -> dict:
+def phase_seg_zoo(torch, counters, smi: str, cli: list) -> dict:
     """The rest of the segmentation zoo (UNet++, DeepLabV3+ on resnet18 and
     resnet50, UperNet on ConvNeXt and Swin, the FloodViT finetuner): card
     against CPU (f32, one train and one eval step) for each model and head at
@@ -3140,9 +3208,9 @@ def phase_seg_zoo(torch, counters, smi: str) -> dict:
     legs on the bench's config, each BatchNorm model launching B3 twice a
     BatchNorm a step and the finetuner B4 24 times each way on the wgmma
     kernels; B3 against its plain version at every BatchNorm input shape of
-    those steps and B4 at the finetuner's shapes; the CLI twice at one seed
-    for unet++, deeplabv3, upernet (the six at once) and finetune (at the
-    batch its leg fit, one at a time). Returns the numbers of each."""
+    those steps and B4 at the finetuner's shapes; adds to ``cli`` the CLI
+    twice at one seed for unet++, deeplabv3, upernet and finetune (at the
+    batch its leg fit). Returns the numbers of each."""
     from kurosiwo_torch.ops import short_attention as sa
 
     t0 = time.perf_counter()
@@ -3176,37 +3244,26 @@ def phase_seg_zoo(torch, counters, smi: str) -> dict:
     out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes, label="seg-zoo",
                                                 what="zoo's b128 train steps")
     marks["kernels"] = time.perf_counter() - t0 - sum(marks.values())
-    # the CLI twice a method at one seed: the six runs of the convolutional
-    # models at once (at most 15 GiB each in their legs), then the finetuner's
-    # two one at a time, at the batch its leg fit (b128 does not fit an 80 GB
-    # card; b64 peaks at 35 GiB)
+    # the CLI twice a method at one seed, the finetuner's at the batch its leg
+    # fit (b128 does not fit an 80 GB card; b64 peaks at 35 GiB)
     fit = out["finetune ViT-L"]["batch"]
     extra = {m: ("--batch_size", str(fit)) if m == "finetune" and fit != BATCH else ()
              for m in ZOO_CLI}
     cfg = {"on_screen_prints": True}
-    waves = [["unet++", "unet++", "deeplabv3", "deeplabv3", "upernet", "upernet"],
-             ["finetune"], ["finetune"]]
-    runs: dict = {}
-    for wave in waves:
-        for method, run in zip(wave, cli_wave([(cfg, (m,), extra[m]) for m in wave])):
-            first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
-            runs.setdefault(method, []).append({"first": first, "lines": [
-                {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
-                "miou": run["miou"]})
-            print(f"[seg-zoo cli] python -m kurosiwo_torch --method {method} "
-                  f"{' '.join(extra[method])} --seed 7: exit 0 in {run['seconds']:.1f} s "
-                  f"({len(wave)} runs at once), first-step loss {first}, Test Mean IOU "
-                  f"{run['miou']!r} [{smi}]", flush=True)
     out["cli"] = {}
-    for method in ZOO_CLI:
-        a, b = runs[method]
-        require(a == b, f"two deterministic {method} CLI runs at one seed differ")
-        out["cli"][method] = a["miou"]
+
+    def check(results: list) -> None:
+        for i, method in enumerate(ZOO_CLI):
+            flags = "".join(f"{x} " for x in extra[method])
+            a, _ = cli_pair_check("seg-zoo", method, flags, smi, results[2 * i:2 * i + 2],
+                                  epoch_checkpoint=False)
+            out["cli"][method] = a["miou"]
+
+    cli.append(CliJob([(cfg, (m,), extra[m]) for m in ZOO_CLI for _ in range(2)], check))
     out["wall_s"] = time.perf_counter() - t0
-    marks["cli"] = out["wall_s"] - sum(marks.values())
-    print(f"[seg-zoo] each method's two CLI runs agree in every printed number; phase wall "
-          f"{out['wall_s']:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}) "
-          f"[{smi}]", flush=True)
+    print(f"[seg-zoo] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI runs in the CLI "
+          f"pool) [{smi}]", flush=True)
     return out
 
 
@@ -3218,6 +3275,414 @@ def zoo_summary(zoo: dict, smi: str) -> str:
         "cli_test_miou": zoo["cli"], "phase_wall_s": zoo["wall_s"]})
 
 
+# the MAE loop at a small size, card against CPU: MAE_SMALL's ViT at accum 2,
+# 2 epochs of 4 steps of b8, lr_scales on (first pattern wins)
+MAE_LOOP_SMALL = dict(MAE_SMALL, accumulate_gradients=2, warmup_epochs=1, learning_rate=1e-4,
+                      min_lr=0)
+MAE_LOOP_SCALES = {"transformer/attn_0/": 0.5, "encoder/": 0.25, "decoder/": 2.0}
+# the full-width loop: the shipped mae.json at b128 (train_config.json), 2
+# epochs of this many steps on the synthetic SSL source; epoch 0 is the
+# warm-up, epoch 1 the timed run
+MAE_LOOP_STEPS = 8
+
+
+def mae_loop_config(root, **kw) -> dict:
+    """The MAE task's config as the CLI builds it (``load_config`` on the
+    repository's configs with ``"task": "mae"``), run under ``root``."""
+    from pathlib import Path
+
+    from kurosiwo_torch.config import load_config
+
+    cfg = load_config(method="mae", config_root=Path(__file__).resolve().parent / "configs")
+    cfg.update(task="mae", root_path=str(Path(root) / "no-corpus"),
+               checkpoint_path=str(Path(root) / "mae"), **kw)
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_mae_loop():
+    """While active, the MAE loop's loader and checkpoint manager record, for
+    each epoch of ring batches, its start, the host time spent waiting for
+    batches and the host time between them (the step's), and for each save
+    its start, seconds and bytes. Yields {"epochs": [...], "saves": [...]}."""
+    from kurosiwo_torch.training import mae as tmae
+
+    rec: dict = {"epochs": [], "saves": []}
+    loader_cls, ckpt_cls = tmae.SSLLoader, tmae.CheckpointManager
+
+    class TimedLoader(loader_cls):
+        def ring_batches(self, pin: bool = False):
+            ep = {"start": time.perf_counter(), "wait": 0.0, "host": 0.0, "batches": 0}
+            rec["epochs"].append(ep)
+            t = time.perf_counter()
+            for batch in super().ring_batches(pin):
+                got = time.perf_counter()
+                ep["wait"] += got - t
+                ep["batches"] += 1
+                yield batch
+                t = time.perf_counter()
+                ep["host"] += t - got
+
+    class TimedCheckpoints(ckpt_cls):
+        def save(self, name, state, extra=None):
+            t = time.perf_counter()
+            super().save(name, state, extra)
+            nbytes = (self.dir / self._read_ptr(name)["slot"]).stat().st_size
+            rec["saves"].append({"name": name, "start": t, "s": time.perf_counter() - t,
+                                 "bytes": nbytes})
+
+    tmae.SSLLoader, tmae.CheckpointManager = TimedLoader, TimedCheckpoints
+    try:
+        yield rec
+    finally:
+        tmae.SSLLoader, tmae.CheckpointManager = loader_cls, ckpt_cls
+
+
+def mae_loop_on(torch, counters, root, device: str, noise: list):
+    """``training/mae.train`` at MAE_LOOP_SMALL on ``device``: the card draws
+    each microbatch's masking noise as its step would and records it into
+    ``noise``, the CPU replays it. Returns the losses, the learning rates,
+    the final parameters, the card's launches and the CPU's plain B4
+    calls."""
+    from kurosiwo_torch.ops import short_attention as sa
+    from kurosiwo_torch.training import mae as tmae
+
+    real_step, real_sched = tmae.make_mae_train_step, tmae.mae_warmup_cosine
+    plains = {"short_attention_fwd": "short_attention_fwd_plain",
+              "short_attention_bwd": "short_attention_bwd_plain"}
+    real_plain = {k: getattr(sa, name) for k, name in plains.items()}
+    plain, lrs = dict.fromkeys(plains, 0), []
+
+    def make_step(model, accum, device):
+        step = real_step(model, accum, device=device)
+        n = model.encoder.num_patches
+
+        def one(state, batch, lr, gen):
+            micro = batch["image"].shape[0] // accum
+            if device.type == "cuda":
+                z = torch.stack([torch.rand((micro, n), generator=gen, device=device)
+                                 for _ in range(accum)])
+                noise.append(z.cpu())
+            else:
+                z = noise.pop(0)
+            return step(state, batch, lr, gen, noise=z)
+        return one
+
+    def sched(*a):
+        schedule = real_sched(*a)
+        return lambda e: lrs.append(schedule(e)) or lrs[-1]
+
+    def counting(key):
+        def call(*a):
+            plain[key] += 1
+            return real_plain[key](*a)
+        return call
+
+    tmae.make_mae_train_step, tmae.mae_warmup_cosine = make_step, sched
+    for k, name in plains.items():
+        setattr(sa, name, counting(k))
+    try:
+        cfg = mae_loop_config(root / device, mixed_precision=False, batch_size=8,
+                              synthetic_size=32, synthetic_patch_size=112, num_workers=4,
+                              epochs=2, print_frequency=10**6, lr_scales=MAE_LOOP_SCALES)
+        losses: list = []
+        zero_counters(counters)
+        state = tmae.train(cfg, seed=5, model_configs=MAE_LOOP_SMALL, record_losses=losses,
+                           device=device)
+        launched = read_counters(counters)
+    finally:
+        tmae.make_mae_train_step, tmae.mae_warmup_cosine = real_step, real_sched
+        for k, name in plains.items():
+            setattr(sa, name, real_plain[k])
+    return {"losses": losses, "lrs": lrs, "launched": launched, "plain": plain,
+            "groups": [g["lr_scale"] for g in state.optimizer.param_groups],
+            "params": {k: v.detach().cpu() for k, v in state.model.named_parameters()}}
+
+
+def mae_loop_card_vs_cpu(torch, counters) -> dict:
+    """The MAE loop (``training/mae.train``: the SSL loader, the schedule, the
+    bf16-moment Adam with ``lr_scales``, the checkpoints) at MAE_LOOP_SMALL,
+    f32, 2 epochs of 4 steps, on the card against the CPU, the card's
+    masking noise replayed on the CPU: the same learning rates and groups;
+    the first step's loss rtol 1e-4 (the same weights), the others 5e-3;
+    parameters all within twice the summed largest scaled lr and 99% within
+    0.3 of it (Adam's sign flips, C6); B4 launched once for each plain call
+    of the CPU run."""
+    import tempfile
+    from pathlib import Path
+
+    noise: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        g = mae_loop_on(torch, counters, Path(tmp), "cuda", noise)
+        drawn = len(noise)
+        c = mae_loop_on(torch, counters, Path(tmp), "cpu", noise)
+    require(not noise and drawn == len(c["losses"]) == 8,
+            f"MAE loop: {drawn} noise draws for {len(c['losses'])} CPU steps")
+    require(g["lrs"] == c["lrs"] and g["groups"] == c["groups"] == [1.0, 0.25, 0.5, 2.0],
+            f"MAE loop lrs {g['lrs']} / {c['lrs']}, groups {g['groups']} / {c['groups']}")
+    gl, cl = g["losses"], c["losses"]
+    require(abs(gl[0] - cl[0]) <= 1e-4 * abs(cl[0]) and all(
+        abs(a - b) <= 5e-3 * abs(b) for a, b in zip(gl, cl)), f"MAE loop losses {gl} vs {cl}")
+    total = 2.0 * sum(c["lrs"])  # the largest scale
+    d = torch.cat([(g["params"][k] - c["params"][k]).abs().reshape(-1) for k in c["params"]])
+    pmax, share = d.max().item(), (d <= 0.3 * total).float().mean().item()
+    require(pmax <= 2 * total + 1e-7 and share >= 0.99,
+            f"MAE loop params: max {pmax}, share within 0.3 x summed lr {share}")
+    want = {k: 0 for k in counters} | c["plain"]
+    require(g["launched"] == want and c["plain"]["short_attention_fwd"] > 0,
+            f"MAE loop card launches {g['launched']}, the CPU's plain calls {c['plain']}")
+    print(f"[mae-train parity] loop f32 2 epochs x 4 steps b8 accum 2 (lr_scales groups "
+          f"{g['groups']}) card vs CPU: losses {[round(x, 6) for x in gl]} vs "
+          f"{[round(x, 6) for x in cl]}, params max {pmax:.2e} ({share * 100:.2f}% within 0.3 "
+          f"x summed lr), B4 launches {g['launched']['short_attention_fwd']} / "
+          f"{g['launched']['short_attention_bwd']} for {c['plain']} plain calls", flush=True)
+    return {k: v for k, v in g["launched"].items() if v}
+
+
+def mae_loop_main(torch, counters, smi: str, attn) -> dict:
+    """The full-width MAE loop: the shipped mae.json (ViT-L 1024 x 24, 16
+    heads of 64, decoder 512 x 8, accum 4) at b128 on the synthetic SSL
+    source, 2 epochs of MAE_LOOP_STEPS steps through ``training/mae.train``
+    (bf16, Adam with bf16 moments), epoch 1 timed: patches/s, the host time
+    a step outside the loader wait, B4 launches a step by kernel (every one
+    on the wgmma kernels), the peak memory and the seconds and bytes of the
+    mae_0 and vit_0 saves; then the SSL loader alone over one epoch (after
+    its start-up), and the card's busy time a step (torch.profiler, 2 steps
+    of the trained state) and so its idle share of the timed epoch. Its
+    short-attention calls are counted in ``attn``."""
+    import tempfile
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.data.ssl import SSLLoader
+    from kurosiwo_torch.training import mae as tmae
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = mae_loop_config(tmp, synthetic_size=MAE_LOOP_STEPS * BATCH, epochs=2,
+                              print_frequency=MAE_LOOP_STEPS)
+        mcfg = cfg["model_config"]
+        accum = int(mcfg["accumulate_gradients"])
+        require(cfg["batch_size"] == BATCH and accum == 4 and mcfg["dim"] == 1024,
+                f"the shipped MAE config: batch {cfg['batch_size']}, accum {accum}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        with timed_mae_loop() as rec, recording_attention_shapes(attn):
+            state = tmae.train(cfg, seed=7, model_configs=mcfg)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches, by_kernel = read_counters(counters), read_kernel_counters(counters)
+        steps = 2 * MAE_LOOP_STEPS
+        ep = rec["epochs"][1]
+        saves = {x["name"]: x for x in rec["saves"]}
+        require(sorted(saves) == ["mae_0", "mae_1", "vit_0", "vit_1"] and state.step == steps
+                and ep["batches"] == MAE_LOOP_STEPS, f"MAE loop: saves {sorted(saves)}, "
+                f"{state.step} steps, {ep['batches']} batches in epoch 1")
+        seconds = saves["mae_1"]["start"] - ep["start"]
+        per_step = 32 * accum  # 24 encoder + 8 decoder layers a microbatch
+        want = {k: 0 for k in counters} | {"short_attention_fwd": per_step * steps,
+                                           "short_attention_bwd": per_step * steps}
+        wgmma = {k: v for k, v in by_kernel.items() if k.startswith(ATTN_WRAPPERS) and v}
+        require(launches == want and wgmma == {
+            "short_attention_fwd.wgmma": per_step * steps,
+            "short_attention_bwd.wgmma": per_step * steps},
+            f"MAE loop launches {launches}, by kernel {wgmma}")
+        out = {"batch": BATCH, "accum": accum, "steps": MAE_LOOP_STEPS,
+               "rate": MAE_LOOP_STEPS * BATCH / seconds, "ms": seconds / MAE_LOOP_STEPS * 1e3,
+               "wait_s": ep["wait"], "host_ms": ep["host"] / MAE_LOOP_STEPS * 1e3,
+               "peak_gib": peak, "short_attention": {k: v // steps for k, v in wgmma.items()},
+               "saves": {k: {"s": v["s"], "bytes": v["bytes"]} for k, v in saves.items()}}
+        # the card's busy time a step: 2 profiled steps of the trained state
+        images = torch.randn((BATCH, 224, 224, 6), device=dev,
+                             generator=torch.Generator(dev).manual_seed(3))
+        step = tmae.make_mae_train_step(state.model, accum, device=dev)
+        gen = torch.Generator(dev).manual_seed(4)
+        prof = bench.profile(lambda: step(state, {"image": images}, 1e-6, gen)[1], 2, dev,
+                             out["ms"], file=sys.stdout)
+        out["busy_ms"] = prof["kernel_ms"]
+        out["idle"] = max(0.0, 1 - out["busy_ms"] / out["ms"])
+        del state, step, images
+        torch.cuda.empty_cache()
+        # the SSL loader alone: one epoch of ring batches after its start-up
+        loader = SSLLoader(cfg, seed=7)
+        try:
+            loader._start()
+            n, t0 = 0, time.perf_counter()
+            for b in loader.ring_batches():
+                n += len(b["image"])
+                b.release()
+            out["loader_alone"] = n / (time.perf_counter() - t0)
+        finally:
+            loader.close()
+    print(f"[mae-train main] loop ViT-L b{BATCH} accum {accum} bf16 (the shipped mae.json, "
+          f"synthetic SSL source, {cfg['num_workers']} decode processes): epoch 1 "
+          f"{out['rate']:.2f} patches/s ({out['ms']:.2f} ms/step, {ep['wait']:.3f} s waiting on "
+          f"the loader, host {out['host_ms']:.2f} ms a step outside the wait), the SSL loader "
+          f"alone {out['loader_alone']:.2f} patches/s, device busy {out['busy_ms']:.2f} ms/step "
+          f"(idle {out['idle'] * 100:.1f}% of the timed epoch), peak {peak:.2f} GiB, B4 a step "
+          f"{out['short_attention']}; saves "
+          + ", ".join(f"{k} {v['s']:.2f} s {v['bytes']} B" for k, v in sorted(out["saves"].items()))
+          + f" [{smi}]", flush=True)
+    return out
+
+
+def mae_cli_finish(res: dict, smi: str) -> dict:
+    """Of the CLI run ``python -m kurosiwo_torch --method mae --seed 7`` with
+    ``"task": "mae"`` in a copy of the shipped configs (ViT-L at b128, accum
+    4, the 256-sample synthetic SSL source: 2 steps; a ``cli_collect``
+    result): exit 0, finite printed losses, mae_0 and vit_0 written."""
+    import re
+
+    written = sorted(f.rsplit("/", 1)[-1] for f in res["files"] if f.endswith(".ptr.json"))
+    losses = [float(x) for x in re.findall(r"loss=(\S+) lr=", res["stdout"])]
+    if res["rc"] or not losses:
+        print(res["stdout"][-3000:], res["stderr"][-3000:], sep="\n", flush=True)
+    require(res["rc"] == 0, f"the MAE CLI exited {res['rc']}")
+    require(losses and all(math.isfinite(x) for x in losses), f"the MAE CLI's losses {losses}")
+    require({"mae_0.ptr.json", "vit_0.ptr.json"} <= set(written),
+            f"the MAE CLI wrote {written}")
+    print(f"[mae-train cli] python -m kurosiwo_torch --method mae --seed 7 (\"task\": \"mae\", "
+          f"shipped mae.json at b{BATCH}): exit 0 in {res['seconds']:.1f} s ({res['at_once']} at "
+          f"once at most), losses {losses}, wrote {written} [{smi}]", flush=True)
+    return {"seconds": res["seconds"], "losses": losses}
+
+
+def phase_mae_train(torch, counters, smi: str, sa, cli: list) -> dict:
+    """MAE pretraining end to end: the loop card against CPU at a small size,
+    the full-width loop, B4 against its plain version at the loop's
+    microbatch shapes (its time beside SDPA's and its bound); adds to
+    ``cli`` the CLI with ``"task": "mae"``. Returns the numbers of each."""
+    import collections
+
+    t0 = time.perf_counter()
+    out = {"parity": mae_loop_card_vs_cpu(torch, counters)}
+    marks = {"parity": time.perf_counter() - t0}
+    shapes = collections.Counter()
+    out["main"] = mae_loop_main(torch, counters, smi, shapes)
+    calls = 2 * MAE_LOOP_STEPS
+    out["b4"] = phase_cd_attn_b4(torch, sa, {k: ("mae loop", v // calls)
+                                             for k, v in shapes.items()},
+                                 label="mae-train", what="MAE loop's microbatches")
+    marks["main"] = time.perf_counter() - t0 - sum(marks.values())
+    torch.cuda.empty_cache()
+    cli.append(CliJob([({"task": "mae"}, ("mae",), ())],
+                      lambda results: out.update(cli=mae_cli_finish(results[0], smi))))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[mae-train] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI run in the CLI "
+          f"pool) [{smi}]", flush=True)
+    return out
+
+
+# the recurrent task: card against CPU at (2, 3, 64, 64, 2), f32
+RECURRENT_SMALL = (2, 64)
+
+
+def phase_recurrent(torch, counters, smi: str, fused_tail, cli: list) -> dict:
+    """The recurrent task (the ConvLSTM): one f32 train and eval step card
+    against CPU at a small size (``cd_card_vs_cpu``); the b128 bf16 train
+    step on the bench's config (three 224^2 frames of 2 channels; b64 or
+    b32 where b128 does not fit) and its f32-twin eval; one step with
+    ``fused_tail: true``, B2 launched once each way, its loss and banks
+    against the plain tail's; B2 against its plain version at the step's
+    (B, 224, 224, 3) f32 probabilities, timed beside the plain version, the
+    library yardstick and the bound; adds to ``cli`` the CLI twice at one
+    seed (``--method convlstm``, the shipped configs), which must write
+    ``checkpoint_epoch=0`` and print the same numbers. Returns the numbers of
+    each."""
+    from kurosiwo_torch import bench
+
+    t0 = time.perf_counter()
+    bsz, side = RECURRENT_SMALL
+    mc = dict(bench.MODEL_CONFIG, optimizer="adam", learning_rate=1e-3)
+    out = {"parity": {k: v for k, v in cd_card_vs_cpu(
+        torch, counters, "convlstm", "convlstm", mc, bsz, side, task="recurrent").items() if v}}
+    marks = {"parity": time.perf_counter() - t0}
+    out["convlstm"] = res = zoo_leg(torch, counters, smi, "convlstm", "convlstm", None, set(),
+                                    {}, label="recurrent main")
+    require(res["pair_sums"] == 0 and "short_attention" not in res,
+            f"the ConvLSTM step launched pair_sums {res['pair_sums']}")
+    batch = res["batch"]
+    marks["legs"] = time.perf_counter() - t0 - sum(marks.values())
+
+    # the fused CE + confusion-matrix tail (B2) on the recurrent step, against the plain tail
+    from kurosiwo_torch.training.steps import assemble_recurrent_input
+
+    out["fused_tail"], b = fused_tail_step(torch, counters, "convlstm", batch, {}, "recurrent")
+    with torch.no_grad():  # the trained step's probabilities, B2's input
+        probs = b.state.model(assemble_recurrent_input(b.batch, b.config)).contiguous()
+    labels = b.batch["mask"].to(torch.int32)
+    del b
+    torch.cuda.empty_cache()
+    cw = torch.tensor(CW, device="cuda")
+    tag = f"nhwc ConvLSTM probabilities {tuple(probs.shape)} f32"
+    lerr, derr, unit = ce_cm_check(torch, fused_tail, "nhwc", probs, labels, cw, tag)
+    times = ce_cm_times(torch, fused_tail, "nhwc", probs, labels, cw)
+    out["b2"] = {"shape": list(probs.shape), "unit": unit, "fwd": dict(times["fwd"],
+                 max_abs_err=lerr), "bwd": dict(times["bwd"], max_abs_err=derr)}
+    for k in ("fwd", "bwd"):
+        o = out["b2"][k]
+        print(f"[recurrent b2 {k}] {tag}: {unit} unit, kernel {o['ms']:.4f} ms, plain "
+              f"{o['plain_ms']:.4f} ms, library {o['library_ms']:.4f} ms, bound "
+              f"{o['bound_ms'] * 1e3:.1f} us ({o['bound_by']}), max abs error "
+              f"{o['max_abs_err']:.3e}", flush=True)
+    del probs, labels
+    torch.cuda.empty_cache()
+    marks["b2"] = time.perf_counter() - t0 - sum(marks.values())
+
+    # the CLI twice at one seed on the shipped configs, at the batch the leg fit
+    extra = ("--batch_size", str(batch)) if batch != BATCH else ()
+
+    def check(results: list) -> None:
+        flags = "".join(f"{x} " for x in extra)
+        out["cli"] = cli_pair_check("recurrent", "convlstm", flags, smi, results)[0]["miou"]
+
+    cli.append(CliJob([({"on_screen_prints": True}, ("convlstm",), extra)] * 2, check))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[recurrent] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI pair runs in the "
+          f"CLI pool) [{smi}]", flush=True)
+    return out
+
+
+def slice_summary(mae: dict | None, rec: dict | None, smi: str) -> str:
+    """One line of the MAE-loop and recurrent phases' numbers, printed near
+    the end."""
+    line: dict = {"card": smi}
+    if mae is not None:
+        line["mae_train"] = {"loop": mae["main"], "b4": mae["b4"], "cli": mae["cli"],
+                             "card_vs_cpu_launches": mae["parity"], "phase_wall_s": mae["wall_s"]}
+    if rec is not None:
+        line["recurrent"] = {"legs": _legs({"convlstm": rec["convlstm"]}), "b2": rec["b2"],
+                             "fused_tail_launches": rec["fused_tail"], "cli_test_miou": rec["cli"],
+                             "phase_wall_s": rec["wall_s"]}
+    return "[slice summary] " + json.dumps(line)
+
+
+# The CLI runs that the phases ask for run in one pool after the last phase,
+# beside no timed step: at most CLI_AT_ONCE processes at once whose estimated
+# peaks (CLI_GIB) sum to at most CLI_BUDGET_GIB, the largest first. Each
+# estimate is the larger of the model's train and f32-eval peaks in its leg
+# of this script (b128; the finetuner's b64), rounded up, plus 1 GiB for the
+# process's own CUDA context (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). No
+# two runs of 36 GiB and more fit the budget together, so each of those runs
+# beside smaller ones.
+CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 39, "changeformer": 36,
+           "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 37, "convlstm": 23, "mae": 8}
+CLI_BUDGET_GIB = 62
+CLI_AT_ONCE = 6
+CLI_TIMEOUT_S = 600
+
+
+class CliJob:
+    """CLI runs that a phase asks for (``specs``: (config, method, extra)
+    each, as ``cli_start`` takes them) and ``check``, which ``phase_cli``
+    calls with their ``cli_collect`` results, in the order of ``specs``,
+    once the pool has run them all."""
+
+    def __init__(self, specs: list[tuple], check):
+        self.specs, self.check = specs, check
+
+
 def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
               extra: tuple = ()) -> dict:
     """Starts ``python -m kurosiwo_torch --method unet --backbone resnet18
@@ -3226,15 +3691,19 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
     subprocess and a temporary directory, on a copy of the shipped configs
     with ``config`` merged into train/train_config.json, the last file
     merged (none: the shipped files as they are); it reuses the kernels
-    already built. ``cli_finish`` waits for it."""
+    already built, and writes its stdout and stderr to files there. The
+    run's allocator takes expandable segments (PYTORCH_CUDA_ALLOC_CONF), so
+    that the memory it holds stays near what it allocates."""
     import os
     import shutil
     import tempfile
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    # the allocator maps what a run uses, so that the pool's estimates hold
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               PYTHONPATH=os.pathsep.join([str(root)] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     argv = ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra]
     tmp = tempfile.TemporaryDirectory()
     configs = root / "configs"
@@ -3245,106 +3714,184 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
         shutil.copytree(root / "configs", configs)
         path = configs / "train" / "train_config.json"
         path.write_text(json.dumps({**load_json5(path), **config}))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
-         "--config_root", str(configs)],
-        cwd=tmp.name, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter()}
+    with open(Path(tmp.name) / "cli.stdout", "w") as so, \
+            open(Path(tmp.name) / "cli.stderr", "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
+             "--config_root", str(configs)], cwd=tmp.name, env=env, stdout=so, stderr=se)
+    return {"proc": proc, "tmp": tmp, "t0": time.perf_counter(), "argv": argv, "at_once": 1}
 
 
-def cli_finish(run: dict) -> dict:
-    """Waits for a ``cli_start`` run (600 s at most). Exit 0 and a ``Test
-    Mean IOU:`` line are required. Returns the seconds, the test mIoU, the
-    JSON lines it printed (with on_screen_prints) and the files it wrote
-    under checkpoints/."""
-    import re
+def cli_collect(run: dict) -> dict:
+    """The result of a ``cli_start`` run that has ended (``run["end"]``: when
+    the pool saw it end): its exit code, stdout, stderr, seconds, the files
+    it wrote under checkpoints/ and the most runs that went at once while it
+    ran. Its directory is removed."""
     from pathlib import Path
 
     proc, tmp = run["proc"], run["tmp"]
-    try:
-        stdout, stderr = proc.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise
-    seconds = time.perf_counter() - run["t0"]
-    ckpt = Path(tmp.name) / "checkpoints"
-    written = sorted(str(f.relative_to(tmp.name)) for f in ckpt.rglob("*")
+    proc.wait()
+    root = Path(tmp.name)
+    ckpt = root / "checkpoints"
+    written = sorted(str(f.relative_to(root)) for f in ckpt.rglob("*")
                      if f.is_file()) if ckpt.exists() else []
+    res = {"rc": proc.returncode, "stdout": (root / "cli.stdout").read_text(),
+           "stderr": (root / "cli.stderr").read_text(), "seconds": run["end"] - run["t0"],
+           "files": written, "at_once": run["at_once"]}
     tmp.cleanup()
-    found = re.search(r"^Test Mean IOU:\s+(\S+)$", stdout, re.M)
-    if proc.returncode or not found:
-        print(stdout[-3000:], stderr[-3000:], sep="\n", flush=True)
-    require(proc.returncode == 0, f"the CLI exited {proc.returncode}")
+    return res
+
+
+def cli_finish(res: dict) -> dict:
+    """Exit 0 and a ``Test Mean IOU:`` line, required of a ``cli_collect``
+    result. Returns the seconds, the test mIoU, the JSON lines it printed
+    (with on_screen_prints), the files it wrote under checkpoints/ and the
+    most runs at once."""
+    import re
+
+    found = re.search(r"^Test Mean IOU:\s+(\S+)$", res["stdout"], re.M)
+    if res["rc"] or not found:
+        print(res["stdout"][-3000:], res["stderr"][-3000:], sep="\n", flush=True)
+    require(res["rc"] == 0, f"the CLI exited {res['rc']}")
     require(found is not None, "the CLI printed no 'Test Mean IOU:' line")
     miou = float(found.group(1))
     require(math.isfinite(miou) and 0.0 <= miou <= 100.0, f"the CLI's test mIoU {miou}")
-    lines = [json.loads(x) for x in stdout.splitlines() if x.startswith('{"')]
-    return {"seconds": seconds, "miou": miou, "lines": lines, "files": written}
+    lines = [json.loads(x) for x in res["stdout"].splitlines() if x.startswith('{"')]
+    return {"seconds": res["seconds"], "miou": miou, "lines": lines, "files": res["files"],
+            "at_once": res["at_once"]}
 
 
-def cli_wave(specs: list[tuple]) -> list[dict]:
-    """``cli_start`` runs of ``specs`` ((config, method, extra) each) at once
-    on the card (their seconds overlap), waited for in order. This process's
-    cached blocks go back to the card first, for the runs to use."""
+def cli_pair_check(tag: str, method: str, flags: str, smi: str, results: list,
+                   note: str = "", epoch_checkpoint: bool = True) -> list:
+    """The repeatability check of a pair of deterministic CLI runs of one
+    command (``cli_finish`` each): with ``epoch_checkpoint`` (the cd and
+    recurrent tasks) each wrote ``checkpoint_epoch=0``, and both printed the
+    same numbers (every JSON line but its times, the test mIoU). Prints one
+    line a run; returns their ``cli_finish`` results."""
+    runs, done = [], []
+    for res in results:
+        run = cli_finish(res)
+        require(not epoch_checkpoint or any(f.endswith("checkpoint_epoch=0.ptr.json")
+                                            for f in run["files"]),
+                f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
+        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+        runs.append({"first": first, "lines": [
+            {k: v for k, v in x.items() if "time" not in k} for x in run["lines"]],
+            "miou": run["miou"]})
+        done.append(run)
+        print(f"[{tag} cli] python -m kurosiwo_torch --method {method} {flags}--seed 7{note}: "
+              f"exit 0 in {run['seconds']:.1f} s ({run['at_once']} at once at most), first-step loss "
+              f"{first}, Test Mean IOU {run['miou']!r}"
+              f"{', checkpoint_epoch=0 written' if epoch_checkpoint else ''} [{smi}]", flush=True)
+    require(runs[0] == runs[1], f"two deterministic {method} CLI runs at one seed differ")
+    print(f"[{tag}] the two {method} CLI runs agree in every printed number", flush=True)
+    return done
+
+
+def smi_used_gib() -> float:
+    """The card's memory in use by every process (nvidia-smi), GiB."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30).stdout
+    return float(out.split()[0]) / 1024
+
+
+def phase_cli(torch, jobs: list, smi: str) -> None:
+    """Runs every ``CliJob``'s runs in one pool (CLI_GIB: the largest first,
+    at most CLI_AT_ONCE at once, their estimates within CLI_BUDGET_GIB; each
+    given CLI_TIMEOUT_S), then each job's check, in the order of ``jobs``.
+    Prints the pool's wall time, the most runs at once and the card's memory
+    in use at most (nvidia-smi, every 2 s)."""
     import gc
-
-    import torch
 
     gc.collect()
     torch.cuda.empty_cache()
-    runs = [cli_start(*spec) for spec in specs]
+    held = torch.cuda.memory_reserved() / 2**30
+    runs = [spec for job in jobs for spec in job.specs]
+    gib = [CLI_GIB[spec[1][0]] for spec in runs]
+    pending = sorted(range(len(runs)), key=lambda k: -gib[k])
+    going: dict = {}
+    results: dict = {}
+    t0 = last = time.perf_counter()
+    used_max, most = smi_used_gib(), 0
     try:
-        return [cli_finish(r) for r in runs]
+        while pending or going:
+            for k in list(pending):
+                if len(going) >= CLI_AT_ONCE:
+                    break
+                if sum(gib[i] for i in going) + gib[k] <= CLI_BUDGET_GIB:
+                    going[k] = cli_start(*runs[k])
+                    pending.remove(k)
+            most = max(most, len(going))
+            for run in going.values():
+                run["at_once"] = max(run["at_once"], len(going))
+            time.sleep(0.25)
+            now = time.perf_counter()
+            if now - last >= 2.0:
+                used_max, last = max(used_max, smi_used_gib()), now
+            for k in [k for k, run in going.items() if run["proc"].poll() is not None]:
+                going[k]["end"] = now
+                results[k] = cli_collect(going.pop(k))
+            late = [run for run in going.values() if now - run["t0"] > CLI_TIMEOUT_S]
+            require(not late, f"a CLI run ({' '.join(late[0]['argv']) if late else ''}) took "
+                              f"over {CLI_TIMEOUT_S} s")
     finally:
-        for r in runs:
-            if r["proc"].poll() is None:
-                r["proc"].kill()
-                r["proc"].communicate()
+        for run in going.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+            run["proc"].wait()
+            run["tmp"].cleanup()
+    print(f"[cli pool] {len(runs)} CLI runs in {time.perf_counter() - t0:.1f} s, at most {most} "
+          f"at once (estimated peaks within {CLI_BUDGET_GIB} GiB), the card's memory in use at "
+          f"most {used_max:.1f} GiB (nvidia-smi, every 2 s; this process holds {held:.2f} GiB) "
+          f"[{smi}]", flush=True)
+    k = 0
+    for job in jobs:
+        job.check([results[k + i] for i in range(len(job.specs))])
+        k += len(job.specs)
 
 
-def cli_pair(config: dict | None = None, method: tuple = ("unet", "resnet18"),
-             extra: tuple = ()) -> list[dict]:
-    """Two runs of the same command at once (``cli_wave``): a repeatability
-    check at half the wall."""
-    return cli_wave([(config, method, extra)] * 2)
-
-
-def phase_c14(smi: str) -> None:
+def c14_cli(smi: str) -> CliJob:
     """The CLI on the shipped configs as they are (b128, 1 epoch, the
     default synthetic splits of 256/64/64, AOI banks on), and ROADMAP C14:
     the CLI at one seed, twice with cuDNN's autotuner (deterministic: false)
     and twice with deterministic algorithms (deterministic: true),
-    on_screen_prints on; the five at once. Prints each C14 run's first-step
-    loss, the train epoch's and the val eval's metrics (functions of their
-    banks) and the test mIoU; the two deterministic runs must agree in all
-    of them."""
-    runs = {}
+    on_screen_prints on; the five in the pool. Its check prints each C14
+    run's first-step loss, the train epoch's and the val eval's metrics
+    (functions of their banks) and the test mIoU; the two deterministic
+    runs must agree in all of them."""
     dets = (False, False, True, True)
-    shipped, *wave = cli_wave([(None, ("unet", "resnet18"), ())] + [
+    specs = [(None, ("unet", "resnet18"), ())] + [
         ({"on_screen_prints": True, "deterministic": det}, ("unet", "resnet18"), ())
-        for det in dets])
-    print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
-          f"{shipped['seconds']:.1f} s (five runs at once), Test Mean IOU "
-          f"{shipped['miou']:.4f} [{smi}]", flush=True)
-    for det, run in zip(dets, wave):
-        first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
-        train = next(x for x in run["lines"] if "Train epoch time (s)" in x)
-        val = next(x for x in run["lines"] if "Val MeanIoU" in x)
-        banks = {k: v for d in (train, val) for k, v in d.items() if "time" not in k}
-        runs.setdefault(det, []).append({"first": first, "banks": banks, "miou": run["miou"]})
-        print(f"[c14] deterministic={str(det).lower()}: first-step loss {first}, train mIoU "
-              f"{train['Train MeanIoU']:.5f}, val mIoU {val['Val MeanIoU']:.5f}, test mIoU "
-              f"{run['miou']!r}, {run['seconds']:.1f} s (five runs at once) [{smi}]", flush=True)
-    for det, (a, b) in runs.items():
-        same = a == b
-        differing = sorted(k for k in a["banks"] if a["banks"][k] != b["banks"].get(k))
-        print(f"[c14] deterministic={str(det).lower()}: the two runs "
-              f"{'agree in every printed metric' if same else 'differ'}; test mIoU band "
-              f"{abs(a['miou'] - b['miou']):.4f}, first-step loss band "
-              f"{abs(a['first'] - b['first']):.5f}, bank metrics differing {len(differing)} "
-              f"{differing[:4]} [{smi}]", flush=True)
-    require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
+        for det in dets]
+
+    def check(results: list) -> None:
+        runs = {}
+        shipped, *wave = [cli_finish(r) for r in results]
+        print(f"[cli] python -m kurosiwo_torch --method unet --backbone resnet18: exit 0 in "
+              f"{shipped['seconds']:.1f} s ({shipped['at_once']} at once at most), Test Mean IOU "
+              f"{shipped['miou']:.4f} [{smi}]", flush=True)
+        for det, run in zip(dets, wave):
+            first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+            train = next(x for x in run["lines"] if "Train epoch time (s)" in x)
+            val = next(x for x in run["lines"] if "Val MeanIoU" in x)
+            banks = {k: v for d in (train, val) for k, v in d.items() if "time" not in k}
+            runs.setdefault(det, []).append({"first": first, "banks": banks,
+                                             "miou": run["miou"]})
+            print(f"[c14] deterministic={str(det).lower()}: first-step loss {first}, train mIoU "
+                  f"{train['Train MeanIoU']:.5f}, val mIoU {val['Val MeanIoU']:.5f}, test mIoU "
+                  f"{run['miou']!r}, {run['seconds']:.1f} s ({run['at_once']} at once at most) "
+                  f"[{smi}]", flush=True)
+        for det, (a, b) in runs.items():
+            same = a == b
+            differing = sorted(k for k in a["banks"] if a["banks"][k] != b["banks"].get(k))
+            print(f"[c14] deterministic={str(det).lower()}: the two runs "
+                  f"{'agree in every printed metric' if same else 'differ'}; test mIoU band "
+                  f"{abs(a['miou'] - b['miou']):.4f}, first-step loss band "
+                  f"{abs(a['first'] - b['first']):.5f}, bank metrics differing {len(differing)} "
+                  f"{differing[:4]} [{smi}]", flush=True)
+        require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
+
+    return CliJob(specs, check)
 
 
 def _legs(phase: dict) -> dict:
@@ -3394,17 +3941,49 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         phase_augment(torch, counters, smi)
     if "losses" in only:
         phase_losses_zones(torch, counters, smi)
+    cli: list = []
     if "c14" in only:
-        phase_c14(smi)
-    if "cd" in only or "cd-attn" in only:
-        cd = phase_cd(torch, counters, smi) if "cd" in only else None
-        attn = phase_cd_attn(torch, counters, smi) if "cd-attn" in only else None
+        cli.append(c14_cli(smi))
+    cd = phase_cd(torch, counters, smi, cli) if "cd" in only else None
+    attn = phase_cd_attn(torch, counters, smi, cli) if "cd-attn" in only else None
+    zoo = phase_seg_zoo(torch, counters, smi, cli) if "seg-zoo" in only else None
+    mae = rec = None
+    if only & {"mae-train", "recurrent"}:
+        from kurosiwo_torch.ops import fused_tail
+        from kurosiwo_torch.ops import short_attention as sa
+
+        mae = phase_mae_train(torch, counters, smi, sa, cli) if "mae-train" in only else None
+        torch.cuda.empty_cache()
+        rec = (phase_recurrent(torch, counters, smi, fused_tail, cli)
+               if "recurrent" in only else None)
+    if cli:
+        phase_cli(torch, cli, smi)
+    if cd is not None or attn is not None:
         print(cd_summary(cd, smi, attn), flush=True)
-    if "seg-zoo" in only:
-        print(zoo_summary(phase_seg_zoo(torch, counters, smi), smi), flush=True)
+    if zoo is not None:
+        print(zoo_summary(zoo, smi), flush=True)
+    if mae is not None or rec is not None:
+        print(slice_summary(mae, rec, smi), flush=True)
 
 
-ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo"}
+ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo", "mae-train",
+        "recurrent"}
+
+
+def use_pycache() -> None:
+    """Python's bytecode cache under the build directory, for this process
+    and every process it starts (the CLI runs, the decode workers), where
+    the repository holds the port: where the installation keeps no bytecode
+    of its own, each process would otherwise compile torch's modules from
+    source, about 9 s of a CLI run (NVIDIA H100 80GB HBM3 host, PERF.md)."""
+    import os
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "kurosiwo_torch"
+    if build.is_dir():
+        prefix = str(build / "_build" / "pycache")
+        sys.pycache_prefix = prefix
+        os.environ["PYTHONPYCACHEPREFIX"] = prefix
 
 
 def main(argv=None) -> int:
@@ -3419,6 +3998,7 @@ def main(argv=None) -> int:
     only = set(args.only.split(",")) if args.only else set()
     if only - ONLY:
         parser.error(f"unknown phases {sorted(only - ONLY)}")
+    use_pycache()
     try:
         import torch
 
@@ -3493,17 +4073,23 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         timed(phase_augment, torch, counters, smi)
         timed(phase_losses_zones, torch, counters, smi)
-        timed(phase_c14, smi)
+        # every phase's CLI runs go to one pool, run after the last phase
+        cli = [c14_cli(smi)]
         torch.cuda.empty_cache()
-        cd = timed(phase_cd, torch, counters, smi)
+        cd = timed(phase_cd, torch, counters, smi, cli)
         torch.cuda.empty_cache()
-        cd_attn = timed(phase_cd_attn, torch, counters, smi)
+        cd_attn = timed(phase_cd_attn, torch, counters, smi, cli)
         torch.cuda.empty_cache()
-        zoo = timed(phase_seg_zoo, torch, counters, smi)
+        zoo = timed(phase_seg_zoo, torch, counters, smi, cli)
+        torch.cuda.empty_cache()
+        mae_loop = timed(phase_mae_train, torch, counters, smi, sa, cli)
+        torch.cuda.empty_cache()
+        rec = timed(phase_recurrent, torch, counters, smi, fused_tail, cli)
         torch.cuda.empty_cache()
         mae_launches = timed(phase_mae_main, torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = timed(phase_scene_main, torch, counters, smi)
+        timed(phase_cli, torch, cli, smi)
     except (PhaseFailed, RuntimeError, ValueError, TypeError, subprocess.SubprocessError,
             OSError) as e:
         print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
@@ -3539,10 +4125,15 @@ def main(argv=None) -> int:
              zoo_batch={k: zoo[k]["batch"] for k, *_ in ZOO_LEGS},
              zoo_shapes_checked=zoo["pair_sums_check"]["shapes"],
              zoo_max_abs_err=zoo["pair_sums_check"]["max_abs_err"]),
-        row("ce_cm_fwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:128",
-            ce["fwd"], launches["ce_cm_fwd_nhwc"]),
-        row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu", "kurosiwo_tpu/ops/pallas_tail.py:167",
-            ce["bwd"], launches["ce_cm_bwd_nhwc"]),
+        dict(row("ce_cm_fwd_nhwc (recurrent_*: the ConvLSTM step with fused_tail true, its "
+                 "f32 probabilities)", "kurosiwo_torch/csrc/ce_cm.cu",
+                 "kurosiwo_tpu/ops/pallas_tail.py:128", ce["fwd"], launches["ce_cm_fwd_nhwc"]),
+             recurrent_launches_per_step=rec["fused_tail"]["ce_cm_fwd_nhwc"],
+             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["fwd"]),
+        dict(row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu",
+                 "kurosiwo_tpu/ops/pallas_tail.py:167", ce["bwd"], launches["ce_cm_bwd_nhwc"]),
+             recurrent_launches_per_step=rec["fused_tail"]["ce_cm_bwd_nhwc"],
+             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["bwd"]),
         dict(row("short_attention_fwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls)", "kurosiwo_torch/csrc/short_attention.cu",
                  "kurosiwo_tpu/ops/pallas_attention.py:259", attn["fwd"],
@@ -3559,7 +4150,12 @@ def main(argv=None) -> int:
              finetune_max_abs_err=zoo["b4"]["max_abs_err"]["fwd"],
              finetune_bf16={k: dict(v["fwd"], kernel=v["kernel"],
                                     calls_per_step=v["calls_per_step"])
-                            for k, v in zoo["b4"]["per_shape"].items()}),
+                            for k, v in zoo["b4"]["per_shape"].items()},
+             mae_loop_launches_per_step=mae_loop["main"]["short_attention"],
+             mae_loop_max_abs_err=mae_loop["b4"]["max_abs_err"]["fwd"],
+             mae_loop_bf16={k: dict(v["fwd"], kernel=v["kernel"],
+                                    calls_per_step=v["calls_per_step"])
+                            for k, v in mae_loop["b4"]["per_shape"].items()}),
         dict(row("short_attention_bwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls; step_backward_ms: as the step runs it, into the qkv gradient's "
                  "thirds; library_qkv_backward_ms: SDPA's from one qkv leaf, with the concat)",
@@ -3577,7 +4173,12 @@ def main(argv=None) -> int:
              finetune_max_abs_err=zoo["b4"]["max_abs_err"]["bwd"],
              finetune_bf16={k: dict(v["bwd"], kernel=v["kernel"],
                                     calls_per_step=v["calls_per_step"])
-                            for k, v in zoo["b4"]["per_shape"].items()}),
+                            for k, v in zoo["b4"]["per_shape"].items()},
+             mae_loop_launches_per_step=mae_loop["main"]["short_attention"],
+             mae_loop_max_abs_err=mae_loop["b4"]["max_abs_err"]["bwd"],
+             mae_loop_bf16={k: dict(v["bwd"], kernel=v["kernel"],
+                                    calls_per_step=v["calls_per_step"])
+                            for k, v in mae_loop["b4"]["per_shape"].items()}),
         row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
             "scene encode)",
             "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",
@@ -3617,6 +4218,7 @@ def main(argv=None) -> int:
     ]}
     print(cd_summary(cd, smi, cd_attn), flush=True)
     print(zoo_summary(zoo, smi), flush=True)
+    print(slice_summary(mae_loop, rec, smi), flush=True)
     print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
           flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

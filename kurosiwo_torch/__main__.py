@@ -1,6 +1,6 @@
 """The port's command line; counterpart of the repository's ``main.py`` for
-the segmentation and change-detection tasks: the same flags, plus
-``--device`` (default ``cuda``).
+the segmentation (with the recurrent ConvLSTM), change-detection and MAE
+pretraining tasks: the same flags, plus ``--device`` (default ``cuda``).
 
     python -m kurosiwo_torch --method unet --backbone resnet18 [--seed 999]
         [--batch_size N] [--inputs ...] [--dem [--slope]]
@@ -9,13 +9,18 @@ the segmentation and change-detection tasks: the same flags, plus
         # or unetplusplus, deeplabv3 (the same backbones); upernet
         # [--backbone convnext_tiny|convnext_small|convnext_base|swin_tiny|swin_small|swin_base];
         # finetune (FloodViT, its ViT and head from configs/method/finetune/finetune.json)
+    python -m kurosiwo_torch --method convlstm
+        # the recurrent task: three frames (pre2, pre1, post) of 2 channels
     python -m kurosiwo_torch --method snunet --inputs pre_event_1 post_event
         # with "task": "cd" in configs/config.json; or siam-diff, siam-conc,
         # hfa-net, adhr-cdnet
+    python -m kurosiwo_torch --method mae
+        # with "task": "mae" in configs/config.json: FloodViT pretraining
 
-It builds the config, the loaders and the model, trains for ``epochs`` with
-a val eval each epoch, keeps ``best_segmentation`` and ``latest`` (and, for
-change detection, ``checkpoint_epoch={e}`` every
+For segmentation, recurrent segmentation and change detection it builds
+the config, the loaders and the model, trains for ``epochs`` with a val
+eval each epoch, keeps ``best_segmentation`` and ``latest`` (and, for
+change detection and the recurrent task, ``checkpoint_epoch={e}`` every
 ``train_save_checkpoint_freq`` epochs), reloads best and prints ``Test Mean
 IOU:``. ``"test": true`` in the config evaluates the saved best checkpoint
 without training. Checkpoints land under ``checkpoints/`` in the working
@@ -26,7 +31,14 @@ The task is the config's ``task``, as in ``main.py``: a change-detection
 method runs with ``"task": "cd"`` in configs/config.json and two inputs
 (``--inputs pre_event_1 post_event``); the CLI refuses a change-detection
 method under another task, and a ``cd`` task with another number of inputs,
-and says what to set.
+and says what to set. ``--method convlstm`` runs under ``"task":
+"segmentation"``, as ``main.py`` dispatches it. ``"task": "mae"`` runs
+``training/mae.train`` on the SSL loader (the method config's ViT and
+schedule, ``batch_size`` from the train config or ``--batch_size``), with
+``mae_{e}`` and ``vit_{e}`` in the checkpoint directory; ``main.py`` builds
+the labelled loaders before it dispatches and the MAE branch never reads
+them, so the port does not build them. The diffusion task is not ported
+(ROADMAP.md, A10).
 """
 
 from __future__ import annotations
@@ -42,10 +54,11 @@ import torch
 from .config import create_checkpoint_directory, load_config
 from .data.pipeline import prepare_loaders
 from .device import configure_backends
-from .models.factory import CD_METHODS, initialize_cd_model, initialize_segmentation_model
+from .models.factory import (CD_METHODS, initialize_cd_model, initialize_recurrent_model,
+                             initialize_segmentation_model)
 
 # the tasks main.py dispatches that the port does not run yet
-_NOT_PORTED = {"mae": "A8", "diffusion-unsup": "A10"}
+_NOT_PORTED = {"diffusion-unsup": "A10"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,8 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> float:
-    """Run the CLI; returns the test mIoU."""
+def main(argv=None) -> float | None:
+    """Run the CLI; returns the test mIoU (None for MAE pretraining)."""
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
     random.seed(args.seed)
@@ -76,11 +89,8 @@ def main(argv=None) -> float:
     if task in _NOT_PORTED:
         raise NotImplementedError(f"task {task!r} is not ported yet "
                                   f"(ROADMAP.md, {_NOT_PORTED[task]})")
-    if task not in ("segmentation", "cd"):
+    if task not in ("segmentation", "cd", "mae"):
         raise SystemExit(f"unknown task {task!r}")
-    if method == "convlstm":
-        raise NotImplementedError("the recurrent task (convlstm) is not ported yet "
-                                  "(ROADMAP.md, A7)")
     if task != "cd" and method in CD_METHODS:
         raise ValueError(f"{method!r} is a change-detection method and the config's task is "
                          f"{task!r}: set \"task\": \"cd\" in {args.config_root}/config.json "
@@ -91,10 +101,22 @@ def main(argv=None) -> float:
     if args.batch_size is not None:
         configs["batch_size"] = int(args.batch_size)
     configure_backends(configs, args.device)  # before CUDA's first use (cuBLAS's workspace)
+    if task == "mae":
+        from .training import mae
+
+        configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
+        pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
+        print("Initializing Self-Supervised learning training with configs:", flush=True)
+        mae.train(configs, seed=args.seed, model_configs=model_configs, device=args.device)
+        return None
+    recurrent = task == "segmentation" and method == "convlstm"
     # the model first: a method that is not ported raises before any directory is made
     if task == "cd":
         model = initialize_cd_model(configs, model_configs, "train", device=args.device,
                                     seed=args.seed)
+    elif recurrent:
+        model = initialize_recurrent_model(configs, model_configs, "train", device=args.device,
+                                           seed=args.seed)
     else:
         model = initialize_segmentation_model(configs, model_configs, device=args.device,
                                               seed=args.seed)
@@ -103,6 +125,7 @@ def main(argv=None) -> float:
 
     from .training.change_detection import eval_change_detection, train_change_detection
     from .training.engine import evaluate_task
+    from .training.recurrent import eval_recurrent_segmentation, train_recurrent_segmentation
     from .training.segmentation import eval_semantic_segmentation, train_semantic_segmentation
 
     train_loader, val_loader, test_loader = prepare_loaders(configs, seed=args.seed)
@@ -110,12 +133,16 @@ def main(argv=None) -> float:
     print("Samples in Val Set: ", val_loader.num_samples())
     print("Samples in Test Set: ", test_loader.num_samples())
 
-    train_fn, eval_fn = ((train_change_detection, eval_change_detection) if task == "cd"
-                         else (train_semantic_segmentation, eval_semantic_segmentation))
+    engine_task = "recurrent" if recurrent else task
+    train_fn, eval_fn = {
+        "cd": (train_change_detection, eval_change_detection),
+        "recurrent": (train_recurrent_segmentation, eval_recurrent_segmentation),
+        "segmentation": (train_semantic_segmentation, eval_semantic_segmentation),
+    }[engine_task]
     if configs.get("test"):
         # eval-only (reference main.py:86-128): training would overwrite the
         # very best_segmentation the user asked to score
-        engine = evaluate_task(model, configs, model_configs, task, device=args.device,
+        engine = evaluate_task(model, configs, model_configs, engine_task, device=args.device,
                                seed=args.seed)
     else:
         engine = train_fn(model, train_loader, val_loader, test_loader, configs, model_configs,

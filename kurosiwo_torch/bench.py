@@ -35,6 +35,13 @@ convnext_small/base, swin_tiny/small/base). ``finetune`` is the FloodViT
 finetuner with ``finetune.json``'s ViT-L (dim 1024, depth 24, 16 heads,
 mlp 2048, 16x16 patches of 224x224) and mlp head, at its lr 1e-4.
 
+``--model convlstm``: the recurrent task's ConvLSTM on the UNet leg's config
+with the method swapped in: the three frames (pre2, pre1, post) of 2
+channels each at 224x224, batch 128, bf16 compute on f32 parameters,
+RandomEvents-weighted cross entropy on the model's probabilities, plain
+Adam at lr 1e-3 (the recurrent engine's optimizer); ``--eval [--f32_eval]``
+as for the UNet (the repository's ``bench.py`` has no such leg).
+
 ``--model mae``: the MAE leg (``bench.py:197-252``): FloodViT MAE
 pretraining, ViT-L encoder (dim 1024, depth 24, 16 heads, mlp 2048) on
 224x224x6 images in 16x16 patches, decoder 512 x 8 layers, mask ratio 0.75,
@@ -59,7 +66,7 @@ change-detection legs, off for the ViT legs); the other keys set the UNet's
 or the change-detection leg's config.
 
 Usage: python -m kurosiwo_torch.bench [--model unet|unet++|deeplabv3|upernet|finetune|snunet|
-       siam-diff|...|mae|scene] [--batch N]
+       siam-diff|...|convlstm|mae|scene] [--batch N]
        [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
        [--scene 1024] [--profile]
 """
@@ -78,7 +85,7 @@ import torch
 from .device import configure_backends, resolve_device
 from .inference import encode_scene, pad_scene, vit_whole_scene
 from .models.factory import (PORTED_CD_METHODS, build_mae, initialize_cd_model,
-                             initialize_segmentation_model)
+                             initialize_recurrent_model, initialize_segmentation_model)
 from .models.vit import ViT
 from .ops.losses import create_loss
 from .ops.metrics import MetricState
@@ -93,6 +100,11 @@ IMAGE = 224
 # changeformer; the port runs its other change-detection models on the same
 # config
 CD_MODELS = PORTED_CD_METHODS
+
+
+# the recurrent task's models: one frame's channels a model input, the
+# recurrent steps
+RECURRENT_MODELS = ("convlstm",)
 
 
 # the rest of the segmentation zoo: the shipped model config's keys that
@@ -115,6 +127,7 @@ def build_config(model: str, batch: int) -> dict:
     ``bench.build_config``: a change-detection model gets two 2-channel
     frames; the finetuner adds ``FINETUNE_CONFIG``."""
     cd = model in CD_MODELS
+    per_frame = cd or model in RECURRENT_MODELS
     extra = FINETUNE_CONFIG if model == "finetune" else {}
     return {
         "task": "cd" if cd else "segmentation",
@@ -132,7 +145,7 @@ def build_config(model: str, batch: int) -> dict:
         "dem": False,
         "log_zone_metrics": False,
         "log_AOI_metrics": False,
-        "num_channels": 2 if cd else 6,
+        "num_channels": 2 if per_frame else 6,
         **extra,
     }
 
@@ -184,6 +197,9 @@ class Bench:
 
     @property
     def task(self) -> str:
+        """The steps' task: the config's, ``recurrent`` for the ConvLSTM."""
+        if self.config.get("method") in RECURRENT_MODELS:
+            return "recurrent"
         return self.config.get("task", "segmentation")
 
 
@@ -191,16 +207,19 @@ def setup(batch: int | None = None, overrides: dict | None = None, device="cuda"
           model: str = "unet", model_config: dict | None = None) -> Bench:
     """Model, train state and a device-resident batch for the UNet step, a
     zoo step (``ZOO_MODELS``: ``ZOO_MODEL_CONFIGS`` over ``MODEL_CONFIG``;
-    ``backbone`` in ``overrides`` goes to the model config) or a change-detection step (``CD_MODELS``; default batch 128,
-    ``overrides`` update the config, ``model_config`` updates the model
-    config) or, with ``model="mae"``, the MAE step of ``setup_mae``."""
+    ``backbone`` in ``overrides`` goes to the model config), a
+    change-detection step (``CD_MODELS``) or the recurrent step
+    (``RECURRENT_MODELS``); default batch 128, ``overrides`` update the
+    config, ``model_config`` updates the model config; with
+    ``model="mae"``, the MAE step of ``setup_mae``."""
     if model == "mae":
         if overrides:
             raise ValueError("the MAE leg takes no config overrides")
         return setup_mae(batch, device, seed)
-    if model != "unet" and model not in CD_MODELS + ZOO_MODELS:
+    if model != "unet" and model not in CD_MODELS + ZOO_MODELS + RECURRENT_MODELS:
         raise NotImplementedError(f"bench model {model!r} is not ported (unet, "
-                                  f"{', '.join(ZOO_MODELS + CD_MODELS)}, mae)")
+                                  f"{', '.join(ZOO_MODELS + CD_MODELS + RECURRENT_MODELS)}, "
+                                  "mae)")
     dev = resolve_device(device)
     batch = batch or 128
     cfg = build_config(model, batch)
@@ -212,9 +231,11 @@ def setup(batch: int | None = None, overrides: dict | None = None, device="cuda"
     configure_backends(cfg, dev)
     if cfg["task"] == "cd":
         net = initialize_cd_model(cfg, mcfg, device=dev, seed=seed)
+    elif model in RECURRENT_MODELS:
+        net = initialize_recurrent_model(cfg, mcfg, device=dev, seed=seed)
     else:
         net = initialize_segmentation_model(cfg, mcfg, device=dev, seed=seed)
-    state = create_train_state(net, cfg, mcfg, cfg["task"])
+    state = create_train_state(net, cfg, mcfg, cfg["task"])  # the recurrent task: plain Adam
     data = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(batch, seed=seed).items()}
     return Bench(cfg, state, data, dev, torch.Generator(dev).manual_seed(seed), mcfg,
                  FINETUNE_LR if model == "finetune" else TRAIN_LR)
@@ -422,7 +443,8 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=["unet", *ZOO_MODELS, *CD_MODELS, "mae", "scene"],
+    p.add_argument("--model", choices=["unet", *ZOO_MODELS, *CD_MODELS, *RECURRENT_MODELS,
+                                       "mae", "scene"],
                    default="unet")
     p.add_argument("--batch", type=int, default=None, help="default 128 for unet, 64 for mae")
     p.add_argument("--steps", type=int, default=30)

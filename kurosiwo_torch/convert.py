@@ -1,7 +1,8 @@
 """Parameter bridge between a flax model's variables and the port's
 ``state_dict``: every segmentation tree (UNet, UNet++, DeepLabV3+ on the
 BasicBlock and Bottleneck ResNets, UperNet on ConvNeXt and Swin, the
-FloodViT finetuner with its three heads), the MAE/ViT and the eight
+FloodViT finetuner with its three heads), the MAE/ViT (and the encoder
+alone, MAE's ``vit_{e}``), the recurrent ConvLSTM and the eight
 change-detection trees.
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
@@ -11,8 +12,8 @@ its ``ConvBNAct_0``-``ConvBNAct_5``; ``backbone.stage2_block4.dwconv``,
 ``decode_head.psp.branch3``, ``decode_head.fpn_bottleneck``;
 ``backbone.stage0_block1.attn.qkv``, ``merge2``; ``encoder.transformer.attn_3.to_qkv``,
 ``decoder.ff_0.fc1``, ``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``,
-``head_fc1``, ``head.deconv2``), so the map is a path join plus layout
-transposes:
+``head_fc1``, ``head.deconv2``; ``clstm_1e.conv``, ``clstm_1e.norm``,
+``transconv_3d``), so the map is a path join plus layout transposes:
 
   params/.../kernel (HWIO, conv)  <-> ....weight (OIHW): the 7x7 stem, the
                                       4x4/s4 and 2x2/s2 patchify convs; a
@@ -22,10 +23,12 @@ transposes:
   params/.../kernel (HWOI, the transposed convs' torch layout)
                                   <-> ....weight (IOHW, F.conv_transpose2d's;
                                       Siam's ``up``, the finetuner's
-                                      ``deconv1``-``deconv3``)
+                                      ``deconv1``-``deconv3``, the
+                                      ConvLSTM's ``transconv_3d``)
   params/.../kernel (in, out)     <-> ....weight (out, in)   (Dense; Swin's
                                       bias-free ``merge{s}`` has no bias)
-  params/.../{bias, scale, alpha, gamma, relative_position_bias, embedding,
+  params/.../{bias, scale (LayerNorm, GroupNorm), alpha, gamma,
+              relative_position_bias, embedding,
               pos_embedding, cls_token, mask_token}
                                   <-> the same name, as it is
   batch_stats/.../{mean, var}     <-> ....{mean, var}   (buffers)

@@ -24,6 +24,9 @@ Batch struct (numpy, NHWC):
 Eval splits pad the final partial batch to full size (sample_weight 0, mask
 all-ignore), so every eval batch has the step's shape.
 
+The MAE task's SSL loader (``data/ssl.py``) runs on the same ring and
+decode processes with a decoder of its own.
+
 Decoding runs in processes, not threads: the decode is numpy work that holds
 the interpreter lock often, and decode threads slowed the train step's own
 host side, which shares that lock (PERF.md §6).
@@ -272,10 +275,11 @@ class DecodeProcesses:
         self.pool = ctx.Pool(workers, _init_worker, (decoder, ring.raws, ring.offsets))
 
     def fill(self, slot: int, ids) -> Callable[[], None]:
-        """Start the rows of one batch; returns a wait that raises a worker's
-        error."""
-        job = self.pool.map_async(_fill_row, [(slot, row, int(i)) for row, i in enumerate(ids)],
-                                  chunksize=1)
+        """Start the rows of one batch (``ids``: the decoder's sample index
+        of each row, an int or a tuple); returns a wait that raises a
+        worker's error."""
+        jobs = [(slot, row, i if isinstance(i, tuple) else int(i)) for row, i in enumerate(ids)]
+        job = self.pool.map_async(_fill_row, jobs, chunksize=1)
         return job.get
 
     def close(self) -> None:
@@ -418,6 +422,17 @@ class Loader:
             return np.where(coin == 0, pos_draw, neg_draw)
         return self._rng.permutation(n)
 
+    def _epoch_batches(self) -> list:
+        """The next epoch's batches of sample indices; train drops the last
+        partial batch (drop_last=True parity)."""
+        indices = self._epoch_indices()
+        self._epoch += 1
+        bs = self.batch_size
+        batches = [indices[i: i + bs] for i in range(0, len(indices), bs)]
+        if self.mode == "train":
+            batches = [b for b in batches if len(b) == bs]
+        return batches
+
     # -- decode -----------------------------------------------------------
     def _read(self, record: Record) -> RawSample:
         return self.decoder.read(record)
@@ -427,11 +442,15 @@ class Loader:
         decode workers, once for the Loader's life."""
         if self._ring is not None:
             return
-        sample = self.decoder.process(self.records[0])
+        sample = self._first_sample()
         layout = {k: (np.shape(v), np.asarray(v).dtype) for k, v in sample.items()}
         self._ring = BatchRing(layout, self.batch_size, max(1, min(RING_SLOTS, len(self))))
         self._workers = self.worker_class(self.decoder, self._ring, self.workers)
         self._finalizer = weakref.finalize(self, _shutdown, self._workers, self._ring)
+
+    def _first_sample(self) -> dict:
+        """A processed sample, whose keys, shapes and dtypes are the ring's."""
+        return self.decoder.process(self.records[0])
 
     def close(self) -> None:
         """Stop the decode workers and release the ring (also done when the
@@ -454,12 +473,7 @@ class Loader:
         calls each batch's ``release`` once it has read it (or given it to an
         upload, with that upload's event). ``pin`` page-locks the ring for
         uploads to the card."""
-        indices = self._epoch_indices()
-        self._epoch += 1
-        bs = self.batch_size
-        batches = [indices[i: i + bs] for i in range(0, len(indices), bs)]
-        if self.mode == "train":
-            batches = [b for b in batches if len(b) == bs]
+        batches = self._epoch_batches()
         if not batches:
             return
         self._stop_feeder()

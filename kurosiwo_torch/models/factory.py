@@ -1,10 +1,11 @@
 """Model factory; counterpart of ``kurosiwo_tpu/models/factory.py``. Every
 segmentation method (UNet, UNet++, DeepLabV3+ on resnet18/34/50/101;
 UperNet on convnext_tiny/small/base and swin_tiny/small/base; the FloodViT
-finetuner with its mlp, decoder and linear heads), the MAE (ViT encoder)
-and every change-detection model (SNUNet-ECAM, Siam-diff, Siam-conc,
-BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet, TransUNet-CD) is ported; the
-diffusion task raises, naming its ``ROADMAP.md`` item (A10)."""
+finetuner with its mlp, decoder and linear heads), the MAE (ViT encoder),
+the recurrent ConvLSTM and every change-detection model (SNUNet-ECAM,
+Siam-diff, Siam-conc, BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet,
+TransUNet-CD) is ported; the diffusion task raises, naming its
+``ROADMAP.md`` item (A10)."""
 
 from __future__ import annotations
 
@@ -168,6 +169,23 @@ def initialize_cd_model(config: dict, model_config: dict, phase: str = "train",
             img_dim=min(224, int(config.get("synthetic_patch_size", 224) or 224)), **kw)
     else:
         raise NotImplementedError(f"cd method {method!r} is not supported")
+    return model.to(dev)
+
+
+def initialize_recurrent_model(config: dict, model_config: dict, phase: str = "train",
+                               device: str | torch.device | None = "cuda", seed: int = 0):
+    """The recurrent model on ``device`` (JAX ``initialize_recurrent_model``,
+    ``factory.py:165-170``): the ConvLSTM over frames of ``num_channels``
+    (one frame's channels), f32 parameters from a seeded
+    ``torch.Generator``."""
+    del phase, model_config
+    dev = resolve_device(device)
+    if config["method"] != "convlstm":
+        raise NotImplementedError(f"recurrent method {config['method']!r} is not supported")
+    from .convlstm import ConvLSTM
+
+    model = ConvLSTM(int(config["num_channels"]), int(config["num_classes"]),
+                     dtype=compute_dtype(config), generator=torch.Generator().manual_seed(seed))
     return model.to(dev)
 
 

@@ -1,6 +1,6 @@
 """Building blocks of the port's models; counterpart of
 ``kurosiwo_tpu/ops/nn.py`` (every function the models call, and
-``avg_pool``), plus flax's ``Dense`` and ChangeFormer's ``DropPath``.
+``avg_pool``), plus flax's ``Dense`` and ``GroupNorm`` and ChangeFormer's ``DropPath``.
 
 Public tensors are NHWC, like the JAX package. A convolution runs on the
 zero-copy NCHW view ``x.permute(0, 3, 1, 2)`` of an NHWC tensor, which is a
@@ -155,6 +155,58 @@ class ConvBNAct(nn.Module):
         else:
             y = self.BatchNorm_0(self.Conv_0(x, dtype), dtype)
         return torch.relu(y) if self.act else y
+
+
+class _GroupNorm(torch.autograd.Function):
+    """flax ``nn.GroupNorm``'s function on NHWC with the analytic backward:
+    f32 statistics over (H, W, the group's channels), the variance as
+    E[x^2] - mean^2 clipped at 0 (flax's ``use_fast_variance``), one
+    rounding of the result to the output dtype. The residuals are the input
+    in its own dtype and per-(sample, group) f32 mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, out_dtype):
+        b, c = x.shape[0], x.shape[-1]
+        xf = x.float().reshape(b, -1, groups, c // groups)
+        mu = xf.mean((1, 3), keepdim=True)
+        var = (xf.square().mean((1, 3), keepdim=True) - mu.square()).clamp_min(0.0)
+        rstd = torch.rsqrt(var + eps)
+        g = scale.view(groups, c // groups)
+        y = ((xf - mu) * (rstd * g) + bias.view(groups, c // groups)).to(out_dtype)
+        ctx.save_for_backward(x, mu, rstd, scale)
+        ctx.groups = groups
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mu, rstd, scale = ctx.saved_tensors
+        b, c, groups = x.shape[0], x.shape[-1], ctx.groups
+        xhat = (x.float().reshape(b, -1, groups, c // groups) - mu) * rstd
+        dyf = dy.float().reshape(xhat.shape)
+        dscale = (dyf * xhat).sum((0, 1)).reshape(c)
+        dbias = dyf.sum((0, 1)).reshape(c)
+        dxhat = dyf * scale.view(groups, c // groups)
+        m1 = dxhat.mean((1, 3), keepdim=True)
+        m2 = (dxhat * xhat).mean((1, 3), keepdim=True)
+        dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+        return dx, dscale, dbias, None, None, None
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon)`` on NHWC (``_GroupNorm``),
+    its parameters ``scale`` (ones) and ``bias`` (zeros) f32, the output in
+    the compute dtype. The ConvLSTM's gate norm (JAX ``models/convlstm.py:44``)."""
+
+    def __init__(self, features: int, num_groups: int, eps: float = 1e-5):
+        super().__init__()
+        if num_groups <= 0 or features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {features} channels")
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _GroupNorm.apply(x, self.scale, self.bias, self.num_groups, self.eps, dtype)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -8,6 +8,11 @@ storage, ``scale_by_adam_bf16``) and change detection (the reference's
 eps outside the square root, no eps_root. It keeps f32 moments, so the MAE
 default is :class:`AdamBF16Moments`. The learning rate is set before each
 step (``set_learning_rate``), as the JAX step injects it.
+
+``lr_scales`` (the segmentation and MAE tasks; JAX ``lr_scale_by_path``,
+``optim.py:31-64``) become parameter groups, one for each distinct scale,
+each with its ``lr_scale``: scaling Adam's update is scaling its group's lr,
+and ``set_learning_rate`` sets each group's lr to lr x ``lr_scale``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,39 @@ class AdamBF16Moments(torch.optim.Optimizer):
         return None
 
 
+def flax_path(name: str) -> str:
+    """The flax path of one of the port's parameter names: the port names
+    its modules after the flax tree (``convert.py``), so it is the name with
+    ``.`` as ``/`` and the leaf renamed as ``convert.flax_to_torch`` renames
+    it (``weight`` is flax's ``kernel``)."""
+    *path, leaf = name.split(".")
+    return "/".join(path + ["kernel" if leaf == "weight" else leaf])
+
+
+def lr_scale_groups(named_params, scales: dict) -> list[dict]:
+    """Parameter groups of ``lr_scales``: each parameter takes the scale of
+    the first pattern that is a substring of its flax path (``flax_path``),
+    else 1.0, as JAX's ``lr_scale_by_path`` selects it; one group for each
+    distinct scale, in the order of its first parameter, each with its
+    ``lr_scale``."""
+    patterns = [(str(pat), float(s)) for pat, s in scales.items()]
+    groups: dict[float, list] = {}
+    for name, p in named_params:
+        path = flax_path(name)
+        scale = next((s for pat, s in patterns if pat in path), 1.0)
+        groups.setdefault(scale, []).append(p)
+    return [{"params": ps, "lr_scale": s} for s, ps in groups.items()]
+
+
+def _split_names(params) -> tuple[list, list | None]:
+    """(parameters, names or None) of an iterable of parameters or of
+    (name, parameter) pairs."""
+    items = list(params)
+    if items and isinstance(items[0], tuple):
+        return [p for _, p in items], [n for n, _ in items]
+    return items, None
+
+
 def _sgd(params, lr: float, model_config: dict) -> torch.optim.Optimizer:
     """optax's chain(add_decayed_weights(wd), sgd(lr, momentum)), the JAX
     ``_sgd``: the decay is added to the gradient, the momentum trace starts
@@ -128,19 +166,33 @@ def create_cd_optimizer(params, config: dict, model_config: dict) -> torch.optim
 
 def create_optimizer(params, config: dict, model_config: dict,
                      task: str = "segmentation") -> torch.optim.Optimizer:
-    if task == "cd":
+    """The optimizer of ``task`` over ``params`` (parameters, or (name,
+    parameter) pairs as ``named_parameters`` gives them; ``lr_scales``
+    needs the names). ``"cd"`` is the change-detection choice; the
+    segmentation and MAE tasks take Adam, with bf16 moments where
+    ``resolve_moment_dtype`` says so, and honour ``lr_scales`` (the model
+    config's, else the config's), as the JAX ``create_optimizer`` does. The
+    recurrent engine asks for the segmentation optimizer, as JAX's does."""
+    params, names = _split_names(params)
+    if task == "cd":  # JAX's cd branch reads no lr_scales
         return create_cd_optimizer(params, config, model_config)
     if task not in ("segmentation", "mae"):
-        raise NotImplementedError(
-            f"optimizer for task {task!r} is not ported yet (ROADMAP.md, A7)")
-    if model_config.get("lr_scales") or config.get("lr_scales"):
-        raise NotImplementedError("lr_scales is not ported yet (ROADMAP.md, A8)")
+        raise NotImplementedError(f"no optimizer for task {task!r}")
     lr = float(model_config.get("learning_rate", config.get("learning_rate", 1e-3)))
-    if resolve_moment_dtype(config, model_config, task) == "bfloat16":
-        return AdamBF16Moments(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    scales = model_config.get("lr_scales") or config.get("lr_scales")
+    if scales:
+        if names is None:
+            raise ValueError("lr_scales selects parameters by name: pass named_parameters()")
+        params = lr_scale_groups(zip(names, params), scales)
+    cls = (AdamBF16Moments if resolve_moment_dtype(config, model_config, task) == "bfloat16"
+           else torch.optim.Adam)
+    optimizer = cls(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    set_learning_rate(optimizer, lr)
+    return optimizer
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's lr to ``lr`` times the group's ``lr_scale`` (1 where
+    it has none)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_scale", 1.0)

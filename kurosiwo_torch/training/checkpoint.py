@@ -4,7 +4,9 @@
   * the best-val checkpoint is ``best_segmentation`` (selection metric: val
     mIoU over classes 0-2), beside a human-readable ``best_segmentation.txt``;
   * per-epoch checkpoints ``checkpoint_epoch={e}``;
-  * the rolling ``latest`` that resume reads first.
+  * the rolling ``latest`` that resume reads first;
+  * MAE's per-epoch ``mae_{e}`` (the whole state) and ``vit_{e}`` (the
+    encoder's ``state_dict`` alone, no optimizer).
 
 A checkpoint holds the whole train state: the model's ``state_dict`` (f32
 parameters and the BatchNorm ``mean``/``var`` buffers), the optimizer's
@@ -68,8 +70,9 @@ class CheckpointManager:
     def save(self, name: str, state: TrainState, extra: dict | None = None) -> None:
         cur = self._read_ptr(name)
         slot = f"{name}.b" if cur and cur.get("slot", "").endswith(".a") else f"{name}.a"
-        payload = {"step": int(state.step), "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
+        payload = {"step": int(state.step), "model": state.model.state_dict()}
+        if state.optimizer is not None:  # MAE's vit_{e}: the encoder alone
+            payload["optimizer"] = state.optimizer.state_dict()
         # the pointer names the other slot until the replace below
         _fsync_write(self.dir / slot, lambda f: torch.save(payload, f))
         ptr = self._ptr_path(name)

@@ -1,5 +1,5 @@
-"""The epoch-loop engine of the segmentation and change-detection tasks;
-counterpart of ``kurosiwo_tpu/training/engine.py``.
+"""The epoch-loop engine of the segmentation, change-detection and
+recurrent tasks; counterpart of ``kurosiwo_tpu/training/engine.py``.
 
 One train step and one eval step (``steps.py``); per epoch: train, evaluate
 on val, keep ``best_segmentation`` (val mIoU) and ``latest``, then reload
@@ -16,8 +16,11 @@ resume restarts it from the seed, as JAX's engine restarts its key).
 Change detection differs in its steps' input assembly and dropout draws
 (``steps.py``), its optimizer (``ops/optim.create_cd_optimizer``) and the
 per-epoch ``checkpoint_epoch={e}`` saves of ``train_save_checkpoint_freq``.
-The recurrent task (A7) is not ported; nor are pretrained weights (A13),
-wandb logging and visualizations (A14).
+The recurrent task (the ConvLSTM) differs in its steps' input assembly
+(three frames), takes the segmentation optimizer (plain Adam, whatever the
+model config's ``optimizer`` and ``betas`` say, as the JAX engine) and
+saves ``checkpoint_epoch={e}`` as change detection does. Not ported:
+pretrained weights (A13), wandb logging and visualizations (A14).
 """
 
 from __future__ import annotations
@@ -38,15 +41,17 @@ from ..ops.schedules import create_lr_schedule
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager
 from .state import create_train_state
-from .steps import STEP_KEYS, make_eval_step, make_train_step
+from .steps import STEP_KEYS, TASKS, make_eval_step, make_train_step
 
 
-def device_prefetch(loader: Iterable[dict], device: str | torch.device, depth: int = 2):
-    """Iterate ``loader``'s batches with their ``STEP_KEYS`` on the card, ``depth``
-    batches in flight: each is uploaded on a copy stream, and the compute
-    stream waits on that copy's event before it uses the batch. The other
-    keys (``activation``, ...) stay on the host as numpy arrays. On the CPU
-    the batches pass through unchanged.
+def device_prefetch(loader: Iterable[dict], device: str | torch.device, depth: int = 2,
+                    keys: tuple = STEP_KEYS):
+    """Iterate ``loader``'s batches with their ``keys`` (default the steps'
+    ``STEP_KEYS``; MAE's ``("image",)``) on the card, ``depth`` batches in
+    flight: each is uploaded on a copy stream, and the compute stream waits
+    on that copy's event before it uses the batch. The other keys
+    (``activation``, ...) stay on the host as numpy arrays. On the CPU the
+    batches pass through unchanged.
 
     A ``Loader``'s batches are views of its page-locked ring
     (``Loader.ring_batches(pin=True)``): they are uploaded from there, with
@@ -66,7 +71,7 @@ def device_prefetch(loader: Iterable[dict], device: str | torch.device, depth: i
         out, uploaded = {}, []
         with torch.cuda.stream(copy_stream):
             for k, v in host.items():
-                if k not in STEP_KEYS:
+                if k not in keys:
                     out[k] = v.copy() if ring else v
                     continue
                 src = torch.from_numpy(np.ascontiguousarray(v))
@@ -110,8 +115,8 @@ class TaskEngine:
     def __init__(self, model: torch.nn.Module, config: dict, model_config: dict, task: str,
                  steps_per_epoch: int, device: str | torch.device | None = "cuda",
                  seed: int = 999):
-        if task not in ("segmentation", "cd"):
-            raise NotImplementedError(f"the {task!r} engine is not ported yet (ROADMAP.md, A7)")
+        if task not in TASKS:
+            raise NotImplementedError(f"the engine has no task {task!r} (it has {TASKS})")
         self.device = resolve_device(device)
         configure_backends(config, self.device)
         self.model = model
@@ -122,7 +127,10 @@ class TaskEngine:
             raise NotImplementedError("visualizations (save_visualizations; utils/visualize.py) "
                                       "are not ported yet (ROADMAP.md, A14)")
         self.logger = MetricLogger(config)  # raises on wandb_activate with wandb installed (A14)
-        self.state = create_train_state(model, config, model_config, task)
+        # the reference's segmentation and recurrent trainers both take plain
+        # Adam (JAX engine.py:90-92)
+        self.state = create_train_state(model, config, model_config,
+                                        "cd" if task == "cd" else "segmentation")
         # the augmentations' and dropout masks' random stream (JAX: the
         # engine's self.rng)
         self.generator = torch.Generator(self.device)
@@ -246,7 +254,8 @@ def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
             best_val = float(extra.get("metric", 0.0))
             engine.logger.info(f"Resumed from best_segmentation (val mIoU {best_val:.3f})")
 
-    save_freq = int(config.get("train_save_checkpoint_freq") or 0) if task == "cd" else 0
+    save_freq = (int(config.get("train_save_checkpoint_freq") or 0)
+                 if task in ("cd", "recurrent") else 0)
     for epoch in range(start_epoch, int(config.get("epochs", 1))):
         engine.logger.log_train_epoch(epoch, engine.run_train_epoch(train_loader, epoch))
         if save_freq and epoch % save_freq == 0:

@@ -21,10 +21,10 @@ from ..ops.optim import create_optimizer
 class TrainState:
     step: int
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None  # None: a model alone (MAE's vit_{e})
 
 
 def create_train_state(model: torch.nn.Module, config: dict, model_config: dict,
                        task: str = "segmentation") -> TrainState:
-    optimizer = create_optimizer(model.parameters(), config, model_config, task)
+    optimizer = create_optimizer(model.named_parameters(), config, model_config, task)
     return TrainState(step=0, model=model, optimizer=optimizer)

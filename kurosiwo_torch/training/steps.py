@@ -1,5 +1,5 @@
-"""Train and eval steps of the segmentation and change-detection tasks;
-counterpart of ``kurosiwo_tpu/training/steps.py``.
+"""Train and eval steps of the segmentation, change-detection and recurrent
+tasks; counterpart of ``kurosiwo_tpu/training/steps.py``.
 
 A step keeps its loss, confusion matrix and weight sum on the device: it
 never reads a value back to the host, so the card runs ahead of Python.
@@ -17,7 +17,10 @@ with ``multi_scale_train`` and ``multi_pred_weights`` the loss is the
 weighted sum over the heads, each first resized to the mask's size with
 ``jax.image.resize``'s "bilinear" (``ops/nn.resize_linear``); eval takes
 the last head, or with ``multi_scale_infer`` the mean of the heads after an
-integer-factor nearest resize. With ``remat`` the forward of every method
+integer-factor nearest resize. The recurrent task (``task="recurrent"``)
+feeds the ConvLSTM its three frames (``assemble_recurrent_input``); its
+probabilities go to the tail as logits, and the tail is the plain one
+unless ``fused_tail`` is true (B2's NHWC kernels), as JAX resolves it. With ``remat`` the forward of every method
 but SNUNet runs as one rematerialized region (``ops/remat.remat``; JAX's
 whole-forward ``jax.checkpoint``, ``steps.py:144``); SNUNet checkpoints its
 own blocks and columns, as the factory configures it. The JAX whole-forward
@@ -82,6 +85,15 @@ def assemble_cd_inputs(batch: dict, config: dict) -> tuple[torch.Tensor, torch.T
     return frames[0], frames[1]
 
 
+def assemble_recurrent_input(batch: dict, config: dict) -> torch.Tensor:
+    """(B, T=3, H, W, C) frames in the reference's order (pre2, pre1, post),
+    each with the DEM appended when ``dem`` is set."""
+    frames = [batch["pre2"], batch["pre1"], batch["post"]]
+    if config.get("dem"):
+        frames = [torch.cat([f, batch["dem"]], dim=-1) for f in frames]
+    return torch.stack(frames, dim=1)
+
+
 # the batch keys a step reads (valid for the augmentations' discard-if-empty,
 # clz for the zone banks)
 STEP_KEYS = ("post", "pre1", "pre2", "dem", "mask", "valid", "sample_weight", "clz")
@@ -100,11 +112,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+TASKS = ("segmentation", "cd", "recurrent")
+
+
 def _check_task(task: str) -> None:
-    if task == "recurrent":
-        raise NotImplementedError("the recurrent task is not ported yet (ROADMAP.md, A7)")
-    if task not in ("segmentation", "cd"):
-        raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP.md, A7-A10)")
+    if task not in TASKS:
+        raise NotImplementedError(f"the steps have no task {task!r} (they have {TASKS})")
 
 
 def _check_ported_keys(config: dict, train: bool) -> None:
@@ -120,6 +133,8 @@ def _forward(model: torch.nn.Module, batch: dict, config: dict, task: str,
     """The model's output on the batch's assembled input(s)."""
     if task == "segmentation":
         inputs, kw = (assemble_segmentation_input(batch, config),), {"dtype": dtype}
+    elif task == "recurrent":
+        inputs, kw = (assemble_recurrent_input(batch, config),), {"dtype": dtype}
     else:
         inputs, kw = assemble_cd_inputs(batch, config), {"dtype": dtype, "generator": generator}
     if use_remat:

@@ -227,5 +227,22 @@ def test_cd_inputs_are_assembled_as_jax(inputs, dem):
 
 
 def test_recurrent_task_names_a7():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, A7\)"):
-        t_train_step(torch.nn.Identity(), None, {}, {}, task="recurrent", device="cpu")
+    """A7 (the recurrent task) is ported: its train and eval steps build and
+    run a tiny ConvLSTM on the frames (pre2, pre1, post); a task the steps
+    do not have still raises, naming theirs."""
+    from kurosiwo_torch.models.factory import initialize_recurrent_model
+
+    cfg = dict(cdp.config("snunet"), task="segmentation", method="convlstm",
+               inputs=["pre_event_1", "pre_event_2", "post_event"], fused_tail=False)
+    model = initialize_recurrent_model(cfg, {}, device="cpu")
+    state = t_create_state(model, cfg, {"learning_rate": 1e-3})
+    batch = cdp.step_batch("snunet", 0)
+    step = t_train_step(model, t_create_loss(cfg, "train"), cfg, {}, task="recurrent",
+                        device="cpu")
+    state, ms, loss = step(state, batch, TMetricState.create(), 1e-3)
+    ev = t_eval_step(model, t_create_loss(cfg, "val"), cfg, {}, task="recurrent", device="cpu")
+    ems, eloss, _ = ev(state, batch, TMetricState.create())
+    assert state.step == 1 and np.isfinite([float(loss), float(eloss)]).all()
+    assert float(ms.cm.sum()) == float(ems.cm.sum()) == float((batch["mask"] != 3).sum())
+    with pytest.raises(NotImplementedError, match="have no task 'mae'"):
+        t_train_step(torch.nn.Identity(), None, {}, {}, task="mae", device="cpu")

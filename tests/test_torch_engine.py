@@ -288,9 +288,17 @@ def test_wandb_request_raises_before_any_side_effect_or_prints(monkeypatch, tmp_
 
 
 def test_engine_refuses_other_tasks():
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="A7"):
-        TEngine(torch.nn.Identity(), cfg, MCFG, "recurrent", 1, device="cpu")
+    """The engine runs the segmentation, change-detection and recurrent
+    tasks (A7 ported: a recurrent engine builds, with plain Adam) and
+    refuses any other task, naming the ones it has."""
+    from kurosiwo_torch.models.factory import initialize_recurrent_model
+
+    cfg = _cfg(method="convlstm", num_channels=2)
+    engine = TEngine(initialize_recurrent_model(cfg, MCFG, device="cpu"), cfg, MCFG,
+                     "recurrent", 1, device="cpu")
+    assert engine.task == "recurrent" and type(engine.state.optimizer) is torch.optim.Adam
+    with pytest.raises(NotImplementedError, match="has no task 'mae'"):
+        TEngine(torch.nn.Identity(), cfg, MCFG, "mae", 1, device="cpu")
 
 
 def test_pretrained_keys_warn_like_jax():

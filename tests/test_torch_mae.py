@@ -234,7 +234,14 @@ def test_create_optimizer_mae_defaults_to_bf16_moments():
     f32 = t_optim.create_optimizer(p, {"optimizer_moment_dtype": "float32"}, {}, task="mae")
     assert type(f32) is torch.optim.Adam
     assert t_optim.resolve_moment_dtype({}, {}, "mae") == j_optim.resolve_moment_dtype({}, {}, "mae")
-    with pytest.raises(NotImplementedError, match="A8"):
+    # lr_scales (A8, ported) builds one group for each scale, first match wins
+    named = [(n, torch.nn.Parameter(torch.zeros(3))) for n in ("x.w", "y.w")]
+    scaled = t_optim.create_optimizer(named, {}, {"lr_scales": {"x/": 0.5}}, task="mae")
+    assert isinstance(scaled, t_optim.AdamBF16Moments)
+    assert [(g["lr_scale"], len(g["params"])) for g in scaled.param_groups] == [(0.5, 1), (1.0, 1)]
+    t_optim.set_learning_rate(scaled, 1e-3)
+    assert [g["lr"] for g in scaled.param_groups] == [5e-4, 1e-3]
+    with pytest.raises(ValueError, match="named_parameters"):
         t_optim.create_optimizer(p, {}, {"lr_scales": {"x": 0.5}}, task="mae")
 
 

@@ -110,6 +110,32 @@ def test_mae_modules_import_without_building_kernels():
     assert "short_attention" not in kernels._loaded
 
 
+@pytest.mark.parametrize("module", ["data/ssl.py", "models/convlstm.py",
+                                    "training/recurrent.py"])
+def test_mae_loop_and_recurrent_modules_walk_and_import_no_jax(module):
+    """The SSL loader and the ConvLSTM's modules are in the package walk,
+    import without building a kernel, and import no JAX."""
+    name = "kurosiwo_torch." + module[:-3].replace("/", ".")
+    names = [m.name for m in pkgutil.walk_packages(kurosiwo_torch.__path__, "kurosiwo_torch.")]
+    assert name in names
+    importlib.import_module(name)
+    assert not _imported_roots(ROOT / "kurosiwo_torch" / module) & set(FORBIDDEN)
+    from kurosiwo_torch import kernels
+
+    assert kernels._loaded == {}
+
+
+def test_recurrent_factory_and_bench_without_device_raise_on_a_cpu_box(monkeypatch):
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import initialize_recurrent_model
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initialize_recurrent_model(bench.build_config("convlstm", 2), bench.MODEL_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.setup(2, model="convlstm")
+
+
 def test_mae_factory_step_and_bench_without_device_raise_on_a_cpu_box(monkeypatch):
     from kurosiwo_torch import bench
     from kurosiwo_torch.models.factory import build_mae
