@@ -95,9 +95,9 @@ its lines; any failed phase exits non-zero.
    (without the smoke's own pixel counting), the loader alone, the train
    step's rate from phase 5, the card's busy time a step (torch.profiler)
    and so its idle share of the timed epoch, and the peak memory.
-   The packed feed: a synthetic split of 768 samples at 224^2 packed in
-   float16 (0.54 GB) into a temporary directory and read from the warm
-   page cache; the 6-step b128 epoch of one engine, the loader alone and
+   The packed feed: a synthetic split of 512 samples at 224^2 packed in
+   float16 (0.36 GB) into a temporary directory and read from the warm
+   page cache; the 4-step b128 epoch of one engine, the loader alone and
    the step's host time outside the wait, from the decoded source and from
    the pack, by the Loader's decode processes and by decode threads (the
    A/B's other arm, ``ThreadRows`` here); batch 0 bitwise equal across the
@@ -143,8 +143,9 @@ its lines; any failed phase exits non-zero.
    eval step at a small size, card against CPU, B3 and B4 launched once for
    each plain call of the CPU step; Swin's relative-position gradients
    bitwise equal over two deterministic backwards; the b128 bf16 train step
-   (2 warm-up, 5 timed; 3 and 10 before the MAE-loop and recurrent phases
-   joined the script) and f32-twin eval (2 warm-up, 5 timed) of unet++
+   (2 warm-up, 3 timed; 3 and 10 before the MAE-loop and recurrent phases
+   joined the script, 2 and 5 before the diffusion phase) and f32-twin eval
+   (2 warm-up, 3 timed) of unet++
    resnet18, deeplabv3 resnet18, upernet convnext_tiny, finetune (ViT-L
    1024 x 24, 16 heads, mlp 2048, mlp head; at the larger of b64, b32 that
    fits, b128 does not), upernet swin_tiny and deeplabv3 resnet50, with
@@ -161,7 +162,8 @@ its lines; any failed phase exits non-zero.
    with ``lr_scales``, mae_{e}/vit_{e}) at a small size, f32, card against
    CPU with the card's masking noise replayed, B4 launched once for each
    plain call; the loop at full width (the shipped mae.json: ViT-L, accum
-   4, b128, synthetic SSL source, 2 epochs of 8 steps, the second timed):
+   4, b128, synthetic SSL source, 2 epochs of 4 steps, the second timed;
+   8 before the diffusion phase):
    patches/s, the host time a step outside the loader wait, the SSL loader
    alone, the card's idle share (torch.profiler), the peak memory, B4
    launches a step (128 each way, all wgmma) and the seconds and bytes of
@@ -175,24 +177,42 @@ its lines; any failed phase exits non-zero.
    ``fused_tail: true`` (B2 once each way) against the plain tail; B2
    against its plain version at the step's f32 probabilities; ``python -m
    kurosiwo_torch --method convlstm --seed 7`` twice (``checkpoint_epoch=0``
-   written, every printed number equal). Their numbers close the output in
-   a ``[slice summary]`` line.
+   written, every printed number equal). And diffusion pretraining with the
+   raster CLI (the diffusion phase): the DDPM (dim 16, dim_mults (1, 2),
+   32^2, f32) in a 10-step ``sample`` chain and one train step (the loss,
+   every gradient, Adam's update), card against CPU from the same weights,
+   timesteps and noise; the shipped diffusion.json (dim 64, dim_mults (1,
+   2, 4, 8), 1000 timesteps, 224^2 x 2, bf16 on f32 parameters) in its
+   train step at the first of b128, b64, b32 that fits (2 warm-up, 5 timed,
+   2 profiled: patches/s, peak memory, the card's busy time a step and its
+   cuDNN, elementwise and reduction shares) and one whole 1000-step chain
+   at (1, 224, 224, 2) (its seconds, a finite output of the right shape),
+   every kernel counter 0 across both; the raster CLI's inputs, a 2048^2
+   VV/VH pair as float32 TIFFs (cv2) and the best_segmentation of the
+   CLI's model (the UNet on post_event's 2 channels; the engine phase's
+   takes 6) after 4 engine steps, and its in-process predict_scene under
+   deterministic algorithms (no kernel launched); ``python -m kurosiwo_torch
+   --method diffusion --seed 7`` at the leg's batch (exit 0, finite losses,
+   diffusion_0 written) and ``python -m kurosiwo_torch.inference --vv ...
+   --vh ... --checkpoint <dir>/best_segmentation`` (exit 0, the mask PNG
+   bitwise the in-process map, the overlay written), both in the pool.
+   Their numbers close the output in a ``[slice summary]`` line.
 8. Phase 5's MAE ViT-L train step and serving paths, run after the other
    phases (their launch counts fill the kernel table).
-9. The CLI pool: every CLI run of the phases above (22), at most 6 at once
+9. The CLI pool: every CLI run of the phases above (24), at most 6 at once
    while their estimated peaks (each model's leg peak plus its context) sum
-   to at most 62 GiB, the largest first; then each phase's checks of its
-   runs, in phase order. It prints its wall time and the card's memory in
+   to at most 62 GiB, the runs of 31 GiB and more first (the largest first,
+   the others beside them at nice 10, in phase order); then each phase's
+   checks of its runs, in phase order. It prints its wall time and the card's memory in
    use at most (nvidia-smi).
 10. The kernel table as one JSON line (B3's row with the change-detection
    and zoo steps' pair-sum launches, B4's with the finetuner's and the MAE
    loop's, B2's with the recurrent step's), then the result line
    ``{"ok": true, "device": {...}}``.
 
-``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo,mae-train,recurrent`` runs the
-device and build phases
-and then only those phases: a partial run, which prints no kernel table and
-no result line.
+``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo,mae-train,recurrent,diffusion``
+runs the device and build phases and then only those phases: a partial
+run, which prints no kernel table and no result line.
 """
 
 from __future__ import annotations
@@ -1900,11 +1920,11 @@ def phase_engine(torch, counters, smi: str, step_rate: float) -> dict:
 
 
 # the packed-feed phase: a synthetic train split of PACK_SAMPLES packed in
-# float16, and the 6-step b128 epoch fed from the decoded source and from
+# float16, and the 4-step b128 epoch fed from the decoded source and from
 # the pack, by decode processes (the Loader's) and by decode threads (20
-# steps before the zoo phase joined the script, 12 before the CLI pool, all
-# within the script's time limit)
-PACK_SAMPLES = 768
+# steps before the zoo phase joined the script, 12 before the CLI pool, 6
+# before the diffusion phase, all within the script's time limit)
+PACK_SAMPLES = 512
 PACK_RECORD_BYTES = 702472  # 3 x 224 x 224 x 2 float16, mask and valid int8, clz, activation
 FEED_SEED = 11
 
@@ -1963,7 +1983,7 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
     """A synthetic split of PACK_SAMPLES at 224^2 packed in float16 (the
     port's pack_split) into a temporary directory, read back from the warm
     page cache (it was just written; a cold read is not measured); then,
-    for the decoded source and the pack, the 6-step b128 epoch of one
+    for the decoded source and the pack, the 4-step b128 epoch of one
     engine, the loader alone, the step's host time outside the wait, by
     decode processes and by decode threads (in the order pack processes,
     pack threads, decoded processes, decoded threads). Batch 0 must be bitwise the
@@ -3141,9 +3161,10 @@ ZOO_LEGS = (
     ("deeplabv3 resnet50", "deeplabv3", {"backbone": "resnet50"}, (BATCH,)),
 )
 ZOO_CLI = ("unet++", "deeplabv3", "upernet", "finetune")
-# the zoo and recurrent legs' train steps: warm-up, timed (3 and 10 before
-# the MAE-loop and recurrent phases joined the script, within its time limit)
-ZOO_STEPS = (2, 5)
+# the zoo and recurrent legs' train and f32-eval steps: warm-up, timed (3
+# and 10 before the MAE-loop and recurrent phases joined the script, 2 and 5
+# before the diffusion phase, within its time limit)
+ZOO_STEPS = (2, 3)
 
 
 def zoo_swin_deterministic(torch) -> None:
@@ -3173,8 +3194,8 @@ def zoo_swin_deterministic(torch) -> None:
 def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
             bn_shapes: set, attn: dict, batches: tuple = (BATCH, BATCH // 2, BATCH // 4),
             label: str = "seg-zoo main") -> dict:
-    """A full-width bf16 train leg (ZOO_STEPS: 2 warm-up, 5 timed, 2
-    profiled) and its f32-twin eval (2 warm-up, 5 timed) through
+    """A full-width bf16 train leg (ZOO_STEPS: 2 warm-up, 3 timed; 2
+    profiled) and its f32-twin eval (ZOO_STEPS) through
     ``cd_timed`` at the first of ``batches`` that fits (named on its line);
     its short-attention shapes go to ``attn``."""
     import collections
@@ -3184,7 +3205,7 @@ def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict 
         shapes = collections.Counter()
         try:
             res = cd_timed(torch, counters, smi, model, batch, {}, *ZOO_STEPS, eval_too=True,
-                           eval_steps=(2, 5), profile_steps=2, bn_shapes=bn_shapes,
+                           eval_steps=ZOO_STEPS, profile_steps=2, bn_shapes=bn_shapes,
                            model_config=model_config,
                            attn_shapes=shapes, tag=tag, label=label)
         except torch.cuda.OutOfMemoryError:
@@ -3283,7 +3304,7 @@ MAE_LOOP_SCALES = {"transformer/attn_0/": 0.5, "encoder/": 0.25, "decoder/": 2.0
 # the full-width loop: the shipped mae.json at b128 (train_config.json), 2
 # epochs of this many steps on the synthetic SSL source; epoch 0 is the
 # warm-up, epoch 1 the timed run
-MAE_LOOP_STEPS = 8
+MAE_LOOP_STEPS = 4
 
 
 def mae_loop_config(root, **kw) -> dict:
@@ -3644,9 +3665,350 @@ def phase_recurrent(torch, counters, smi: str, fused_tail, cli: list) -> dict:
     return out
 
 
-def slice_summary(mae: dict | None, rec: dict | None, smi: str) -> str:
-    """One line of the MAE-loop and recurrent phases' numbers, printed near
-    the end."""
+# the diffusion task (A10) and the raster CLI (A11): the DDPM card against
+# CPU at dim 16, dim_mults (1, 2), 32^2, batch 4, f32 (lr 1e-3, so that
+# adam_step_close's 3e-4 is 0.3 lr); the full-width leg on the shipped
+# diffusion.json (bench.setup_diffusion) at the first of these batches that
+# fits; the raster CLI on a scene of this side
+DIFF_SMALL = {"dim": 16, "dim_mults": [1, 2], "timesteps": 10, "learning_rate": 1e-3}
+DIFF_STEPS = (2, 5)
+DIFF_BATCHES = (BATCH, BATCH // 2, BATCH // 4)
+RASTER_SIDE = 2048
+
+
+@contextlib.contextmanager
+def backend_flags(torch):
+    """The backend flags that ``configure_backends`` sets, restored after the
+    block (a block that sets the segmentation task's deterministic
+    algorithms leaves the later phases as they were)."""
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+
+
+def diffusion_card_vs_cpu(torch, counters) -> dict:
+    """A 10-step ``sample`` chain (timesteps 10) from the same draws, then one
+    f32 train step (the loss, every gradient, Adam's update) from the same
+    weights, timesteps and noise, of the DDPM at DIFF_SMALL on (4, 32, 32,
+    2), on the card against the CPU. Bands: the loss within 1e-5 of it; each
+    gradient within 1e-3 of its tensor's largest value plus 1e-5 of the
+    tree's (a conv bias before a GroupNorm has a gradient of rounding noise,
+    zero in exact arithmetic); the parameters as ``adam_step_close`` (C6);
+    the chain within 1e-4 of its largest value. No kernel is launched."""
+    import numpy as np
+
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training.diffusion import make_diffusion_train_step
+    from kurosiwo_torch.training.state import create_train_state
+
+    cfg = {"task": "diffusion-unsup", "method": "diffusion", "mixed_precision": False}
+    steps = DIFF_SMALL["timesteps"]
+    rs = np.random.RandomState(5)
+    x0 = torch.from_numpy(rs.randn(4, 32, 32, 2).astype(np.float32))
+    t = torch.from_numpy(rs.randint(0, steps, 4))
+    noise = torch.from_numpy(rs.randn(4, 32, 32, 2).astype(np.float32))
+    noises = torch.from_numpy(rs.randn(steps + 1, 1, 32, 32, 2).astype(np.float32))
+    res = {}
+    zero_counters(counters)
+    for dev in ("cuda", "cpu"):
+        model = initialize_segmentation_model(cfg, DIFF_SMALL, device=dev, seed=2)
+        chain = model.sample((1, 32, 32, 2), noises=noises).cpu()
+        state = create_train_state(model, cfg, DIFF_SMALL)
+        state, loss = make_diffusion_train_step(model, dev)(state, {"image": x0}, None, t=t,
+                                                            noise=noise)
+        res[dev] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                    {k: p.detach().cpu() for k, p in model.named_parameters()}, chain)
+    launched = read_counters(counters)
+    (loss, grads, params, chain), (want_loss, want_grads, want_params, want_chain) = (
+        res["cuda"], res["cpu"])
+    out = {"loss_err": abs(loss - want_loss), "chain_err": (chain - want_chain).abs().max().item()}
+    largest = max(g.abs().max().item() for g in want_grads.values())
+    out["grad_err"] = 0.0
+    for k, w in want_grads.items():
+        err = (grads[k] - w).abs().max().item()
+        require(err <= 1e-3 * w.abs().max().item() + 1e-5 * largest,
+                f"diffusion card vs CPU: the gradient of {k} off by {err:.3e}")
+        out["grad_err"] = max(out["grad_err"], err)
+    out["param_err"], share = adam_step_close(params, want_params, DIFF_SMALL["learning_rate"])
+    require(out["loss_err"] <= 1e-5 * abs(want_loss),
+            f"diffusion card vs CPU: loss {loss} against {want_loss}")
+    require(out["param_err"] <= 2 * DIFF_SMALL["learning_rate"] + 1e-7 and share >= 0.99,
+            f"diffusion card vs CPU: Adam's update off by {out['param_err']:.3e} ({share:.4f} "
+            "within 3e-4)")
+    require(out["chain_err"] <= 1e-4 * max(1.0, want_chain.abs().max().item()),
+            f"diffusion card vs CPU: the sample chain off by {out['chain_err']:.3e}")
+    require(not any(launched.values()), f"the small DDPM launched {launched}")
+    print(f"[diffusion parity] DDPM dim 16 (1, 2) 32^2 b4 f32, card against CPU: loss "
+          f"{loss:.6f} (error {out['loss_err']:.3e}), gradients max error {out['grad_err']:.3e} "
+          f"(largest {largest:.3e}), Adam's update max error {out['param_err']:.3e} ({share:.4f} "
+          f"within 3e-4), 10-step sample chain max error {out['chain_err']:.3e}; no kernel "
+          "launched", flush=True)
+    return out
+
+
+def diffusion_leg(torch, smi: str) -> tuple[dict, object]:
+    """The shipped diffusion.json's bf16 train step (dim 64, dim_mults (1, 2,
+    4, 8), 224^2 x 2, bf16 on f32 parameters) at the first of DIFF_BATCHES
+    that fits, 2 warm-up and 5 timed steps: patches/s, peak memory, the
+    card's busy time a step and its shares (torch.profiler, 2 steps): cuDNN
+    and cuBLAS, against the elementwise passes and the reductions (the
+    GroupNorms' statistics among them). Returns the numbers and the bench
+    (its model for the sampler)."""
+    import gc
+
+    from kurosiwo_torch import bench
+
+    warmup, steps = DIFF_STEPS
+    for batch in DIFF_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            b = bench.setup_diffusion(batch)
+            one = bench._diffusion_train_fn(b)
+            seconds, loss = bench._timed(one, steps, warmup, b.device)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[diffusion main] train b{batch}: out of memory [{smi}]", flush=True)
+            b = one = None
+            gc.collect()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(bool(torch.isfinite(loss).item()), f"diffusion b{batch} train loss {loss.item()}")
+        ms = seconds / steps * 1e3
+        prof = bench.profile(one, 2, b.device, ms, file=sys.stdout)
+        cats, busy = prof["categories"], prof["kernel_ms"]
+        share = {k: cats.get(c, 0.0) / busy for k, c in (
+            ("cudnn_cublas", "convolution / matmul (cuDNN, cuBLAS)"),
+            ("elementwise", "elementwise / copy"), ("reduction", "reduction"),
+            ("optimizer", "optimizer"))}
+        out = {"batch": batch, "rate": steps * batch / seconds, "ms": ms, "peak_gib": peak,
+               "busy_ms": busy, "busy_share": busy / ms, "shares": share,
+               "loss": loss.item()}
+        print(f"[diffusion main] DDPM train b{batch} bf16 (dim 64, (1, 2, 4, 8), 224^2 x 2): "
+              f"{out['rate']:.2f} patches/s ({ms:.2f} ms/step), loss {out['loss']:.5f}, peak "
+              f"{peak:.2f} GiB, device busy {busy:.2f} ms/step ({100 * busy / ms:.1f}%): "
+              f"cuDNN/cuBLAS {100 * share['cudnn_cublas']:.1f}%, elementwise "
+              f"{100 * share['elementwise']:.1f}%, reductions {100 * share['reduction']:.1f}%, "
+              f"Adam {100 * share['optimizer']:.1f}% [{smi}]", flush=True)
+        b.state.model.zero_grad(set_to_none=True)
+        return out, b
+    raise PhaseFailed(f"the DDPM train step: no batch of {DIFF_BATCHES} fits")
+
+
+def diffusion_sampler(torch, model, smi: str) -> dict:
+    """One whole ``sample`` chain (the model's 1000 steps) at (1, 224, 224, 2)
+    at full width, from a seeded generator on the card: its seconds (host
+    clock, synchronised) and a finite output of the right shape (random
+    weights: its scale is not a trained model's). Then 3 of its steps under
+    torch.profiler: the card's busy time and the kernel launches a step."""
+    from kurosiwo_torch import bench
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = model.sample((1, IMAGE, IMAGE, 2), generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(tuple(x.shape) == (1, IMAGE, IMAGE, 2) and x.dtype == torch.float32
+            and bool(torch.isfinite(x).all().item()),
+            f"the sampler's output {tuple(x.shape)} {x.dtype}, finite "
+            f"{bool(torch.isfinite(x).all().item())}")
+    out = {"steps": model.timesteps, "seconds": seconds,
+           "ms_per_step": seconds / model.timesteps * 1e3, "std": x.std().item()}
+    gen.manual_seed(0)
+    sampler = copy.copy(model)  # the same modules, a chain of 3 steps
+    sampler.timesteps = 3
+    prof = bench.profile(lambda: sampler.sample((1, IMAGE, IMAGE, 2), generator=gen), 1,
+                         torch.device("cuda"), 3 * out["ms_per_step"], file=sys.stdout)
+    out["busy_ms_per_step"], out["launches_per_step"] = prof["kernel_ms"] / 3, prof["launches"] / 3
+    print(f"[diffusion sampler] {model.timesteps}-step chain at (1, {IMAGE}, {IMAGE}, 2), dim "
+          f"64 bf16: {seconds:.2f} s ({out['ms_per_step']:.2f} ms a step), output finite, std "
+          f"{out['std']:.4g}; a step keeps the card busy {out['busy_ms_per_step']:.2f} ms over "
+          f"{out['launches_per_step']:.0f} kernel launches (torch.profiler, 3 steps) [{smi}]",
+          flush=True)
+    return out
+
+
+def raster_inputs(torch, counters, smi: str, root) -> dict:
+    """The raster CLI's inputs under ``root``: a RASTER_SIDE^2 VV/VH pair
+    written as float32 TIFFs with cv2, and ``best_segmentation`` of the
+    CLI's model (``load_config(method="unet")`` with inputs ["post_event"]:
+    the shipped UNet-ResNet18 on 2 channels, bf16; the engine phase's UNet
+    takes 6 channels, which the CLI's model cannot load) after 4 b32 train
+    steps of an engine on synthetic batches. Then the CLI's steps in this
+    process: the scene stacked and normalized, the model from
+    ``load_variables``, ``predict_scene`` on the card under deterministic
+    algorithms (as the CLI runs); its seconds and launches (none)."""
+    import cv2
+    import numpy as np
+    from pathlib import Path
+
+    from kurosiwo_torch import bench, inference
+    from kurosiwo_torch.config import load_config
+    from kurosiwo_torch.data.normalize import normalize
+    from kurosiwo_torch.data.tiles import _imread, stack_channels
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training.checkpoint import CheckpointManager
+    from kurosiwo_torch.training.engine import TaskEngine
+
+    rs = np.random.RandomState(21)
+    side = (RASTER_SIDE, RASTER_SIDE)
+    paths = {"vv": root / "vv.tif", "vh": root / "vh.tif"}
+    for (name, path), scale in zip(paths.items(), (0.04, 0.01)):
+        require(cv2.imwrite(str(path), rs.gamma(2.0, scale, side).astype(np.float32)),
+                f"cv2 could not write {path}")
+    cfg = load_config(method="unet", config_root=Path(__file__).resolve().parent / "configs",
+                      overrides={"inputs": ["post_event"]})
+    mc = cfg["model_config"]
+    with backend_flags(torch):
+        engine = TaskEngine(initialize_segmentation_model(cfg, mc, seed=7), cfg, mc,
+                            "segmentation", steps_per_epoch=4)
+        batch = bench.host_batch(32, seed=3)
+        summary = engine.run_train_epoch([batch] * 4, 0)
+        checkpoint = root / "run" / "best_segmentation"
+        CheckpointManager(checkpoint.parent).save_best(engine.state, 0, 0.0)
+        del engine
+        scene = normalize(stack_channels(_imread(str(paths["vv"])), _imread(str(paths["vh"])),
+                                         cfg["channels"], cfg.get("clamp_input")),
+                          cfg["data_mean"], cfg["data_std"])
+        model = initialize_segmentation_model(cfg, mc)
+        model.load_state_dict(inference.load_variables(str(checkpoint), model))
+        zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask = inference.predict_scene(inference.TilePredictor(model), scene)
+        seconds = time.perf_counter() - t0
+        launched = read_counters(counters)
+        del model
+    torch.cuda.empty_cache()
+    require(mask.shape == side and not any(launched.values()),
+            f"the raster scene: mask {mask.shape}, launches {launched}")
+    counts = {int(k): int(v) for k, v in zip(*np.unique(mask, return_counts=True))}
+    print(f"[diffusion raster] {RASTER_SIDE}^2 VV/VH float32 TIFFs (cv2); best_segmentation of "
+          f"the CLI's 2-channel UNet after 4 engine steps (train loss "
+          f"{summary['mean_loss']:.5f}); in-process predict_scene on the card, deterministic: "
+          f"{seconds:.2f} s, class pixel counts {counts}, no kernel launched [{smi}]", flush=True)
+    return {"paths": paths, "checkpoint": checkpoint, "mask": mask, "seconds": seconds,
+            "counts": counts}
+
+
+def diffusion_cli_finish(res: dict, batch: int, smi: str) -> dict:
+    """Of the CLI run ``python -m kurosiwo_torch --method diffusion --seed 7
+    --batch_size <batch>`` with ``"task": "diffusion-unsup"`` in a copy of
+    the shipped configs (a ``cli_collect`` result): exit 0, finite printed
+    losses, diffusion_0 written."""
+    import re
+
+    written = sorted(f.rsplit("/", 1)[-1] for f in res["files"] if f.endswith(".ptr.json"))
+    losses = [float(x) for x in re.findall(r"^diffusion epoch \d+ iter \d+: loss=(\S+)$",
+                                           res["stdout"], re.M)]
+    if res["rc"] or not losses:
+        print(res["stdout"][-3000:], res["stderr"][-3000:], sep="\n", flush=True)
+    require(res["rc"] == 0, f"the diffusion CLI exited {res['rc']}")
+    require(losses and all(math.isfinite(x) for x in losses),
+            f"the diffusion CLI's losses {losses}")
+    require("diffusion_0.ptr.json" in written, f"the diffusion CLI wrote {written}")
+    print(f"[diffusion cli] python -m kurosiwo_torch --method diffusion --seed 7 --batch_size "
+          f"{batch} (\"task\": \"diffusion-unsup\", shipped diffusion.json): exit 0 in "
+          f"{res['seconds']:.1f} s ({res['at_once']} at once at most), losses {losses}, wrote "
+          f"{written} [{smi}]", flush=True)
+    return {"seconds": res["seconds"], "losses": losses, "batch": batch}
+
+
+def raster_cli_finish(res: dict, raster: dict, out, smi: str) -> dict:
+    """Of the raster CLI run (a ``cli_collect`` result): exit 0, the mask PNG
+    bitwise the in-process ``predict_scene``'s mask, the overlay written,
+    the printed line's size and class counts the mask's."""
+    import re
+
+    import cv2
+    import numpy as np
+
+    if res["rc"]:
+        print(res["stdout"][-3000:], res["stderr"][-3000:], sep="\n", flush=True)
+    require(res["rc"] == 0, f"the raster CLI exited {res['rc']}")
+    written = cv2.imread(str(out.with_suffix(".mask.png")), cv2.IMREAD_UNCHANGED)
+    require(written is not None and out.is_file(), f"the raster CLI wrote no mask or overlay "
+            f"({out.with_suffix('.mask.png')}, {out})")
+    equal = bool(np.array_equal(written, raster["mask"]))
+    require(equal, f"the raster CLI's mask differs from predict_scene's in "
+            f"{int((written != raster['mask']).sum())} pixels")
+    line = re.search(r"^scene (\d+)x(\d+); class pixel counts: (\{.*\}); wrote", res["stdout"],
+                     re.M)
+    require(line is not None and line.group(3) == str(raster["counts"])
+            and line.group(1) == line.group(2) == str(RASTER_SIDE),
+            f"the raster CLI printed {line.group(0) if line else res['stdout'][-500:]}")
+    print(f"[diffusion raster cli] python -m kurosiwo_torch.inference --vv --vh --checkpoint "
+          f"<dir>/best_segmentation on {RASTER_SIDE}^2: exit 0 in {res['seconds']:.1f} s "
+          f"({res['at_once']} at once at most), mask bitwise the in-process predict_scene's, "
+          f"overlay written, printed {line.group(0)!r} [{smi}]", flush=True)
+    return {"seconds": res["seconds"], "mask_equal": equal}
+
+
+def phase_diffusion(torch, counters, smi: str, cli: list) -> dict:
+    """Diffusion pretraining (A10) and the raster CLI (A11): the DDPM card
+    against CPU (``diffusion_card_vs_cpu``); the full-width train leg
+    (``diffusion_leg``) and the 1000-step sampler (``diffusion_sampler``),
+    every kernel counter 0 across both; the raster CLI's inputs and its
+    in-process map (``raster_inputs``); adds to ``cli`` the diffusion CLI at
+    the leg's batch and the raster CLI. Returns the numbers of each."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out = {"parity": diffusion_card_vs_cpu(torch, counters)}
+    marks = {"parity": time.perf_counter() - t0}
+    zero_counters(counters)
+    with backend_flags(torch):  # the diffusion task's deterministic algorithms
+        out["main"], b = diffusion_leg(torch, smi)
+        marks["leg"] = time.perf_counter() - t0 - sum(marks.values())
+        out["sampler"] = diffusion_sampler(torch, b.state.model, smi)
+    out["launches"] = read_counters(counters)
+    require(not any(out["launches"].values()),
+            f"the diffusion step and sampler launched {out['launches']}")
+    del b
+    torch.cuda.empty_cache()
+    marks["sampler"] = time.perf_counter() - t0 - sum(marks.values())
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    raster = raster_inputs(torch, counters, smi, root)
+    marks["raster"] = time.perf_counter() - t0 - sum(marks.values())
+
+    batch = out["main"]["batch"]
+    # the CLI's peak is the leg's (plus its context), run alone where it passes the budget
+    CLI_GIB["diffusion"] = min(CLI_BUDGET_GIB, math.ceil(out["main"]["peak_gib"]) + 1)
+    extra = ("--batch_size", str(batch)) if batch != BATCH else ()
+    cli.append(CliJob([({"task": "diffusion-unsup"}, ("diffusion",), extra)],
+                      lambda results: out.update(cli=diffusion_cli_finish(results[0], batch,
+                                                                          smi))))
+    tif = raster["paths"]
+    flood = root / "cli" / "flood.png"
+    flood.parent.mkdir()
+    argv = ("--vv", str(tif["vv"]), "--vh", str(tif["vh"]), "--checkpoint",
+            str(raster["checkpoint"]), "--out", str(flood))
+
+    def raster_check(results: list) -> None:
+        try:
+            out["raster_cli"] = raster_cli_finish(results[0], raster, flood, smi)
+        finally:
+            tmp.cleanup()
+
+    cli.append(CliJob([(None, ("raster",), argv, "kurosiwo_torch.inference")], raster_check))
+    out["raster"] = {"seconds": raster["seconds"], "counts": raster["counts"]}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[diffusion] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its two CLI runs in the "
+          f"CLI pool) [{smi}]", flush=True)
+    return out
+
+
+def slice_summary(mae: dict | None, rec: dict | None, smi: str,
+                  diff: dict | None = None) -> str:
+    """One line of the MAE-loop, recurrent and diffusion phases' numbers,
+    printed near the end."""
     line: dict = {"card": smi}
     if mae is not None:
         line["mae_train"] = {"loop": mae["main"], "b4": mae["b4"], "cli": mae["cli"],
@@ -3655,6 +4017,11 @@ def slice_summary(mae: dict | None, rec: dict | None, smi: str) -> str:
         line["recurrent"] = {"legs": _legs({"convlstm": rec["convlstm"]}), "b2": rec["b2"],
                              "fused_tail_launches": rec["fused_tail"], "cli_test_miou": rec["cli"],
                              "phase_wall_s": rec["wall_s"]}
+    if diff is not None:
+        line["diffusion"] = {"card_vs_cpu": diff["parity"], "train": diff["main"],
+                             "sampler": diff["sampler"], "kernel_launches": diff["launches"],
+                             "raster_in_process": diff["raster"], "cli": diff.get("cli"),
+                             "raster_cli": diff.get("raster_cli"), "phase_wall_s": diff["wall_s"]}
     return "[slice summary] " + json.dumps(line)
 
 
@@ -3665,17 +4032,27 @@ def slice_summary(mae: dict | None, rec: dict | None, smi: str) -> str:
 # of this script (b128; the finetuner's b64), rounded up, plus 1 GiB for the
 # process's own CUDA context (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md). No
 # two runs of 36 GiB and more fit the budget together, so each of those runs
-# beside smaller ones.
-CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 39, "changeformer": 36,
-           "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 37, "convlstm": 23, "mae": 8}
+# beside smaller ones. The raster CLI's is the UNet's eval at b32; the
+# diffusion CLI's is set by its phase from its leg's peak (at most the
+# budget: then it runs alone).
 CLI_BUDGET_GIB = 62
+CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 39, "changeformer": 36,
+           "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 37, "convlstm": 23, "mae": 8,
+           "raster": 6, "diffusion": CLI_BUDGET_GIB}
 CLI_AT_ONCE = 6
 CLI_TIMEOUT_S = 600
+# runs this large pair with no other of their size, so they follow one
+# another and set the pool's wall time: the smaller runs beside them take a
+# lower CPU priority (nice 10), so that the host's cores serve the large
+# ones first (a run's start-up is CPU work, torch's imports: on an NVIDIA
+# H100 80GB HBM3 host whose CPU ran slow, runs of 25-42 s took 45-65 s six
+# at once)
+CLI_BIG_GIB = CLI_BUDGET_GIB // 2
 
 
 class CliJob:
-    """CLI runs that a phase asks for (``specs``: (config, method, extra)
-    each, as ``cli_start`` takes them) and ``check``, which ``phase_cli``
+    """CLI runs that a phase asks for (``specs``: (config, method, extra[,
+    module]) each, as ``cli_start`` takes them) and ``check``, which ``phase_cli``
     calls with their ``cli_collect`` results, in the order of ``specs``,
     once the pool has run them all."""
 
@@ -3684,7 +4061,7 @@ class CliJob:
 
 
 def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
-              extra: tuple = ()) -> dict:
+              extra: tuple = (), module: str = "kurosiwo_torch", nice: int = 0) -> dict:
     """Starts ``python -m kurosiwo_torch --method unet --backbone resnet18
     --seed 7`` (``method``: the method and backbone; a method without a
     backbone takes its model config's; ``extra``: more flags) in a
@@ -3693,7 +4070,10 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
     merged (none: the shipped files as they are); it reuses the kernels
     already built, and writes its stdout and stderr to files there. The
     run's allocator takes expandable segments (PYTORCH_CUDA_ALLOC_CONF), so
-    that the memory it holds stays near what it allocates."""
+    that the memory it holds stays near what it allocates. Another
+    ``module`` (the raster CLI, ``kurosiwo_torch.inference``) takes
+    ``extra`` as its flags; ``method[0]`` then only names the run. ``nice``
+    lowers the run's CPU priority (and its decode processes')."""
     import os
     import shutil
     import tempfile
@@ -3704,7 +4084,9 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
                PYTHONPATH=os.pathsep.join([str(root)] + [
                    p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    argv = ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra]
+    argv = ([*extra] if module != "kurosiwo_torch" else
+            ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra,
+             "--seed", "7"])
     tmp = tempfile.TemporaryDirectory()
     configs = root / "configs"
     if config:
@@ -3717,8 +4099,10 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
     with open(Path(tmp.name) / "cli.stdout", "w") as so, \
             open(Path(tmp.name) / "cli.stderr", "w") as se:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "kurosiwo_torch", *argv, "--seed", "7",
-             "--config_root", str(configs)], cwd=tmp.name, env=env, stdout=so, stderr=se)
+            [sys.executable, "-m", module, *argv, "--config_root", str(configs)],
+            cwd=tmp.name, env=env, stdout=so, stderr=se)
+    if nice:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
     return {"proc": proc, "tmp": tmp, "t0": time.perf_counter(), "argv": argv, "at_once": 1}
 
 
@@ -3796,8 +4180,10 @@ def smi_used_gib() -> float:
 
 
 def phase_cli(torch, jobs: list, smi: str) -> None:
-    """Runs every ``CliJob``'s runs in one pool (CLI_GIB: the largest first,
-    at most CLI_AT_ONCE at once, their estimates within CLI_BUDGET_GIB; each
+    """Runs every ``CliJob``'s runs in one pool (CLI_GIB: the runs of
+    CLI_BIG_GIB and more first, the largest first, then the others in the
+    order of ``jobs``; at most CLI_AT_ONCE at once, their estimates within
+    CLI_BUDGET_GIB, the runs under CLI_BIG_GIB at a lower CPU priority; each
     given CLI_TIMEOUT_S), then each job's check, in the order of ``jobs``.
     Prints the pool's wall time, the most runs at once and the card's memory
     in use at most (nvidia-smi, every 2 s)."""
@@ -3808,7 +4194,10 @@ def phase_cli(torch, jobs: list, smi: str) -> None:
     held = torch.cuda.memory_reserved() / 2**30
     runs = [spec for job in jobs for spec in job.specs]
     gib = [CLI_GIB[spec[1][0]] for spec in runs]
-    pending = sorted(range(len(runs)), key=lambda k: -gib[k])
+    # the large runs, which follow one another, from the largest; the others
+    # in the order the phases asked for them (C14's autotuning runs first)
+    big = sorted((k for k in range(len(runs)) if gib[k] >= CLI_BIG_GIB), key=lambda k: -gib[k])
+    pending = big + [k for k in range(len(runs)) if k not in big]
     going: dict = {}
     results: dict = {}
     t0 = last = time.perf_counter()
@@ -3819,7 +4208,7 @@ def phase_cli(torch, jobs: list, smi: str) -> None:
                 if len(going) >= CLI_AT_ONCE:
                     break
                 if sum(gib[i] for i in going) + gib[k] <= CLI_BUDGET_GIB:
-                    going[k] = cli_start(*runs[k])
+                    going[k] = cli_start(*runs[k], nice=0 if gib[k] >= CLI_BIG_GIB else 10)
                     pending.remove(k)
             most = max(most, len(going))
             for run in going.values():
@@ -3947,7 +4336,7 @@ def run_only(torch, counters, smi: str, only: set) -> None:
     cd = phase_cd(torch, counters, smi, cli) if "cd" in only else None
     attn = phase_cd_attn(torch, counters, smi, cli) if "cd-attn" in only else None
     zoo = phase_seg_zoo(torch, counters, smi, cli) if "seg-zoo" in only else None
-    mae = rec = None
+    mae = rec = diff = None
     if only & {"mae-train", "recurrent"}:
         from kurosiwo_torch.ops import fused_tail
         from kurosiwo_torch.ops import short_attention as sa
@@ -3956,18 +4345,21 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         torch.cuda.empty_cache()
         rec = (phase_recurrent(torch, counters, smi, fused_tail, cli)
                if "recurrent" in only else None)
+    if "diffusion" in only:
+        torch.cuda.empty_cache()
+        diff = phase_diffusion(torch, counters, smi, cli)
     if cli:
         phase_cli(torch, cli, smi)
     if cd is not None or attn is not None:
         print(cd_summary(cd, smi, attn), flush=True)
     if zoo is not None:
         print(zoo_summary(zoo, smi), flush=True)
-    if mae is not None or rec is not None:
-        print(slice_summary(mae, rec, smi), flush=True)
+    if mae is not None or rec is not None or diff is not None:
+        print(slice_summary(mae, rec, smi, diff), flush=True)
 
 
 ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo", "mae-train",
-        "recurrent"}
+        "recurrent", "diffusion"}
 
 
 def use_pycache() -> None:
@@ -4085,6 +4477,8 @@ def main(argv=None) -> int:
         mae_loop = timed(phase_mae_train, torch, counters, smi, sa, cli)
         torch.cuda.empty_cache()
         rec = timed(phase_recurrent, torch, counters, smi, fused_tail, cli)
+        torch.cuda.empty_cache()
+        diff = timed(phase_diffusion, torch, counters, smi, cli)
         torch.cuda.empty_cache()
         mae_launches = timed(phase_mae_main, torch, counters, smi)
         torch.cuda.empty_cache()
@@ -4218,7 +4612,7 @@ def main(argv=None) -> int:
     ]}
     print(cd_summary(cd, smi, cd_attn), flush=True)
     print(zoo_summary(zoo, smi), flush=True)
-    print(slice_summary(mae_loop, rec, smi), flush=True)
+    print(slice_summary(mae_loop, rec, smi, diff), flush=True)
     print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
           flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

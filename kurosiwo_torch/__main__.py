@@ -1,6 +1,7 @@
 """The port's command line; counterpart of the repository's ``main.py`` for
-the segmentation (with the recurrent ConvLSTM), change-detection and MAE
-pretraining tasks: the same flags, plus ``--device`` (default ``cuda``).
+every task it dispatches (segmentation with the recurrent ConvLSTM, change
+detection, MAE and diffusion pretraining): the same flags, plus
+``--device`` (default ``cuda``).
 
     python -m kurosiwo_torch --method unet --backbone resnet18 [--seed 999]
         [--batch_size N] [--inputs ...] [--dem [--slope]]
@@ -16,6 +17,8 @@ pretraining tasks: the same flags, plus ``--device`` (default ``cuda``).
         # hfa-net, adhr-cdnet
     python -m kurosiwo_torch --method mae
         # with "task": "mae" in configs/config.json: FloodViT pretraining
+    python -m kurosiwo_torch --method diffusion
+        # DDPM pretraining on single 2-channel observations (diffusion.json)
 
 For segmentation, recurrent segmentation and change detection it builds
 the config, the loaders and the model, trains for ``epochs`` with a val
@@ -37,8 +40,10 @@ and says what to set. ``--method convlstm`` runs under ``"task":
 schedule, ``batch_size`` from the train config or ``--batch_size``), with
 ``mae_{e}`` and ``vit_{e}`` in the checkpoint directory; ``main.py`` builds
 the labelled loaders before it dispatches and the MAE branch never reads
-them, so the port does not build them. The diffusion task is not ported
-(ROADMAP.md, A10).
+them, so the port does not build them. ``--method diffusion`` (its method
+config sets ``"task": "diffusion-unsup"``) runs ``training/diffusion.train``
+on the per-observation loader, with ``diffusion_{e}`` in
+``checkpoints/diffusion-unsup/``.
 """
 
 from __future__ import annotations
@@ -57,10 +62,6 @@ from .device import configure_backends
 from .models.factory import (CD_METHODS, initialize_cd_model, initialize_recurrent_model,
                              initialize_segmentation_model)
 
-# the tasks main.py dispatches that the port does not run yet
-_NOT_PORTED = {"diffusion-unsup": "A10"}
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m kurosiwo_torch")
     parser.add_argument("--method", default=None)
@@ -76,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> float | None:
-    """Run the CLI; returns the test mIoU (None for MAE pretraining)."""
+    """Run the CLI; returns the test mIoU (None for MAE and diffusion
+    pretraining)."""
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
     random.seed(args.seed)
@@ -86,10 +88,7 @@ def main(argv=None) -> float | None:
                           config_root=args.config_root, args=args)
     model_configs = configs["model_config"]
     task, method = configs["task"], configs["method"].lower()
-    if task in _NOT_PORTED:
-        raise NotImplementedError(f"task {task!r} is not ported yet "
-                                  f"(ROADMAP.md, {_NOT_PORTED[task]})")
-    if task not in ("segmentation", "cd", "mae"):
+    if task not in ("segmentation", "cd", "mae", "diffusion-unsup"):
         raise SystemExit(f"unknown task {task!r}")
     if task != "cd" and method in CD_METHODS:
         raise ValueError(f"{method!r} is a change-detection method and the config's task is "
@@ -101,6 +100,14 @@ def main(argv=None) -> float | None:
     if args.batch_size is not None:
         configs["batch_size"] = int(args.batch_size)
     configure_backends(configs, args.device)  # before CUDA's first use (cuBLAS's workspace)
+    if task == "diffusion-unsup":
+        # main.py:63-70: no val/test splits; the trainer builds its own loader
+        from .training import diffusion
+
+        configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
+        pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
+        diffusion.train(configs, model_configs=model_configs, seed=args.seed, device=args.device)
+        return None
     if task == "mae":
         from .training import mae
 

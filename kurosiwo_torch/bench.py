@@ -49,6 +49,13 @@ batch 64, bf16 compute on f32 parameters, Adam with bf16 moments and lr
 1e-4, accum 1; synthetic images from ``RandomState(0)``, masking noise from
 a generator seeded once.
 
+``--model diffusion``: the diffusion task's DDPM train step (the repository's
+``bench.py`` has no such leg): ``configs/method/diffusion/diffusion.json``'s
+UNet (dim 64, dim_mults (1, 2, 4, 8), 1000 timesteps, 2 channels) on
+224x224x2 single observations from ``RandomState(0)``, batch 128, bf16
+compute on f32 parameters, the L1 loss at uniform timesteps, Adam at lr
+1e-4; timesteps and noise from a generator seeded once.
+
 ``--model scene``: the whole-scene leg (``scripts/bench_scene.py``): the
 ViT-L encoder (dim 1024, depth 24, 16 heads of 64, mlp 2048, 6 channels,
 bf16 compute on f32 parameters, seed 0) over one ``--scene``-sized square
@@ -61,12 +68,12 @@ of 3 runs of the upload-per-call path
 bracket, a guard against the drift of a remotely attached TPU, is left out.
 
 Every leg takes ``--set deterministic=true|false`` (deterministic algorithms
-on the card, ``device.configure_backends``; on by default for the UNet and
-change-detection legs, off for the ViT legs); the other keys set the UNet's
-or the change-detection leg's config.
+on the card, ``device.configure_backends``; on by default for the UNet,
+change-detection and diffusion legs, off for the ViT legs); the other keys
+set the UNet's or the change-detection leg's config.
 
 Usage: python -m kurosiwo_torch.bench [--model unet|unet++|deeplabv3|upernet|finetune|snunet|
-       siam-diff|...|convlstm|mae|scene] [--batch N]
+       siam-diff|...|convlstm|mae|diffusion|scene] [--batch N]
        [--steps 30] [--warmup 5] [--eval [--f32_eval]] [--set KEY=JSONVAL ...]
        [--scene 1024] [--profile]
 """
@@ -75,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -89,6 +97,7 @@ from .models.factory import (PORTED_CD_METHODS, build_mae, initialize_cd_model,
 from .models.vit import ViT
 from .ops.losses import create_loss
 from .ops.metrics import MetricState
+from .training.diffusion import make_diffusion_train_step
 from .training.mae import make_mae_train_step
 from .training.state import TrainState, create_train_state
 from .training.steps import make_eval_step, make_train_step
@@ -165,6 +174,12 @@ MAE_LR = 1e-4
 MAE_MASK_SEED = 0
 
 
+# the diffusion leg: configs/method/diffusion/diffusion.json's DDPM
+DIFFUSION_CONFIG = {"task": "diffusion-unsup", "method": "diffusion", "mixed_precision": True}
+DIFFUSION_MODEL_CONFIG = {"dim": 64, "dim_mults": [1, 2, 4, 8], "timesteps": 1000,
+                          "learning_rate": 1e-4}
+
+
 # the whole-scene leg (scripts/bench_scene.py): ViT-L encoder, bf16 compute
 SCENE_VIT = {"image_size": 224, "patch_size": 16, "dim": 1024, "depth": 24, "heads": 16,
              "mlp_dim": 2048, "channels": 6}
@@ -172,6 +187,15 @@ SCENE_REPEATS, SCENE_INNER = 7, 8  # timed runs, encodes per run (bench_scene.py
 
 
 def host_batch(batch: int, size: int = IMAGE, seed: int = 0) -> dict:
+    """The legs' synthetic batch from ``numpy.random.RandomState(seed)``, the
+    caller's own copy of arrays drawn once per (batch, size, seed): a b128
+    draw takes seconds of host time, and a process that sets up several
+    legs draws it once."""
+    return {k: v.copy() for k, v in _host_arrays(batch, size, seed).items()}
+
+
+@functools.lru_cache(maxsize=4)
+def _host_arrays(batch: int, size: int, seed: int) -> dict:
     rs = np.random.RandomState(seed)
     return {
         "post": rs.randn(batch, size, size, 2).astype(np.float32),
@@ -256,6 +280,34 @@ def setup_mae(batch: int | None = None, device="cuda", seed: int = 0,
     data = {"image": torch.from_numpy(images.astype(np.float32)).to(dev)}
     gen = torch.Generator(device=dev).manual_seed(MAE_MASK_SEED)
     return Bench(dict(MAE_CONFIG), state, data, dev, gen)
+
+
+def setup_diffusion(batch: int | None = None, device="cuda", seed: int = 0,
+                    backend: dict | None = None, model_config: dict | None = None) -> Bench:
+    """The diffusion leg's model (``DIFFUSION_MODEL_CONFIG`` updated by
+    ``model_config``), train state, device-resident images (default batch
+    128, 224x224x2) and the generator of its timesteps and noise;
+    ``backend`` holds the backend keys (``deterministic``)."""
+    dev = resolve_device(device)
+    cfg = {**DIFFUSION_CONFIG, **(backend or {})}
+    configure_backends(cfg, dev)
+    mcfg = {**DIFFUSION_MODEL_CONFIG, **(model_config or {})}
+    net = initialize_segmentation_model(cfg, mcfg, device=dev, seed=seed)
+    state = create_train_state(net, cfg, mcfg, "segmentation")
+    images = np.random.RandomState(0).randn(batch or 128, IMAGE, IMAGE, 2).astype(np.float32)
+    return Bench(cfg, state, {"image": torch.from_numpy(images).to(dev)}, dev,
+                 torch.Generator(device=dev).manual_seed(seed), mcfg, mcfg["learning_rate"])
+
+
+def _diffusion_train_fn(b: Bench):
+    """One diffusion train step per call; returns the loss."""
+    step = make_diffusion_train_step(b.state.model, device=b.device)
+
+    def one():
+        _, loss = step(b.state, b.batch, b.generator)
+        return loss
+
+    return one
 
 
 @dataclasses.dataclass
@@ -396,14 +448,17 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
     torch.profiler; prints the top kernels, the shares by category and the
     device's busy share of ``step_ms``, the step time of the unprofiled run
     (the profiler slows the host, not the kernels). Returns {"wall_ms",
-    "kernel_ms", "categories"}."""
+    "kernel_ms", "launches", "categories"}, a call's each (``launches``:
+    its kernel launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize(device)
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: the host ops' events would only be dropped
+    # below, and reading them back costs seconds a profile
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -438,13 +493,14 @@ def profile(fn, steps: int, device: torch.device, step_ms: float, file=sys.stder
     for t, n, name in kernels[:15]:
         print(f"[profile]   {t / steps:8.3f} ms/step  x{n / steps:g}/step  {name[:110]}", file=file)
     return {"wall_ms": wall_ms / steps, "kernel_ms": total / steps,
+            "launches": sum(n for _, n, _ in kernels) / steps,
             "categories": {c: t / steps for c, t in cats.items()}}
 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=["unet", *ZOO_MODELS, *CD_MODELS, *RECURRENT_MODELS,
-                                       "mae", "scene"],
+                                       "mae", "diffusion", "scene"],
                    default="unet")
     p.add_argument("--batch", type=int, default=None, help="default 128 for unet, 64 for mae")
     p.add_argument("--steps", type=int, default=30)
@@ -464,7 +520,8 @@ def main(argv=None) -> dict:
             overrides[k] = json.loads(v)
         except json.JSONDecodeError:
             overrides[k] = v
-    if args.model in ("mae", "scene") and (args.eval or set(overrides) - {"deterministic"}):
+    if args.model in ("mae", "diffusion", "scene") and (
+            args.eval or set(overrides) - {"deterministic"}):
         p.error(f"--eval, --set: the {args.model} leg has no eval step and takes only "
                 "--set deterministic=...")
     if args.model == "scene":
@@ -474,6 +531,11 @@ def main(argv=None) -> dict:
         batch = b.batch["image"].shape[0]
         one = _mae_train_fn(b)
         kind = "MAE pretrain step, ViT-L, bf16"
+    elif args.model == "diffusion":
+        b = setup_diffusion(args.batch, backend=overrides)
+        batch = b.batch["image"].shape[0]
+        one = _diffusion_train_fn(b)
+        kind = "DDPM train step, dim 64, bf16"
     else:
         b = setup(args.batch, overrides, model=args.model)
         batch = b.batch["mask"].shape[0]

@@ -2,8 +2,8 @@
 ``state_dict``: every segmentation tree (UNet, UNet++, DeepLabV3+ on the
 BasicBlock and Bottleneck ResNets, UperNet on ConvNeXt and Swin, the
 FloodViT finetuner with its three heads), the MAE/ViT (and the encoder
-alone, MAE's ``vit_{e}``), the recurrent ConvLSTM and the eight
-change-detection trees.
+alone, MAE's ``vit_{e}``), the recurrent ConvLSTM, the diffusion task's
+DDPM and the eight change-detection trees.
 
 The port names its submodules after the flax paths (``encoder.stem.Conv_0``,
 ``encoder.layer1_0.ConvBNAct_0.BatchNorm_0``, ``DecoderBlock_4.ConvBNAct_1``,
@@ -13,7 +13,9 @@ its ``ConvBNAct_0``-``ConvBNAct_5``; ``backbone.stage2_block4.dwconv``,
 ``backbone.stage0_block1.attn.qkv``, ``merge2``; ``encoder.transformer.attn_3.to_qkv``,
 ``decoder.ff_0.fc1``, ``enc_to_dec``, ``decoder_pos_emb``, ``to_pixels``,
 ``head_fc1``, ``head.deconv2``; ``clstm_1e.conv``, ``clstm_1e.norm``,
-``transconv_3d``), so the map is a path join plus layout transposes:
+``transconv_3d``; ``model.Dense_0``, ``model.ResnetBlock_3.GroupNorm_1``,
+``model.LinearAttention_0.Conv_0``), so the map is a path join plus
+layout transposes (the DDPM needed no rule of its own):
 
   params/.../kernel (HWIO, conv)  <-> ....weight (OIHW): the 7x7 stem, the
                                       4x4/s4 and 2x2/s2 patchify convs; a

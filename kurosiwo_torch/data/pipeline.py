@@ -34,11 +34,19 @@ host side, which shares that lock (PERF.md §6).
 One process decodes the whole batch: the JAX loader's process grid is
 process 0 of 1 here until the port has a multi-process runtime
 (ROADMAP.md, A12). Not ported: the SLC loader (``data/slc.py``), ROADMAP.md
-A14; the diffusion task's per-observation records, A10.
+A14.
+
+The diffusion task (``diffusion-unsup``) reads per-observation records:
+each patch's pre1, pre2 and flood acquisitions as three typed records
+(``data/index.py`` types a corpus's; the synthetic source's are typed
+here), each decoded to ``image`` (H, W, 2) f32 (scaled where
+``scale_input`` is set) with ``clz``, ``activation`` and
+``sample_weight``; such a batch has no ``mask``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing
 import multiprocessing.sharedctypes
 import queue
@@ -91,6 +99,14 @@ class SampleDecoder:
     def process(self, record: Record) -> dict:
         raw = self.read(record)
         cfg = self.config
+        if record.type is not None:
+            # diffusion-unsup: one record per observation (Dataset.py:118-130)
+            img = {"pre1": raw.pre1, "pre2": raw.pre2, "flood": raw.post}[record.type]
+            if cfg.get("scale_input") is not None:
+                _, _, img = scale_img(img, raw.valid == 1, record.type, raw.activation, cfg,
+                                      self.stats)
+            return {"image": img.astype(np.float32), "clz": np.int32(raw.clz),
+                    "activation": np.int32(raw.activation), "sample_weight": np.float32(1.0)}
         out: dict = {}
         if cfg.get("scale_input") is not None:
             valid_bool = raw.valid == 1
@@ -321,9 +337,6 @@ class Loader:
         seed: int = 999,
         index_cache: dict | None = None,
     ):
-        if config.get("task") == "diffusion-unsup":
-            raise NotImplementedError("the diffusion task's per-observation loader is not ported "
-                                      "yet (ROADMAP.md, A10)")
         self.mode = mode
         self.config = config
         self.batch_size = int(config["batch_size"])
@@ -345,6 +358,9 @@ class Loader:
             n = int(config.get("synthetic_size", {"train": 256, "val": 64, "test": 64}.get(mode, 64)))
             acts = config.get(f"{mode}_acts") or [130]
             self.records = synthetic_records(n, list(acts), seed)
+            if config.get("task") == "diffusion-unsup":
+                self.records = [dataclasses.replace(r, type=t) for r in self.records
+                                for t in ("pre1", "pre2", "flood")]
             self.positive_records = [r for r in self.records if r.positive]
             self.negative_records = [r for r in self.records if not r.positive]
             self.stats = None
@@ -543,7 +559,8 @@ class Loader:
             for arr in arrays.values():
                 arr[n:] = arr[n - 1]
             arrays["sample_weight"][n:] = 0
-            arrays["mask"][n:] = 3
+            if "mask" in arrays:  # absent from diffusion-unsup's typed records
+                arrays["mask"][n:] = 3
 
     def __iter__(self) -> Iterator[dict]:
         """One epoch of batches, each its own arrays (a copy of its slot)."""

@@ -11,10 +11,12 @@ import torch
 # gives one number. Segmentation: the CLI's test mIoU moved by up to 1.02
 # between runs at one seed with cuDNN's autotuner and not at all with
 # deterministic algorithms, for a train step 4-6% slower. Change detection
-# for the same reason (PERF.md §6 has its cost). The ViT paths keep the
-# default off: with it the MAE step ran 22-27% and the scene encode 28-35%
-# slower.
-DETERMINISTIC_TASKS = ("segmentation", "cd")
+# for the same reason (PERF.md §6 has its cost). Diffusion: its b128 step ran
+# at 149.70 patches/s deterministic and 150.45 autotuned (NVIDIA H100 80GB
+# HBM3, 700 W), and the autotuner's first step costs seconds of every run.
+# The ViT paths keep the default off: with it the MAE step ran 22-27% and the
+# scene encode 28-35% slower.
+DETERMINISTIC_TASKS = ("segmentation", "cd", "diffusion-unsup")
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:

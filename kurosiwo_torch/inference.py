@@ -11,11 +11,15 @@ single-device part of ``kurosiwo_tpu/inference.py``.
     ONE attention sequence (4,096 tokens for a 1024x1024 scene at patch 16),
     which the router sends to the flash attention kernel (B5) when the
     sequence is 1,024 tokens or more with a 128-multiple block;
-  * ``load_variables``: the fresh-init route (``checkpoint=""``).
+  * ``load_variables``: the fresh-init route (``checkpoint=""``) and the
+    port's own checkpoints (``dir/best_segmentation``);
+  * ``main``: the raster command line, ``python -m kurosiwo_torch.inference
+    --vv VV.tif --vh VH.tif --checkpoint dir/best_segmentation [--device
+    cuda|cpu]``.
 
 Not here yet: ``vit_whole_scene_cp`` (context parallelism over four cards,
-ROADMAP A12), the orbax and torch ``.pt`` checkpoint routes of the JAX
-package and the reference (A13) and the raster CLI ``main`` (A11).
+ROADMAP A12) and the orbax and torch ``.pt`` checkpoint routes of the JAX
+package and the reference (A13).
 """
 
 from __future__ import annotations
@@ -198,16 +202,84 @@ def vit_whole_scene_cp(*args, **kwargs):
 
 
 def load_variables(checkpoint: str, model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """The model's parameters for ``checkpoint``: its own seeded
-    initialisation for ``""`` (smoke runs). A missing path raises
+    """The model's ``state_dict`` (parameters and BatchNorm buffers, on the
+    CPU) for ``checkpoint``: its own seeded initialisation for ``""``
+    (smoke runs); for ``dir/name``, the port's checkpoint ``name`` under
+    ``dir`` (``training/checkpoint.py``: ``dir/name.ptr.json`` naming a
+    committed slot, as ``best_segmentation`` is), the form the JAX
+    package's ``load_variables`` takes. A missing path raises
     ``FileNotFoundError`` (a typo must not produce a confident garbage
     mask); torch ``.pt`` files and orbax directories are not ported yet."""
     if not checkpoint:
         return model.state_dict()
     p = Path(checkpoint)
+    if (p.parent / f"{p.name}.ptr.json").is_file():
+        from .training.checkpoint import CheckpointManager
+
+        payload, _ = CheckpointManager(p.parent).load(p.name, map_location="cpu")
+        return payload["model"]
     if not p.exists():
         raise FileNotFoundError(f"checkpoint {checkpoint!r} does not exist")
     if p.suffix in (".pt", ".pth"):
         raise NotImplementedError(
             "torch .pt checkpoints are not ported yet (ROADMAP.md, A13)")
-    raise NotImplementedError("orbax checkpoints are not ported yet (ROADMAP.md, A13)")
+    raise NotImplementedError(
+        "orbax checkpoints are not ported yet (ROADMAP.md, A13); the port's own checkpoints "
+        "are given as dir/name (dir/best_segmentation)")
+
+
+def main(argv=None) -> np.ndarray:
+    """The raster command line (JAX ``inference.main``): the model of
+    ``--method`` (``load_config`` with ``inputs`` ["post_event"], so two
+    channels) with ``load_variables(--checkpoint)``, over the VV and VH
+    rasters stacked, clamped and normalized as the loader does, by
+    ``predict_scene``; writes the class map to ``<out>.mask.png`` and the
+    overlay (``utils/visualize``) to ``--out`` with cv2, and prints the
+    scene's size and class pixel counts. Runs on the card unless
+    ``--device cpu``. Returns the class map."""
+    import argparse
+
+    import cv2
+
+    from .config import load_config
+    from .data.normalize import normalize
+    from .data.tiles import _imread, stack_channels
+    from .device import configure_backends
+    from .models.factory import initialize_segmentation_model
+    from .utils.visualize import overlay_mask, sar_to_rgb
+
+    ap = argparse.ArgumentParser(prog="python -m kurosiwo_torch.inference",
+                                 description="Scene inference (flood mapping)")
+    ap.add_argument("--vv", required=True, help="VV backscatter raster (tif)")
+    ap.add_argument("--vh", required=True, help="VH backscatter raster (tif)")
+    ap.add_argument("--checkpoint", default="",
+                    help="the port's checkpoint as dir/name (dir/best_segmentation); "
+                         "empty: the seeded initialisation")
+    ap.add_argument("--method", default="unet")
+    ap.add_argument("--out", default="flood_mask.png")
+    ap.add_argument("--overlap", type=int, default=32)
+    ap.add_argument("--config_root", default="configs")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(method=args.method, config_root=args.config_root,
+                      overrides={"inputs": ["post_event"]})
+    configure_backends(cfg, args.device)  # before CUDA's first use (cuBLAS's workspace)
+    scene = stack_channels(_imread(args.vv), _imread(args.vh), cfg["channels"],
+                           cfg.get("clamp_input"))
+    scene = normalize(scene, cfg["data_mean"], cfg["data_std"])
+
+    model = initialize_segmentation_model(cfg, cfg["model_config"], device=args.device)
+    model.load_state_dict(load_variables(args.checkpoint, model))
+    mask = predict_scene(TilePredictor(model, device=args.device), scene, overlap=args.overlap)
+
+    cv2.imwrite(str(Path(args.out).with_suffix(".mask.png")), mask)
+    cv2.imwrite(args.out, overlay_mask(sar_to_rgb(scene), mask)[..., ::-1])
+    h, w = mask.shape
+    counts = {int(k): int(v) for k, v in zip(*np.unique(mask, return_counts=True))}
+    print(f"scene {h}x{w}; class pixel counts: {counts}; wrote {args.out}", flush=True)
+    return mask
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@ UperNet on convnext_tiny/small/base and swin_tiny/small/base; the FloodViT
 finetuner with its mlp, decoder and linear heads), the MAE (ViT encoder),
 the recurrent ConvLSTM and every change-detection model (SNUNet-ECAM,
 Siam-diff, Siam-conc, BiT-CD, HFA-Net, ChangeFormerV6, ADHR-CDNet,
-TransUNet-CD) is ported; the diffusion task raises, naming its
-``ROADMAP.md`` item (A10)."""
+TransUNet-CD) and the diffusion task's DDPM (``models/diffusion.py``)
+are ported."""
 
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def initialize_segmentation_model(config: dict, model_config: dict,
     dev = resolve_device(device)
     method = config["method"].lower()
     if config.get("task") == "diffusion-unsup":
-        raise NotImplementedError("diffusion is not ported yet (ROADMAP.md, A10)")
+        return _diffusion(config, model_config, seed).to(dev)
     nc, n_in = int(config["num_classes"]), int(config["num_channels"])
     kw = dict(dtype=compute_dtype(config), generator=torch.Generator().manual_seed(seed))
     backbone = model_config.get("backbone")
@@ -78,6 +78,20 @@ def initialize_segmentation_model(config: dict, model_config: dict,
     else:
         raise NotImplementedError(f"segmentation method {method!r} is not supported")
     return model.to(dev)
+
+
+def _diffusion(config: dict, model_config: dict, seed: int):
+    """The diffusion task's model, whatever the method (JAX
+    ``factory.py:28-40``): ``GaussianDiffusion`` around a 2-channel
+    ``DDPMUnet`` of the model config's ``dim``, ``dim_mults`` and
+    ``timesteps`` (defaults 64, (1, 2, 4, 8), 1000), with the L1 loss."""
+    from .diffusion import DDPMUnet, GaussianDiffusion
+
+    mc = model_config or {}
+    unet = DDPMUnet(dim=int(mc.get("dim", 64)), dim_mults=tuple(mc.get("dim_mults", (1, 2, 4, 8))),
+                    channels=2, dtype=compute_dtype(config),
+                    generator=torch.Generator().manual_seed(seed))
+    return GaussianDiffusion(unet, timesteps=int(mc.get("timesteps", 1000)), loss_type="l1")
 
 
 def _finetuner(config: dict, n_in: int, nc: int, dtype: torch.dtype,

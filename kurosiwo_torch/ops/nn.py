@@ -157,38 +157,66 @@ class ConvBNAct(nn.Module):
         return torch.relu(y) if self.act else y
 
 
+# f32 elements a GroupNorm pass makes its temporaries for at once: its
+# statistics are a sample's, so a large activation is taken a slice of the
+# batch at a time (the DDPM's 128-channel 224^2 maps at b128 are 3.3 GB in
+# f32 each, and a pass holds up to five such temporaries)
+GN_CHUNK_ELEMENTS = 1 << 27
+
+
+def _sample_slices(x: torch.Tensor) -> list[slice]:
+    step = max(1, GN_CHUNK_ELEMENTS // max(1, x[0].numel()))
+    return [slice(lo, lo + step) for lo in range(0, x.shape[0], step)]
+
+
 class _GroupNorm(torch.autograd.Function):
     """flax ``nn.GroupNorm``'s function on NHWC with the analytic backward:
     f32 statistics over (H, W, the group's channels), the variance as
     E[x^2] - mean^2 clipped at 0 (flax's ``use_fast_variance``), one
     rounding of the result to the output dtype. The residuals are the input
-    in its own dtype and per-(sample, group) f32 mean and rstd."""
+    in its own dtype and per-(sample, group) f32 mean and rstd. Both passes
+    take the batch ``GN_CHUNK_ELEMENTS`` f32 elements at a time (one slice
+    for the most inputs: then it is one pass over the whole batch)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, out_dtype):
-        b, c = x.shape[0], x.shape[-1]
-        xf = x.float().reshape(b, -1, groups, c // groups)
-        mu = xf.mean((1, 3), keepdim=True)
-        var = (xf.square().mean((1, 3), keepdim=True) - mu.square()).clamp_min(0.0)
-        rstd = torch.rsqrt(var + eps)
+        c = x.shape[-1]
         g = scale.view(groups, c // groups)
-        y = ((xf - mu) * (rstd * g) + bias.view(groups, c // groups)).to(out_dtype)
-        ctx.save_for_backward(x, mu, rstd, scale)
+        y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+        mus, rstds = [], []
+        for sl in _sample_slices(x):
+            xs = x[sl]
+            xf = xs.float().reshape(xs.shape[0], -1, groups, c // groups)
+            mu = xf.mean((1, 3), keepdim=True)
+            var = (xf.square().mean((1, 3), keepdim=True) - mu.square()).clamp_min(0.0)
+            rstd = torch.rsqrt(var + eps)
+            y[sl] = ((xf - mu) * (rstd * g) + bias.view(groups, c // groups)).reshape(xs.shape)
+            mus.append(mu)
+            rstds.append(rstd)
+        if len(mus) > 1:
+            mus, rstds = [torch.cat(mus)], [torch.cat(rstds)]
+        ctx.save_for_backward(x, mus[0], rstds[0], scale)
         ctx.groups = groups
-        return y.reshape(x.shape)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         x, mu, rstd, scale = ctx.saved_tensors
-        b, c, groups = x.shape[0], x.shape[-1], ctx.groups
-        xhat = (x.float().reshape(b, -1, groups, c // groups) - mu) * rstd
-        dyf = dy.float().reshape(xhat.shape)
-        dscale = (dyf * xhat).sum((0, 1)).reshape(c)
-        dbias = dyf.sum((0, 1)).reshape(c)
-        dxhat = dyf * scale.view(groups, c // groups)
-        m1 = dxhat.mean((1, 3), keepdim=True)
-        m2 = (dxhat * xhat).mean((1, 3), keepdim=True)
-        dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+        c, groups = x.shape[-1], ctx.groups
+        g = scale.view(groups, c // groups)
+        dx = torch.empty_like(x)
+        dscale = torch.zeros(c, dtype=torch.float32, device=x.device)
+        dbias = torch.zeros(c, dtype=torch.float32, device=x.device)
+        for sl in _sample_slices(x):
+            xs = x[sl]
+            xhat = (xs.float().reshape(xs.shape[0], -1, groups, c // groups) - mu[sl]) * rstd[sl]
+            dyf = dy[sl].float().reshape(xhat.shape)
+            dscale += (dyf * xhat).sum((0, 1)).reshape(c)
+            dbias += dyf.sum((0, 1)).reshape(c)
+            dxhat = dyf * g
+            m1 = dxhat.mean((1, 3), keepdim=True)
+            m2 = (dxhat * xhat).mean((1, 3), keepdim=True)
+            dx[sl] = (rstd[sl] * (dxhat - m1 - xhat * m2)).reshape(xs.shape)
         return dx, dscale, dbias, None, None, None
 
 

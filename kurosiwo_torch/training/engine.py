@@ -19,8 +19,11 @@ per-epoch ``checkpoint_epoch={e}`` saves of ``train_save_checkpoint_freq``.
 The recurrent task (the ConvLSTM) differs in its steps' input assembly
 (three frames), takes the segmentation optimizer (plain Adam, whatever the
 model config's ``optimizer`` and ``betas`` say, as the JAX engine) and
-saves ``checkpoint_epoch={e}`` as change detection does. Not ported:
-pretrained weights (A13), wandb logging and visualizations (A14).
+saves ``checkpoint_epoch={e}`` as change detection does. With
+``save_visualizations`` each eval draws one batch (``np.random.randint``,
+as the JAX engine) and writes its first sample's image, ground truth and
+prediction to ``checkpoint_path/viz/{settype}_sample.png``. Not ported:
+pretrained weights (A13), wandb logging (A14).
 """
 
 from __future__ import annotations
@@ -123,9 +126,6 @@ class TaskEngine:
         self.config = config
         self.model_config = model_config
         self.task = task
-        if config.get("save_visualizations"):
-            raise NotImplementedError("visualizations (save_visualizations; utils/visualize.py) "
-                                      "are not ported yet (ROADMAP.md, A14)")
         self.logger = MetricLogger(config)  # raises on wandb_activate with wandb installed (A14)
         # the reference's segmentation and recurrent trainers both take plain
         # Adam (JAX engine.py:90-92)
@@ -150,9 +150,12 @@ class TaskEngine:
         eval_dtype = None
         if config.get("f32_eval", True) and getattr(model, "dtype", None) == torch.bfloat16:
             eval_dtype = torch.float32
+        # each eval draws a batch to visualize, as the JAX engine does; with
+        # wandb_activate alone (wandb not installed) it draws and writes no file
+        self.viz_enabled = bool(config.get("wandb_activate") or config.get("save_visualizations"))
         self._eval_step = make_eval_step(
             model, create_loss(config, "val"), config, model_config, task, self.device,
-            dtype=eval_dtype, with_aoi=self.with_aoi)
+            dtype=eval_dtype, with_aoi=self.with_aoi, with_preds=self.viz_enabled)
 
     def _check_pretrained_weights(self) -> None:
         cfg = self.config
@@ -210,11 +213,16 @@ class TaskEngine:
         the summary's ``aoi_banks`` holds the per-activation banks."""
         metric_state = MetricState.create(self.device)
         per_sample, activations = [], []
-        for batch in device_prefetch(loader, self.device):
+        # one random batch gets its first sample drawn, as the JAX engine
+        # (the reference's wandb.Image logging, segmentation_trainer.py:516-587)
+        viz_index = int(np.random.randint(0, max(len(loader), 1))) if self.viz_enabled else -1
+        for index, batch in enumerate(device_prefetch(loader, self.device)):
             metric_state, _, aux = self._eval_step(self.state, batch, metric_state)
             if self.with_aoi:
                 per_sample.append(aux["per_sample_cm"])
                 activations.append(np.asarray(batch["activation"]))
+            if index == viz_index:
+                self._save_visualization(batch, aux["preds"], settype)
         summary = metric_state.summarize()
         aoi_summary = None
         if self.with_aoi:
@@ -226,6 +234,34 @@ class TaskEngine:
         self.logger.log_eval(settype, summary, aoi_summary)
         return (100.0 * summary["micro_accuracy"], 100.0 * summary["mean_f1"],
                 100.0 * summary["mean_iou"], summary)
+
+
+    def _save_visualization(self, batch: dict, preds: torch.Tensor, settype: str) -> None:
+        """Sample 0's triptych (``utils/visualize.prediction_triptych``,
+        reverse-scaled with its ``flood_sv1``/``flood_sv2`` where
+        ``scale_input`` is set) as one PNG,
+        ``checkpoint_path/viz/{settype}_sample.png`` (lower case), with
+        ``save_visualizations``; the wandb route is refused with wandb
+        installed (``utils/logging.MetricLogger``, A14)."""
+        if not self.config.get("save_visualizations"):
+            return
+        import cv2
+        from pathlib import Path
+
+        from ..utils.visualize import prediction_triptych
+
+        def host(x):
+            return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+        sv = None
+        if "flood_sv1" in batch and self.config.get("scale_input") is not None:
+            sv = (host(batch["flood_sv1"])[0], host(batch["flood_sv2"])[0])
+        trip = prediction_triptych(host(batch["post"][0]), host(preds[0]),
+                                   host(batch["mask"][0]), sv, self.config)
+        out_dir = Path(self.config.get("checkpoint_path", "checkpoints/run")) / "viz"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        panel = np.concatenate(list(trip.values()), axis=1)
+        cv2.imwrite(str(out_dir / f"{settype.lower()}_sample.png"), panel[..., ::-1])
 
 
 def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,

@@ -65,21 +65,26 @@ def test_cli_trains_checkpoints_and_tests(tmp_path, monkeypatch, capsys):
 # shipped one is ViT-L at accum 4)
 MAE_TINY = {"image_size": 32, "dim": 32, "depth": 1, "heads": 2, "mlp_dim": 32,
             "decoder_dim": 32, "decoder_depth": 1, "decoder_heads": 2}
+# the diffusion method config cut the same way (the shipped one is dim 64,
+# dim_mults (1, 2, 4, 8), 1000 timesteps)
+DIFFUSION_TINY = {"dim": 8, "dim_mults": [1, 2], "timesteps": 10}
 
 
 @pytest.mark.parametrize("argv,top,item", [
     (["--method", "convlstm"], {}, None),
     (["--method", "mae"], {"task": "mae"}, None),
-    (["--method", "diffusion"], {"task": "diffusion-unsup"}, "A10"),
+    (["--method", "diffusion"], {"task": "diffusion-unsup"}, None),
 ], ids=["convlstm", "mae", "diffusion"])
 def test_unported_tasks_name_their_roadmap_item(tmp_path, monkeypatch, capsys, argv, top, item):
-    """Of the tasks main.py dispatches, diffusion alone is not ported: it
-    raises naming its ROADMAP item, before any directory is made. The
-    recurrent task (``--method convlstm``, A7) and MAE pretraining
-    (``"task": "mae"``, A8), ported, run at a tiny size: convlstm trains,
-    writes ``checkpoint_epoch=0`` and prints its test mIoU; mae trains its
-    epoch (2 steps of batch 4 at accum 4) and writes ``mae_0`` and
-    ``vit_0``."""
+    """Every task main.py dispatches is ported (a task that is not would
+    raise naming its ROADMAP item, before any directory is made). The
+    recurrent task (``--method convlstm``, A7), MAE pretraining (``"task":
+    "mae"``, A8) and diffusion pretraining (``--method diffusion``, A10) run
+    at a tiny size: convlstm trains, writes ``checkpoint_epoch=0`` and
+    prints its test mIoU; mae trains its epoch (2 steps of batch 4 at accum
+    4) and writes ``mae_0`` and ``vit_0``; diffusion trains its epoch (24
+    typed records of 8 patches: 6 steps of batch 4, printed at 0) and writes
+    ``diffusion_0`` in ``checkpoints/diffusion-unsup/``."""
     monkeypatch.chdir(tmp_path)
     root = _configs(tmp_path, **top)
     argv = [*argv, "--config_root", str(root), "--device", "cpu"]
@@ -99,6 +104,17 @@ def test_unported_tasks_name_their_roadmap_item(tmp_path, monkeypatch, capsys, a
         assert len(losses) == 1 and np.isfinite(losses).all() and "MAE epoch 0: " in out
         run = tmp_path / "checkpoints/mae/vit/vit_6/RandomEvents"
         assert {f.name for f in run.iterdir()} >= {"mae_0.ptr.json", "vit_0.ptr.json"}
+        return
+    if "diffusion" in argv:
+        path = root / "method" / "diffusion" / "diffusion.json"
+        path.write_text(json.dumps({**load_json5(path), **DIFFUSION_TINY}))
+        assert cli.main(argv) is None
+        out = capsys.readouterr().out
+        losses = [float(x) for x in re.findall(r"^diffusion epoch 0 iter \d+: loss=(\S+)$", out,
+                                               re.M)]
+        assert len(losses) == 1 and np.isfinite(losses).all() and "'batch_size': 4" in out
+        run = tmp_path / "checkpoints/diffusion-unsup"
+        assert {f.name for f in run.iterdir()} == {"diffusion_0.a", "diffusion_0.ptr.json"}
         return
     miou = cli.main(argv)
     out = capsys.readouterr().out

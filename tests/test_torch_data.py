@@ -121,8 +121,15 @@ def test_unported_sources_name_a14(base_config, kw, what):
 
 
 def test_diffusion_loader_names_a10(base_config):
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpipe.Loader("train", _cfg(base_config, task="diffusion-unsup"))
+    """The diffusion task's per-observation loader (A10, ported): three
+    typed records a patch, batches of ``image`` bitwise the JAX loader's
+    (``tests/test_torch_diffusion_train.py`` holds every split and a pack)."""
+    cfg = _cfg(base_config, task="diffusion-unsup")
+    got = tpipe.Loader("train", cfg, seed=5)
+    want = jpipe.Loader("train", cfg, seed=5, process_index=0, process_count=1)
+    assert len(got) == len(want) == 7  # 30 typed records at batch 4
+    _assert_batches_equal(list(got), list(want))
+    assert {r.type for r in got.records} == {"pre1", "pre2", "flood"}
 
 
 def test_tile_decode_without_cv2_says_so(monkeypatch, tmp_path):

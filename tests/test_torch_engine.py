@@ -252,12 +252,20 @@ def test_device_prefetch_passes_cpu_batches_through():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"save_visualizations": True}, "A14"),
+    ({"save_visualizations": True}, None),
     ({"pretrained_checkpoint": "best.pt"}, "A13"),
     ({"pretrained_encoder": "resnet18.pth"}, "A13"),
 ], ids=["visualizations", "pretrained_checkpoint", "pretrained_encoder"])
 def test_engine_refuses_what_is_not_ported(kw, match):
+    """The pretrained weights name A13; ``save_visualizations`` (A11) is
+    ported: the engine builds with its eval step's predictions on
+    (``tests/test_torch_raster_cli.py`` holds the PNG it writes)."""
     cfg = _cfg(**kw)
+    if match is None:
+        engine = TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
+                         device="cpu")
+        assert engine.viz_enabled
+        return
     with pytest.raises(NotImplementedError, match=match):
         TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
                 device="cpu")

@@ -122,11 +122,22 @@ def test_load_variables_missing_checkpoint_raises(base_config):
 
 
 def test_load_variables_routes(base_config, tmp_path):
-    """"" is the model's own seeded initialisation; the torch .pt and orbax
-    routes name their ROADMAP items."""
+    """"" is the model's own seeded initialisation; ``dir/name`` the port's
+    own checkpoint (A11, ported); the torch .pt and orbax routes name their
+    ROADMAP item (A13)."""
+    from kurosiwo_torch.training.checkpoint import CheckpointManager
+    from kurosiwo_torch.training.state import create_train_state
+
     model = t_init_seg(dict(base_config), {"backbone": "resnet18"}, device="cpu")
     state = tinf.load_variables("", model)
     assert state.keys() == model.state_dict().keys()
+    trained = t_init_seg(dict(base_config), {"backbone": "resnet18"}, device="cpu", seed=5)
+    CheckpointManager(tmp_path / "run").save_best(
+        create_train_state(trained, base_config, {}), 0, 1.0)
+    loaded = tinf.load_variables(str(tmp_path / "run" / "best_segmentation"), model)
+    assert loaded.keys() == model.state_dict().keys()
+    for k, v in trained.state_dict().items():
+        assert torch.equal(loaded[k], v), k
     pt = tmp_path / "model.pt"
     pt.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="A13"):

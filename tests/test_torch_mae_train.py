@@ -41,7 +41,7 @@ from kurosiwo_torch.training.checkpoint import CheckpointManager as TCheckpoints
 from kurosiwo_tpu.data import ssl as j_ssl
 from kurosiwo_tpu.ops import optim as j_optim
 from kurosiwo_tpu.training import mae as j_mae
-from torch_cd_parity import FAST_COMPILE, jit_fast
+from torch_cd_parity import FAST_COMPILE, FastInit, FastJax, jit_fast
 
 torch.set_num_threads(2)
 
@@ -280,36 +280,6 @@ def _recording(module, monkeypatch):
     return lrs
 
 
-class _FastInit:
-    """A flax model whose ``init`` is one call compiled with FAST_COMPILE
-    (``jit_fast``), in place of an op-by-op dispatch that compiles each op."""
-
-    def __init__(self, model):
-        self.model = model
-
-    def init(self, rngs, *inputs):
-        return jit_fast(self.model.init, rngs, *inputs)
-
-
-class _FastJax:
-    """The ``jax`` that kurosiwo_tpu.training.mae sees: its ``jit``
-    compiles with FAST_COMPILE at the first call, as ``jit_fast`` does."""
-
-    def __getattr__(self, name):
-        return getattr(jax, name)
-
-    @staticmethod
-    def jit(fn, **kw):
-        jitted, compiled = jax.jit(fn, **kw), []
-
-        def call(*args):
-            if not compiled:
-                compiled.append(jitted.lower(*args).compile(compiler_options=FAST_COMPILE))
-            return compiled[0](*args)
-
-        return call
-
-
 @pytest.fixture(scope="module")
 def jax_loop(tmp_path_factory):
     """JAX's train() over 2 epochs of 2 steps (and a run capped at 3
@@ -327,12 +297,12 @@ def jax_loop(tmp_path_factory):
     real_state = j_mae.create_train_state
 
     def recording_state(model, *a, **kw):
-        state, v = real_state(_FastInit(model), *a, **kw)
+        state, v = real_state(FastInit(model), *a, **kw)
         init["params"] = jax.tree.map(np.array, dict(state.params))
         return state, v
 
     mp.setattr(j_mae, "create_train_state", recording_state)
-    mp.setattr(j_mae, "jax", _FastJax())
+    mp.setattr(j_mae, "jax", FastJax())
     try:
         lrs = _recording(j_mae, mp)
         losses = []

@@ -204,13 +204,28 @@ def test_zoo_methods_build_with_the_flax_tree_names(method):
 
 @pytest.mark.parametrize("method,item", [("unet", "A10")])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """Diffusion (the ``diffusion-unsup`` task, whatever the method) is the
-    one segmentation factory branch not ported."""
-    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    """Diffusion (the ``diffusion-unsup`` task, whatever the method; ROADMAP
+    ``item`` A10), the last segmentation factory branch, is ported: the
+    factory builds the DDPM, its tree the JAX factory's at the shipped
+    widths (dim 64, dim_mults (1, 2, 4, 8))."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
 
-    with pytest.raises(NotImplementedError, match=item):
-        initialize_segmentation_model({"method": method, "num_classes": 3, "num_channels": 6,
-                                       "task": "diffusion-unsup"}, {}, device="cpu")
+    from kurosiwo_torch.convert import flax_to_torch
+    from kurosiwo_torch.models.diffusion import GaussianDiffusion
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_tpu.models.factory import initialize_segmentation_model as j_init
+
+    cfg = {"method": method, "num_classes": 3, "num_channels": 6, "task": "diffusion-unsup"}
+    model = initialize_segmentation_model(cfg, {}, device="cpu")
+    assert isinstance(model, GaussianDiffusion) and item == "A10"
+    rng = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: j_init(cfg, {}).init(
+        {"params": rng}, jnp.zeros((1, 64, 64, 2)), rng=rng))
+    want = flax_to_torch(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes)))
+    assert {k: tuple(t.shape) for k, t in model.state_dict().items()} == {
+        k: tuple(t.shape) for k, t in want.items()}
 
 
 def test_bench_config_matches_the_jax_bench():

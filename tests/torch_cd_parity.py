@@ -136,6 +136,37 @@ def jit_fast(fn, *args):
     return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
 
 
+class FastInit:
+    """A flax model whose ``init`` is one call compiled with FAST_COMPILE
+    (``jit_fast``), in place of an op-by-op dispatch that compiles each op."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, rngs, *inputs, **kw):
+        return jit_fast(lambda r, *xs: self.model.init(r, *xs, **kw), rngs, *inputs)
+
+
+class FastJax:
+    """The ``jax`` a JAX training module sees (kurosiwo_tpu.training.mae,
+    .diffusion), monkeypatched in: its ``jit`` compiles with FAST_COMPILE
+    at the first call, as ``jit_fast`` does."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def jit(fn, **kw):
+        jitted, compiled = jax.jit(fn, **kw), []
+
+        def call(*args):
+            if not compiled:
+                compiled.append(jitted.lower(*args).compile(compiler_options=FAST_COMPILE))
+            return compiled[0](*args)
+
+        return call
+
+
 def tree(x):
     return jax.tree.map(np.asarray, dict(x))
 
