@@ -196,10 +196,28 @@ its lines; any failed phase exits non-zero.
    diffusion_0 written) and ``python -m kurosiwo_torch.inference --vv ...
    --vh ... --checkpoint <dir>/best_segmentation`` (exit 0, the mask PNG
    bitwise the in-process map, the overlay written), both in the pool.
-   Their numbers close the output in a ``[slice summary]`` line.
+   And weights from the reference's files (the weights phase): a seeded
+   3-channel torchvision-layout ResNet-18 .pth and a seeded full-width
+   6-channel smp-layout UNet-ResNet18 .pt, each read back through the
+   port's converters bit for bit; ``load_config(unet, resnet18)`` on a
+   config root whose unet.json names the .pth as ``pretrained_encoder``
+   (b128, 224², bf16): the engine's encoder bitwise the file's before step
+   1 (the 6-channel stem at its init), 2 train steps and one f32 eval
+   batch with their B2 and B3 launches counted, the train step on those
+   batches resident on the card in turns with a twin engine of the same
+   config from its random init (20 steps a turn), beside the main path's
+   step rate, and the load's seconds; ``kurosiwo_torch.parity`` on the .pt over 64 synthetic test
+   samples in-process on the card (B2's forward counted) and on the CPU
+   (plain versions), their confusion counts within 0.1% of the pixels and
+   their scores within 0.1 points; ``python -m kurosiwo_torch --method
+   unet --backbone resnet18`` on that config root (exit 0, the load
+   printed, a test mIoU) and ``python -m kurosiwo_torch.parity --model
+   unet`` on the .pt (its report held to the CPU's in the same band), both
+   in the pool. Their numbers close the output in a ``[slice summary]``
+   line.
 8. Phase 5's MAE ViT-L train step and serving paths, run after the other
    phases (their launch counts fill the kernel table).
-9. The CLI pool: every CLI run of the phases above (24), at most 6 at once
+9. The CLI pool: every CLI run of the phases above (26), at most 6 at once
    while their estimated peaks (each model's leg peak plus its context) sum
    to at most 62 GiB, the runs of 31 GiB and more first (the largest first,
    the others beside them at nice 10, in phase order); then each phase's
@@ -207,10 +225,11 @@ its lines; any failed phase exits non-zero.
    use at most (nvidia-smi).
 10. The kernel table as one JSON line (B3's row with the change-detection
    and zoo steps' pair-sum launches, B4's with the finetuner's and the MAE
-   loop's, B2's with the recurrent step's), then the result line
+   loop's, B2's with the recurrent step's, B2's and B3's with the weights
+   leg's), then the result line
    ``{"ok": true, "device": {...}}``.
 
-``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo,mae-train,recurrent,diffusion``
+``--only engine,feed,augment,losses,c14,cd,cd-attn,seg-zoo,mae-train,recurrent,diffusion,weights``
 runs the device and build phases and then only those phases: a partial
 run, which prints no kernel table and no result line.
 """
@@ -4005,10 +4024,368 @@ def phase_diffusion(torch, counters, smi: str, cli: list) -> dict:
     return out
 
 
+# the weights phase (A13): weights from the reference's files, at the main
+# path's width. The files are written from the port's own seeded models in
+# the reference's key layouts (torchvision's ResNet, smp's UNet); the
+# leg's train steps, its f32 eval and the parity harness's split are cut
+# short (2 steps, 1 eval batch, 64 test samples), the widths are not.
+WEIGHTS_SEED = 17
+WEIGHTS_TEST_SAMPLES = 64
+# train steps a timed turn of the loaded engine and its random-init twin (6
+# gave turns 19% apart on one card, wider than the two engines' difference)
+WEIGHTS_TURN_STEPS = 20
+WEIGHTS_PARITY_BATCH = 32
+# the parity harness, card against the CPU's plain versions on one split:
+# each confusion count within 0.1% of the split's valid pixels, F1 and IoU
+# within 0.1 points (f32 on both; argmax flips only at near-ties)
+WEIGHTS_CM_BAND = 1e-3
+WEIGHTS_SCORE_BAND = 0.1
+_BN_REF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def reference_layout(state: dict, prefix: str = "") -> dict:
+    """The port's ResNet-encoder (``prefix`` "encoder.": UNet) state_dict
+    under torchvision's and smp's keys: the stem's conv1/bn1, a BasicBlock's
+    conv1/bn1, conv2/bn2 and downsample.0/.1, smp's decoder.blocks.{i}.
+    conv{1,2}.{0,1} and segmentation_head.0; each BatchNorm with its
+    num_batches_tracked, as torch saves them."""
+    import re
+
+    import torch
+
+    out = {}
+    for key, value in state.items():
+        name, leaf = key.rsplit(".", 1)
+        bn = name.endswith("BatchNorm_0")
+        ref_leaf = _BN_REF[leaf] if bn else leaf
+        m = re.fullmatch(rf"{re.escape(prefix)}layer(\d)_(\d+)\.ConvBNAct_(\d)\.(Conv_0|BatchNorm_0)",
+                         name)
+        if name == f"{prefix}stem.Conv_0" or name == f"{prefix}stem.BatchNorm_0":
+            ref = f"{prefix}{'bn1' if bn else 'conv1'}"
+        elif m:
+            c = int(m[3])
+            part = (f"downsample.{int(bn)}" if c == 2 else f"{'bn' if bn else 'conv'}{c + 1}")
+            ref = f"{prefix}layer{m[1]}.{m[2]}.{part}"
+        elif d := re.fullmatch(r"DecoderBlock_(\d)\.ConvBNAct_(\d)\.(Conv_0|BatchNorm_0)", name):
+            ref = f"decoder.blocks.{d[1]}.conv{int(d[2]) + 1}.{int(bn)}"
+        elif name == "head":
+            ref = "segmentation_head.0"
+        else:
+            raise KeyError(f"no reference key for {key}")
+        out[f"{ref}.{ref_leaf}"] = value.detach().cpu().clone()
+        if bn and leaf == "var":
+            out[f"{ref}.num_batches_tracked"] = torch.tensor(1000)
+    return out
+
+
+def weights_files(torch, root) -> dict:
+    """A seeded 3-channel torchvision-layout ResNet-18 .pth and a seeded
+    full-width 6-channel smp-layout UNet-ResNet18 .pt under ``root``, from
+    the port's seeded init with BatchNorm's affine and statistics perturbed
+    (scale 1 + 0.2 N, bias and mean 0.1 N, var 0.5 + U), so that an eval
+    is not an identity. Returns the paths and the port-named state of each,
+    checked to come back through the port's converters bit for bit."""
+    from kurosiwo_torch import convert
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.models.resnet import ResNetEncoder
+
+    g = torch.Generator().manual_seed(WEIGHTS_SEED)
+
+    def perturbed(state: dict) -> dict:
+        out = {}
+        for k, v in state.items():
+            leaf = k.rsplit(".", 1)[-1]
+            if ".BatchNorm_0." in k and leaf in ("scale", "var"):
+                v = (1 + 0.2 * torch.randn(v.shape, generator=g) if leaf == "scale"
+                     else 0.5 + torch.rand(v.shape, generator=g))
+            elif ".BatchNorm_0." in k:
+                v = 0.1 * torch.randn(v.shape, generator=g)
+            out[k] = v.detach().float().contiguous()
+        return out
+
+    encoder = perturbed(ResNetEncoder(3, "resnet18", generator=g).state_dict())
+    cfg = {"method": "unet", "num_classes": 3, "num_channels": 6, "mixed_precision": True}
+    unet = perturbed(initialize_segmentation_model(cfg, {"backbone": "resnet18"}, device="cpu",
+                                                   seed=WEIGHTS_SEED).state_dict())
+    paths = {"encoder": root / "resnet18_imagenet.pth", "unet": root / "best_segmentation.pt"}
+    torch.save(reference_layout(encoder), paths["encoder"])
+    torch.save({"model_state_dict": reference_layout(unet, "encoder."), "epoch": 0},
+               paths["unet"])
+    for got, want in ((convert.convert_torchvision_resnet(
+            convert.load_torch_state_dict(paths["encoder"])), encoder),
+            (convert.convert(paths["unet"], "unet"), unet)):
+        require(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want),
+                "a reference-layout file does not come back through the port's converter")
+    return {"paths": paths, "encoder": encoder, "unet": unet}
+
+
+def weights_config_root(root, pth) -> "Path":
+    """A copy of the shipped configs whose method/unet/unet.json names the
+    torchvision file as ``pretrained_encoder`` (b128, 224x224, bf16, its
+    ``pretrained`` and ``encoder_weights`` as shipped)."""
+    import shutil
+    from pathlib import Path
+
+    from kurosiwo_torch.config import load_json5
+
+    configs = root / "configs"
+    shutil.copytree(Path(__file__).resolve().parent / "configs", configs)
+    path = configs / "method" / "unet" / "unet.json"
+    path.write_text(json.dumps({**load_json5(path), "pretrained_encoder": str(pth)}))
+    return configs
+
+
+def weights_encoder_leg(torch, counters, smi: str, files: dict, configs, main_rate: float) -> dict:
+    """The pretrained_encoder leg in-process: load_config(unet, resnet18) on
+    ``configs`` (the .pth as unet.json's pretrained_encoder), the engine on
+    the card (b128, 224x224, bf16, the f32 eval twin); the encoder bitwise
+    the file's before step 1 (its 3-channel stem leaves the 6-channel stem
+    at its init); 2 train steps and one f32 eval batch, counted: 60
+    pair_sums and one CE+cm launch each way a step, two CE+cm forwards an
+    eval batch; then the train step on those batches resident on the card,
+    timed in turns against a twin engine of the same config from its random
+    init, beside the main path's step rate ``main_rate``. The load's seconds are
+    those of a second load into the same engine (the file in the page
+    cache)."""
+    from kurosiwo_torch.config import load_config
+    from kurosiwo_torch.data.pipeline import Loader
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training import engine as eng
+
+    cfg = load_config(method="unet", backbone="resnet18", config_root=configs,
+                      overrides={"synthetic_size": 2 * BATCH})
+    mcfg = cfg["model_config"]
+    require(cfg["pretrained_encoder"] == str(files["paths"]["encoder"]) and cfg["batch_size"] == BATCH
+            and cfg["mixed_precision"] and cfg["pretrained"],
+            f"weights config: pretrained_encoder {cfg.get('pretrained_encoder')}, batch "
+            f"{cfg['batch_size']}, mixed_precision {cfg['mixed_precision']}")
+
+    def held(mode: str, n: int) -> list:
+        loader = Loader(mode, dict(cfg, synthetic_size=n), WEIGHTS_SEED)
+        out = []
+        for b in loader.ring_batches():
+            out.append({k: v.copy() for k, v in b.items()})
+            b.release()
+        loader.close()
+        return out
+
+    train, val = held("train", 2 * BATCH), held("val", BATCH)
+    model = initialize_segmentation_model(cfg, mcfg, seed=WEIGHTS_SEED)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    engine = eng.TaskEngine(model, cfg, mcfg, "segmentation", steps_per_epoch=len(train),
+                            seed=WEIGHTS_SEED)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    loaded = {k: v.detach().cpu() for k, v in engine.state.model.state_dict().items()}
+    for k, v in loaded.items():
+        name = k[len("encoder."):]
+        want = (init[k] if (not k.startswith("encoder.") or name.startswith("stem."))
+                else files["encoder"][name])
+        require(torch.equal(v, want), f"before step 1, {k} is not "
+                                      f"{'its init' if want is init.get(k) else 'the file'}'s")
+    t0 = time.perf_counter()
+    engine._load_pretrained_weights()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    zero_counters(counters)
+    summary = engine.run_train_epoch(train, 0)
+    acc, f1, miou, ev = engine.run_eval(val, "Val")
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    want = {name: 0 for name in counters}
+    want.update(pair_sums=60 * len(train), ce_cm_fwd_nhwc=len(train) + 2 * len(val),
+                ce_cm_bwd_nhwc=len(train))
+    require(launches == want, f"weights leg launches {launches}, expected {want}")
+    require(math.isfinite(summary["mean_loss"]) and math.isfinite(miou),
+            f"weights leg loss {summary['mean_loss']}, val mIoU {miou}")
+    # the step alone, as bench.run_train times the main path's (batches
+    # resident on the card, synchronised), beside a twin engine of the same
+    # config from its random init, in turns: loaded, twin, twin, loaded
+    import warnings
+
+    from kurosiwo_torch.ops.metrics import MetricState
+
+    def step_rate(e, steps: int) -> float:
+        state, metric, lr = e.state, MetricState.create(e.device), float(e.lr_schedule(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, metric, _ = e._train_step(state, resident[i % len(resident)], metric, lr,
+                                             e.generator)
+        torch.cuda.synchronize()
+        return steps * BATCH / (time.perf_counter() - t0)
+
+    resident = list(eng.device_prefetch(train, engine.device))
+    twin_cfg = {k: v for k, v in cfg.items() if k != "pretrained_encoder"}
+    with warnings.catch_warnings():  # the shipped unet.json asks for weights it is not given
+        warnings.simplefilter("ignore")
+        twin = eng.TaskEngine(initialize_segmentation_model(twin_cfg, mcfg, seed=WEIGHTS_SEED),
+                              twin_cfg, mcfg, "segmentation", steps_per_epoch=len(train),
+                              seed=WEIGHTS_SEED)
+    for e in (engine, twin):
+        step_rate(e, 3)
+    turns = [step_rate(e, WEIGHTS_TURN_STEPS) for e in (engine, twin, twin, engine)]
+    rate, twin_rate = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    out = {"build_s": build_s, "load_s": load_s, "launches": launches,
+           "loss": summary["mean_loss"], "val_miou": miou, "rate": rate, "turns": turns,
+           "random_init_rate": twin_rate, "main_path_rate": main_rate, "steps": len(train),
+           "eval_batches": len(val)}
+    print(f"[weights] pretrained_encoder {files['paths']['encoder'].name} (3-channel torchvision "
+          f"ResNet-18) into UNet-ResNet18 (6 channels): the encoder bitwise the file's before "
+          f"step 1, the stem at its init; engine built in {build_s:.3f} s, the load alone "
+          f"{load_s:.3f} s (warm file); {len(train)} b{BATCH} train steps, loss "
+          f"{summary['mean_loss']:.5f}, one f32 eval batch, val mIoU {miou:.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the train step on the loaded "
+          f"weights {rate:.2f} patches/s, the same config from its random init "
+          f"{twin_rate:.2f} ({WEIGHTS_TURN_STEPS} steps a turn, batches on the card, in turns "
+          f"loaded, random, "
+          f"random, loaded: {', '.join(f'{r:.2f}' for r in turns)}; the main path's "
+          f"{main_rate:.2f}) [{smi}]",
+          flush=True)
+    del engine, model, resident, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def weights_parity_args(files: dict, device: str) -> list:
+    """The parity harness's flags on the UNet .pt (the shipped configs,
+    the CLI pool's run adds its --config_root)."""
+    return ["--checkpoint", str(files["paths"]["unet"]), "--model", "unet",
+            "--batch_size", str(WEIGHTS_PARITY_BATCH), "--seed", str(WEIGHTS_SEED),
+            "--override", json.dumps({"synthetic_size": WEIGHTS_TEST_SAMPLES, "num_workers": 4}),
+            "--device", device]
+
+
+def parity_close(got: dict, want: dict, tag: str) -> dict:
+    """The parity band (WEIGHTS_CM_BAND, WEIGHTS_SCORE_BAND) between two
+    harness reports; returns the largest differences."""
+    import numpy as np
+
+    cm, wcm = np.asarray(got["test_confusion"]), np.asarray(want["test_confusion"])
+    pixels = int(wcm.sum())
+    diff = {"cm_max": int(np.abs(cm - wcm).max()), "pixels": pixels,
+            "scores_max": max(abs(got[k] - want[k]) for k in
+                              ("test_accuracy", "test_mean_f1", "test_mean_iou")),
+            "per_class_max": float(np.abs(np.subtract(got["per_class_f1"] + got["per_class_iou"],
+                                                      want["per_class_f1"]
+                                                      + want["per_class_iou"])).max())}
+    require(int(cm.sum()) == pixels > 0 and diff["cm_max"] <= WEIGHTS_CM_BAND * pixels
+            and diff["scores_max"] <= WEIGHTS_SCORE_BAND
+            and diff["per_class_max"] <= WEIGHTS_SCORE_BAND,
+            f"{tag}: the parity reports differ beyond the band: {diff}")
+    return diff
+
+
+def phase_weights(torch, counters, smi: str, cli: list, step_rate: float) -> dict:
+    """Weights from the reference's files (A13) on the card: the files
+    (``weights_files``), the pretrained_encoder leg (``weights_encoder_leg``)
+    and the parity harness on the .pt over a small synthetic test split,
+    in-process on the card (B2's forward counted) and on the CPU (plain
+    versions), held to each other in the band; adds to ``cli`` ``python -m
+    kurosiwo_torch --method unet --backbone resnet18`` on the config root
+    whose unet.json names the .pth (exit 0, the load printed, a test mIoU)
+    and ``python -m kurosiwo_torch.parity --model unet`` on the .pt (its
+    report held to the CPU's in the band)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from kurosiwo_torch import parity
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    files = weights_files(torch, root)
+    configs = weights_config_root(root, files["paths"]["encoder"])
+    marks = {"files": time.perf_counter() - t0}
+    out = {"encoder": weights_encoder_leg(torch, counters, smi, files, configs, step_rate)}
+    marks["encoder leg"] = time.perf_counter() - t0 - sum(marks.values())
+
+    shipped = ["--config_root", str(Path(__file__).resolve().parent / "configs")]
+    cwd = os.getcwd()
+    os.chdir(root)  # the shipped root_path is relative: no corpus here, the synthetic split
+    try:
+        zero_counters(counters)
+        t1 = time.perf_counter()
+        card = parity.run(parity.build_parser().parse_args(
+            weights_parity_args(files, "cuda") + shipped))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        launches = read_counters(counters)
+        batches = math.ceil(WEIGHTS_TEST_SAMPLES / WEIGHTS_PARITY_BATCH)
+        want = {name: 0 for name in counters}
+        want["ce_cm_fwd_nhwc"] = 2 * batches
+        require(launches == want, f"the parity harness on the card launched {launches}, "
+                                  f"expected {want}")
+        t1 = time.perf_counter()
+        cpu = parity.run(parity.build_parser().parse_args(
+            weights_parity_args(files, "cpu") + shipped))
+        cpu_s = time.perf_counter() - t1
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    diff = parity_close(card, cpu, "parity card vs CPU")
+    out["parity"] = {"card": {k: card[k] for k in ("test_mean_f1", "test_mean_iou")},
+                     "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+                     "card_vs_cpu": diff}
+    print(f"[weights] python -m kurosiwo_torch.parity --model unet on {files['paths']['unet'].name} "
+          f"(full-width smp UNet-ResNet18, 6 channels), {WEIGHTS_TEST_SAMPLES} synthetic test "
+          f"samples at b{WEIGHTS_PARITY_BATCH}, in-process: card {card_s:.1f} s (test F1 "
+          f"{card['test_mean_f1']:.4f}, mIoU {card['test_mean_iou']:.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }), CPU {cpu_s:.1f} s; card vs CPU: "
+          f"confusion counts at most {diff['cm_max']} of {diff['pixels']} pixels apart (band "
+          f"{WEIGHTS_CM_BAND:.1%}), scores {diff['scores_max']:.2e} points (band "
+          f"{WEIGHTS_SCORE_BAND}) [{smi}]", flush=True)
+    marks["parity"] = time.perf_counter() - t0 - sum(marks.values())
+
+    def encoder_check(results: list) -> None:
+        run = cli_finish(results[0])
+        loaded = f"Loaded pretrained_encoder {files['paths']['encoder']}"
+        require(loaded in results[0]["stdout"], "the CLI did not print its pretrained_encoder load")
+        out["cli"] = {"seconds": run["seconds"], "miou": run["miou"]}
+        print(f"[weights cli] python -m kurosiwo_torch --method unet --backbone resnet18 "
+              f"(unet.json's pretrained_encoder the .pth): exit 0 in {run['seconds']:.1f} s "
+              f"({run['at_once']} at once at most), '{loaded}' printed, Test Mean IOU "
+              f"{run['miou']:.4f} [{smi}]", flush=True)
+
+    def parity_check(results: list) -> None:
+        res = results[0]
+        try:
+            if res["rc"]:
+                print(res["stdout"][-3000:], res["stderr"][-3000:], sep="\n", flush=True)
+            require(res["rc"] == 0, f"the parity CLI exited {res['rc']}")
+            report = json.loads(res["stdout"][res["stdout"].index("{"):])
+            diff = parity_close(report, cpu, "the parity CLI vs the CPU")
+            out["parity_cli"] = {"seconds": res["seconds"], "card_vs_cpu": diff,
+                                 "same_as_in_process": report["test_confusion"]
+                                 == card["test_confusion"]}
+            print(f"[weights parity cli] python -m kurosiwo_torch.parity --model unet: exit 0 in "
+                  f"{res['seconds']:.1f} s ({res['at_once']} at once at most), test F1 "
+                  f"{report['test_mean_f1']:.4f}; against the CPU run: counts at most "
+                  f"{diff['cm_max']} pixels apart, scores {diff['scores_max']:.2e} points; the "
+                  f"in-process card run's counts "
+                  f"{'equal' if out['parity_cli']['same_as_in_process'] else 'differ'} [{smi}]",
+                  flush=True)
+        finally:
+            tmp.cleanup()
+
+    cli.append(CliJob([(None, ("unet", "resnet18"), (), "kurosiwo_torch", configs)],
+                      encoder_check))
+    cli.append(CliJob([(None, ("parity",), tuple(weights_parity_args(files, "cuda")),
+                        "kurosiwo_torch.parity")], parity_check))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[weights] phase wall {out['wall_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its two CLI runs in the "
+          f"CLI pool) [{smi}]", flush=True)
+    return out
+
+
 def slice_summary(mae: dict | None, rec: dict | None, smi: str,
-                  diff: dict | None = None) -> str:
-    """One line of the MAE-loop, recurrent and diffusion phases' numbers,
-    printed near the end."""
+                  diff: dict | None = None, weights: dict | None = None) -> str:
+    """One line of the MAE-loop, recurrent, diffusion and weights phases'
+    numbers, printed near the end."""
     line: dict = {"card": smi}
     if mae is not None:
         line["mae_train"] = {"loop": mae["main"], "b4": mae["b4"], "cli": mae["cli"],
@@ -4022,6 +4399,10 @@ def slice_summary(mae: dict | None, rec: dict | None, smi: str,
                              "sampler": diff["sampler"], "kernel_launches": diff["launches"],
                              "raster_in_process": diff["raster"], "cli": diff.get("cli"),
                              "raster_cli": diff.get("raster_cli"), "phase_wall_s": diff["wall_s"]}
+    if weights is not None:
+        line["weights"] = {"pretrained_encoder": weights["encoder"], "parity": weights["parity"],
+                           "cli": weights.get("cli"), "parity_cli": weights.get("parity_cli"),
+                           "phase_wall_s": weights["wall_s"]}
     return "[slice summary] " + json.dumps(line)
 
 
@@ -4034,11 +4415,12 @@ def slice_summary(mae: dict | None, rec: dict | None, smi: str,
 # two runs of 36 GiB and more fit the budget together, so each of those runs
 # beside smaller ones. The raster CLI's is the UNet's eval at b32; the
 # diffusion CLI's is set by its phase from its leg's peak (at most the
-# budget: then it runs alone).
+# budget: then it runs alone); the parity harness's is the raster CLI's (the
+# same UNet eval at b32, in f32).
 CLI_BUDGET_GIB = 62
 CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 39, "changeformer": 36,
            "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 37, "convlstm": 23, "mae": 8,
-           "raster": 6, "diffusion": CLI_BUDGET_GIB}
+           "raster": 6, "diffusion": CLI_BUDGET_GIB, "parity": 6}
 CLI_AT_ONCE = 6
 CLI_TIMEOUT_S = 600
 # runs this large pair with no other of their size, so they follow one
@@ -4061,13 +4443,15 @@ class CliJob:
 
 
 def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
-              extra: tuple = (), module: str = "kurosiwo_torch", nice: int = 0) -> dict:
+              extra: tuple = (), module: str = "kurosiwo_torch", configs=None,
+              nice: int = 0) -> dict:
     """Starts ``python -m kurosiwo_torch --method unet --backbone resnet18
     --seed 7`` (``method``: the method and backbone; a method without a
     backbone takes its model config's; ``extra``: more flags) in a
     subprocess and a temporary directory, on a copy of the shipped configs
     with ``config`` merged into train/train_config.json, the last file
-    merged (none: the shipped files as they are); it reuses the kernels
+    merged (none: the shipped files as they are; ``configs``: another
+    config root in their place); it reuses the kernels
     already built, and writes its stdout and stderr to files there. The
     run's allocator takes expandable segments (PYTORCH_CUDA_ALLOC_CONF), so
     that the memory it holds stays near what it allocates. Another
@@ -4088,12 +4472,12 @@ def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
             ["--method", method[0], *(["--backbone", method[1]] if method[1:] else []), *extra,
              "--seed", "7"])
     tmp = tempfile.TemporaryDirectory()
-    configs = root / "configs"
+    configs = Path(configs) if configs is not None else root / "configs"
     if config:
         from kurosiwo_torch.config import load_json5
 
+        shutil.copytree(configs, Path(tmp.name) / "configs")
         configs = Path(tmp.name) / "configs"
-        shutil.copytree(root / "configs", configs)
         path = configs / "train" / "train_config.json"
         path.write_text(json.dumps({**load_json5(path), **config}))
     with open(Path(tmp.name) / "cli.stdout", "w") as so, \
@@ -4348,18 +4732,25 @@ def run_only(torch, counters, smi: str, only: set) -> None:
     if "diffusion" in only:
         torch.cuda.empty_cache()
         diff = phase_diffusion(torch, counters, smi, cli)
+    weights = None
+    if "weights" in only:
+        b = bench.setup(BATCH)
+        seconds, _, _ = bench.run_train(b, 10, 3)
+        del b
+        torch.cuda.empty_cache()
+        weights = phase_weights(torch, counters, smi, cli, 10 * BATCH / seconds)
     if cli:
         phase_cli(torch, cli, smi)
     if cd is not None or attn is not None:
         print(cd_summary(cd, smi, attn), flush=True)
     if zoo is not None:
         print(zoo_summary(zoo, smi), flush=True)
-    if mae is not None or rec is not None or diff is not None:
-        print(slice_summary(mae, rec, smi, diff), flush=True)
+    if mae is not None or rec is not None or diff is not None or weights is not None:
+        print(slice_summary(mae, rec, smi, diff, weights), flush=True)
 
 
 ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo", "mae-train",
-        "recurrent", "diffusion"}
+        "recurrent", "diffusion", "weights"}
 
 
 def use_pycache() -> None:
@@ -4480,6 +4871,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         diff = timed(phase_diffusion, torch, counters, smi, cli)
         torch.cuda.empty_cache()
+        weights = timed(phase_weights, torch, counters, smi, cli, unet["train_rate"])
+        torch.cuda.empty_cache()
         mae_launches = timed(phase_mae_main, torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = timed(phase_scene_main, torch, counters, smi)
@@ -4518,16 +4911,20 @@ def main(argv=None) -> int:
              zoo_launches_per_step={k: zoo[k]["pair_sums"] for k, *_ in ZOO_LEGS},
              zoo_batch={k: zoo[k]["batch"] for k, *_ in ZOO_LEGS},
              zoo_shapes_checked=zoo["pair_sums_check"]["shapes"],
-             zoo_max_abs_err=zoo["pair_sums_check"]["max_abs_err"]),
+             zoo_max_abs_err=zoo["pair_sums_check"]["max_abs_err"],
+             weights_launches=weights["encoder"]["launches"]["pair_sums"]),
         dict(row("ce_cm_fwd_nhwc (recurrent_*: the ConvLSTM step with fused_tail true, its "
                  "f32 probabilities)", "kurosiwo_torch/csrc/ce_cm.cu",
                  "kurosiwo_tpu/ops/pallas_tail.py:128", ce["fwd"], launches["ce_cm_fwd_nhwc"]),
              recurrent_launches_per_step=rec["fused_tail"]["ce_cm_fwd_nhwc"],
-             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["fwd"]),
+             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["fwd"],
+             weights_launches=weights["encoder"]["launches"]["ce_cm_fwd_nhwc"],
+             weights_parity_launches=weights["parity"]["launches"]["ce_cm_fwd_nhwc"]),
         dict(row("ce_cm_bwd_nhwc", "kurosiwo_torch/csrc/ce_cm.cu",
                  "kurosiwo_tpu/ops/pallas_tail.py:167", ce["bwd"], launches["ce_cm_bwd_nhwc"]),
              recurrent_launches_per_step=rec["fused_tail"]["ce_cm_bwd_nhwc"],
-             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["bwd"]),
+             recurrent_shape=rec["b2"]["shape"], recurrent_f32=rec["b2"]["bwd"],
+             weights_launches=weights["encoder"]["launches"]["ce_cm_bwd_nhwc"]),
         dict(row("short_attention_fwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls)", "kurosiwo_torch/csrc/short_attention.cu",
                  "kurosiwo_tpu/ops/pallas_attention.py:259", attn["fwd"],
@@ -4612,7 +5009,7 @@ def main(argv=None) -> int:
     ]}
     print(cd_summary(cd, smi, cd_attn), flush=True)
     print(zoo_summary(zoo, smi), flush=True)
-    print(slice_summary(mae_loop, rec, smi, diff), flush=True)
+    print(slice_summary(mae_loop, rec, smi, diff, weights), flush=True)
     print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
           flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

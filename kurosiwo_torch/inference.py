@@ -11,15 +11,16 @@ single-device part of ``kurosiwo_tpu/inference.py``.
     ONE attention sequence (4,096 tokens for a 1024x1024 scene at patch 16),
     which the router sends to the flash attention kernel (B5) when the
     sequence is 1,024 tokens or more with a 128-multiple block;
-  * ``load_variables``: the fresh-init route (``checkpoint=""``) and the
-    port's own checkpoints (``dir/best_segmentation``);
+  * ``load_variables``: the fresh-init route (``checkpoint=""``), the
+    port's own checkpoints (``dir/best_segmentation``) and the reference's
+    torch ``.pt`` files (converted by the method's converter);
   * ``main``: the raster command line, ``python -m kurosiwo_torch.inference
-    --vv VV.tif --vh VH.tif --checkpoint dir/best_segmentation [--device
-    cuda|cpu]``.
+    --vv VV.tif --vh VH.tif --checkpoint dir/best_segmentation|model.pt
+    [--method unet] [--device cuda|cpu]``.
 
 Not here yet: ``vit_whole_scene_cp`` (context parallelism over four cards,
-ROADMAP A12) and the orbax and torch ``.pt`` checkpoint routes of the JAX
-package and the reference (A13).
+ROADMAP A12). Not ported: the JAX package's orbax checkpoint route (its own
+format, read with orbax and JAX).
 """
 
 from __future__ import annotations
@@ -201,18 +202,28 @@ def vit_whole_scene_cp(*args, **kwargs):
         "yet (ROADMAP.md, A12)")
 
 
-def load_variables(checkpoint: str, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+def load_variables(checkpoint: str, model: torch.nn.Module,
+                   method: str = "snunet") -> dict[str, torch.Tensor]:
     """The model's ``state_dict`` (parameters and BatchNorm buffers, on the
     CPU) for ``checkpoint``: its own seeded initialisation for ``""``
-    (smoke runs); for ``dir/name``, the port's checkpoint ``name`` under
-    ``dir`` (``training/checkpoint.py``: ``dir/name.ptr.json`` naming a
-    committed slot, as ``best_segmentation`` is), the form the JAX
-    package's ``load_variables`` takes. A missing path raises
-    ``FileNotFoundError`` (a typo must not produce a confident garbage
-    mask); torch ``.pt`` files and orbax directories are not ported yet."""
+    (smoke runs); for a torch ``.pt`` / ``.pth`` file, the reference's
+    checkpoint converted by ``method``'s converter (``convert.convert``, as
+    the JAX package's ``convert(path, config.get("method", "snunet"))``),
+    with the model's BatchNorm statistics where the file has none; for
+    ``dir/name``, the port's checkpoint ``name`` under ``dir``
+    (``training/checkpoint.py``: ``dir/name.ptr.json`` naming a committed
+    slot, as ``best_segmentation`` is), the form the JAX package's
+    ``load_variables`` takes. A missing path raises ``FileNotFoundError``
+    (a typo must not produce a confident garbage mask). Orbax directories,
+    the JAX package's own format, are refused: reading one needs orbax and
+    JAX, which the port does not import."""
     if not checkpoint:
         return model.state_dict()
     p = Path(checkpoint)
+    if p.suffix in (".pt", ".pth"):
+        from .convert import convert, with_statistics
+
+        return with_statistics(convert(p, method), model.state_dict())
     if (p.parent / f"{p.name}.ptr.json").is_file():
         from .training.checkpoint import CheckpointManager
 
@@ -220,18 +231,16 @@ def load_variables(checkpoint: str, model: torch.nn.Module) -> dict[str, torch.T
         return payload["model"]
     if not p.exists():
         raise FileNotFoundError(f"checkpoint {checkpoint!r} does not exist")
-    if p.suffix in (".pt", ".pth"):
-        raise NotImplementedError(
-            "torch .pt checkpoints are not ported yet (ROADMAP.md, A13)")
     raise NotImplementedError(
-        "orbax checkpoints are not ported yet (ROADMAP.md, A13); the port's own checkpoints "
-        "are given as dir/name (dir/best_segmentation)")
+        f"{checkpoint!r} is neither a torch .pt/.pth file nor the port's own dir/name checkpoint "
+        "(dir/best_segmentation): orbax directories are the JAX package's format, and reading "
+        "one needs orbax and JAX, which the port does not import (ROADMAP.md, Not to port)")
 
 
 def main(argv=None) -> np.ndarray:
     """The raster command line (JAX ``inference.main``): the model of
     ``--method`` (``load_config`` with ``inputs`` ["post_event"], so two
-    channels) with ``load_variables(--checkpoint)``, over the VV and VH
+    channels) with ``load_variables(--checkpoint, --method)``, over the VV and VH
     rasters stacked, clamped and normalized as the loader does, by
     ``predict_scene``; writes the class map to ``<out>.mask.png`` and the
     overlay (``utils/visualize``) to ``--out`` with cv2, and prints the
@@ -253,8 +262,9 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--vv", required=True, help="VV backscatter raster (tif)")
     ap.add_argument("--vh", required=True, help="VH backscatter raster (tif)")
     ap.add_argument("--checkpoint", default="",
-                    help="the port's checkpoint as dir/name (dir/best_segmentation); "
-                         "empty: the seeded initialisation")
+                    help="the port's checkpoint as dir/name (dir/best_segmentation), or a "
+                         "reference torch .pt (converted by --method); empty: the seeded "
+                         "initialisation")
     ap.add_argument("--method", default="unet")
     ap.add_argument("--out", default="flood_mask.png")
     ap.add_argument("--overlap", type=int, default=32)
@@ -270,7 +280,7 @@ def main(argv=None) -> np.ndarray:
     scene = normalize(scene, cfg["data_mean"], cfg["data_std"])
 
     model = initialize_segmentation_model(cfg, cfg["model_config"], device=args.device)
-    model.load_state_dict(load_variables(args.checkpoint, model))
+    model.load_state_dict(load_variables(args.checkpoint, model, args.method))
     mask = predict_scene(TilePredictor(model, device=args.device), scene, overlap=args.overlap)
 
     cv2.imwrite(str(Path(args.out).with_suffix(".mask.png")), mask)

@@ -22,8 +22,10 @@ model config's ``optimizer`` and ``betas`` say, as the JAX engine) and
 saves ``checkpoint_epoch={e}`` as change detection does. With
 ``save_visualizations`` each eval draws one batch (``np.random.randint``,
 as the JAX engine) and writes its first sample's image, ground truth and
-prediction to ``checkpoint_path/viz/{settype}_sample.png``. Not ported:
-pretrained weights (A13), wandb logging (A14).
+prediction to ``checkpoint_path/viz/{settype}_sample.png``. Weights from
+the reference's files load at init (``pretrained_checkpoint``,
+``pretrained_encoder``, ``pretrained_upernet``). Not ported: wandb
+logging (A14).
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ class TaskEngine:
         self.generator = torch.Generator(self.device)
         self.generator.manual_seed(int(seed))
         self.lr_schedule = create_lr_schedule(config, model_config, steps_per_epoch)
-        self._check_pretrained_weights()
+        self._load_pretrained_weights()
 
         self.with_aoi = bool(config.get("log_AOI_metrics"))
         # wandb.watch-equivalent gradient tracking (reference main.py:144)
@@ -157,23 +159,53 @@ class TaskEngine:
             model, create_loss(config, "val"), config, model_config, task, self.device,
             dtype=eval_dtype, with_aoi=self.with_aoi, with_preds=self.viz_enabled)
 
-    def _check_pretrained_weights(self) -> None:
+    def _load_pretrained_weights(self) -> None:
+        """Weights from the reference's files at init (JAX
+        ``_load_pretrained_weights``; the reference's smp
+        ``encoder_weights="imagenet"``, model_utilities.py:110-157, and
+        UperNet's from_pretrained, upernet.py:28-77), the first key set of:
+
+          * ``pretrained_checkpoint``: a torch checkpoint of this method,
+            converted whole (``convert.CONVERTERS``);
+          * ``pretrained_encoder``: a torchvision ResNet state_dict grafted
+            into the model's ``encoder`` (the stem keeps its init where the
+            input channels differ from the file's);
+          * ``pretrained_upernet``: a local ``save_pretrained`` directory of
+            an HF UperNet, its first conv and classifier replaced.
+
+        Each is copied into the model's own tensors (``convert.load_into``:
+        strict, in place), so the optimizer steps the loaded values."""
         cfg = self.config
-        for key in ("pretrained_checkpoint", "pretrained_encoder", "pretrained_upernet"):
-            if cfg.get(key):
-                raise NotImplementedError(f"{key} (weights from the reference's torch files) is "
-                                          "not ported yet (ROADMAP.md, A13)")
-        if cfg.get("pretrained") or cfg.get("encoder_weights"):
-            # the reference defaults these methods to ImageNet-pretrained
-            # encoders (model_utilities.py:110-157); make the gap loud
-            warnings.warn(
-                f"config requests pretrained weights (pretrained={cfg.get('pretrained')!r}, "
-                f"encoder_weights={cfg.get('encoder_weights')!r}) for method "
-                f"{cfg.get('method')!r} but no weight source is set — training starts from "
-                "RANDOM init, unlike the reference default. Loading pretrained weights is "
-                "not ported yet (ROADMAP.md, A13).",
-                stacklevel=2,
-            )
+        key = next((k for k in ("pretrained_checkpoint", "pretrained_encoder",
+                                "pretrained_upernet") if cfg.get(k)), None)
+        if key is None:
+            if cfg.get("pretrained") or cfg.get("encoder_weights"):
+                # the reference defaults these methods to ImageNet-pretrained
+                # encoders (model_utilities.py:110-157); make the gap loud
+                warnings.warn(
+                    f"config requests pretrained weights (pretrained={cfg.get('pretrained')!r}, "
+                    f"encoder_weights={cfg.get('encoder_weights')!r}) for method "
+                    f"{cfg.get('method')!r} but no weight source is set — training starts "
+                    "from RANDOM init, unlike the reference default. Supply "
+                    "'pretrained_encoder' (a torchvision ResNet .pth), 'pretrained_checkpoint' "
+                    "(a reference .pt) or 'pretrained_upernet' (a local save_pretrained "
+                    "directory); see README 'Pretrained weights'.",
+                    stacklevel=2,
+                )
+            return
+        from .. import convert
+
+        model = self.state.model
+        if key == "pretrained_checkpoint":
+            state = convert.convert(cfg[key], cfg["method"])
+        elif key == "pretrained_encoder":
+            state = convert.graft_encoder(model.state_dict(), convert.convert_torchvision_resnet(
+                convert.load_torch_state_dict(cfg[key])))
+        else:
+            state = convert.load_pretrained_upernet(cfg[key], cfg["num_channels"],
+                                                    cfg.get("num_classes", 3))
+        convert.load_into(model, state)
+        self.logger.info(f"Loaded {key} {cfg[key]}")
 
     def run_train_epoch(self, loader: Loader, epoch: int) -> dict:
         """One epoch of train steps at the epoch's learning rate. The summary

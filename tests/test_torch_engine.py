@@ -251,24 +251,62 @@ def test_device_prefetch_passes_cpu_batches_through():
     assert list(device_prefetch(batches, "cpu")) == batches
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"save_visualizations": True}, None),
-    ({"pretrained_checkpoint": "best.pt"}, "A13"),
-    ({"pretrained_encoder": "resnet18.pth"}, "A13"),
+def _reference_files(tmp_path) -> dict:
+    """A seeded smp UNet-ResNet18 .pt of the engine's 6 channels and a
+    3-channel torchvision resnet18 .pth, in the reference's key layouts."""
+    import torch_ref_layout as ref
+    from kurosiwo_tpu.models.resnet import ResNetEncoder
+
+    unet = ref.jax_shapes(j_init_model(CFG, MCFG), jnp.zeros((1, 32, 32, 6)), train=False)
+    enc = ref.jax_shapes(ResNetEncoder("resnet18"), jnp.zeros((1, 32, 32, 3)), train=False)
+    files = {"pretrained_checkpoint": (tmp_path / "best.pt", ref.SMP_UNET, unet),
+             "pretrained_encoder": (tmp_path / "resnet18.pth", ref.resnet_rules(), enc)}
+    for path, rules, shapes in files.values():
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    ref.reference_state(shapes, rules, 1).items()}, path)
+    return {k: v[0] for k, v in files.items()}
+
+
+@pytest.mark.parametrize("kw", [
+    {"save_visualizations": True}, {"pretrained_checkpoint": True}, {"pretrained_encoder": True},
 ], ids=["visualizations", "pretrained_checkpoint", "pretrained_encoder"])
-def test_engine_refuses_what_is_not_ported(kw, match):
-    """The pretrained weights name A13; ``save_visualizations`` (A11) is
-    ported: the engine builds with its eval step's predictions on
-    (``tests/test_torch_raster_cli.py`` holds the PNG it writes)."""
-    cfg = _cfg(**kw)
-    if match is None:
+def test_engine_refuses_what_is_not_ported(kw, tmp_path):
+    """What the engine once refused, now ported: ``save_visualizations``
+    (A11) builds with the eval step's predictions on
+    (``tests/test_torch_raster_cli.py`` holds the PNG it writes); the
+    pretrained weights (A13) load at init into the model's own tensors, the
+    ones the optimizer holds: a reference smp UNet .pt whole
+    (``pretrained_checkpoint``), a torchvision resnet18 .pth into the
+    encoder (``pretrained_encoder``; its 3-channel stem leaves the 6-channel
+    model's stem, affine and statistics at their init). The JAX engine's
+    state after the same loads: tests/test_torch_parity_harness.py."""
+    from kurosiwo_torch import convert as tconv
+
+    if "save_visualizations" in kw:
+        cfg = _cfg(**kw)
         engine = TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
                          device="cpu")
         assert engine.viz_enabled
         return
-    with pytest.raises(NotImplementedError, match=match):
-        TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
-                device="cpu")
+    (key,) = kw
+    path = _reference_files(tmp_path)[key]
+    cfg = _cfg(**{key: str(path)})
+    model = t_init_model(cfg, MCFG, device="cpu", seed=SEED)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    params = list(model.parameters())
+    engine = TEngine(model, cfg, MCFG, "segmentation", 1, device="cpu")
+    assert [p for g in engine.state.optimizer.param_groups for p in g["params"]] == params
+    got = engine.state.model.state_dict()
+    if key == "pretrained_checkpoint":
+        want = tconv.convert(path, "unet")
+    else:
+        enc = tconv.convert_torchvision_resnet(tconv.load_torch_state_dict(path))
+        want = {f"encoder.{k}": v for k, v in enc.items() if not k.startswith("stem.")}
+        want.update({k: v for k, v in init.items() if not k.startswith("encoder.")
+                     or k.startswith("encoder.stem.")})
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 @pytest.mark.parametrize("installed", [True, False], ids=["wandb-installed", "wandb-absent"])

@@ -123,8 +123,10 @@ def test_load_variables_missing_checkpoint_raises(base_config):
 
 def test_load_variables_routes(base_config, tmp_path):
     """"" is the model's own seeded initialisation; ``dir/name`` the port's
-    own checkpoint (A11, ported); the torch .pt and orbax routes name their
-    ROADMAP item (A13)."""
+    own checkpoint (A11, ported); a reference torch .pt goes through the
+    method's converter (A13, ported), the model's BatchNorm statistics kept
+    where the file has none; an orbax directory (the JAX package's format)
+    is refused, saying why."""
     from kurosiwo_torch.training.checkpoint import CheckpointManager
     from kurosiwo_torch.training.state import create_train_state
 
@@ -138,11 +140,27 @@ def test_load_variables_routes(base_config, tmp_path):
     assert loaded.keys() == model.state_dict().keys()
     for k, v in trained.state_dict().items():
         assert torch.equal(loaded[k], v), k
+    import torch_ref_layout as ref
+    from kurosiwo_torch import convert as tconv
+
+    channels = model.encoder.stem.Conv_0.weight.shape[1]
+    shapes = ref.jax_shapes(j_init_seg(dict(base_config, num_channels=channels),
+                                       {"backbone": "resnet18"}),
+                            jnp.zeros((1, 32, 32, channels)), train=False)
     pt = tmp_path / "model.pt"
-    pt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tinf.load_variables(str(pt), model)
-    with pytest.raises(NotImplementedError, match="orbax.*A13"):
+    torch.save({k: torch.from_numpy(v) for k, v in
+                ref.reference_state(shapes, ref.SMP_UNET, 0).items()}, pt)
+    loaded = tinf.load_variables(str(pt), model, "unet")
+    want = tconv.convert(pt, "unet")
+    assert loaded.keys() == want.keys() == model.state_dict().keys()
+    for k, v in want.items():
+        assert torch.equal(loaded[k], v), k
+    model.load_state_dict(loaded)
+    vit = tmp_path / "floodvit.pt"
+    torch.save({"weight": torch.zeros(1)}, vit)
+    with pytest.raises(KeyError, match="no converter for 'unet\\+\\+'"):
+        tinf.load_variables(str(vit), model, "unet++")
+    with pytest.raises(NotImplementedError, match="orbax.*JAX"):
         tinf.load_variables(str(tmp_path), model)
 
 

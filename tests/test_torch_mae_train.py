@@ -90,7 +90,12 @@ def test_adam_steps_match_optax(moments, scales):
     cfg = {"optimizer_moment_dtype": moments, **({"lr_scales": scales} if scales else {})}
     lrs = [1e-3, 5e-4, 2e-3]
     tx = j_optim.create_optimizer(cfg, {"learning_rate": lrs[0]}, task="mae")
-    jp = jax.tree.map(jnp.asarray, torch_to_flax(model.state_dict())["params"])
+    # copies: jnp.asarray of a CPU array aliases its memory, and torch_to_flax
+    # hands out views of the parameters wherever no transpose is needed (the
+    # biases, norms, mask_token): opt.step() would then write into JAX's
+    # first-step parameters, racing the asynchronously dispatched update
+    jp = jax.tree.map(lambda a: jnp.asarray(np.array(a)),
+                      torch_to_flax(model.state_dict())["params"])
     state = tx.init(jp)
     opt = t_optim.create_optimizer(named, cfg, {"learning_rate": lrs[0]}, task="mae")
     assert len(opt.param_groups) == (5 if scales else 1)
