@@ -126,7 +126,7 @@ its lines; any failed phase exits non-zero.
    card (SNUNet's column plan, Siam-diff's whole-forward region with
    dropout): equal running statistics, gradients in the f32 band, equal
    pair-sum launches; the SNUNet b128 bf16 train step with remat on (the
-   default) and off (2 warm-up, 5 timed, as every change-detection leg;
+   default) and off (2 warm-up, 3 timed, as every change-detection leg;
    its peak memory must be lower with remat) and its f32-twin eval, the
    Siam-diff b128 train step, HFA-Net and ADHR-CDNet at the larger of b64,
    b32 that fits, each with
@@ -155,8 +155,8 @@ its lines; any failed phase exits non-zero.
    its plain version at every BatchNorm input shape of those steps, B4 at
    the finetuner's (B, 197, 16 x 64), its time beside SDPA's and its bound;
    the CLI twice at one seed for unet++, deeplabv3, upernet and finetune
-   (at the batch its leg fit) on the shipped configs, every printed number
-   equal.
+   (at half the batch its leg fit) on the shipped configs, every printed
+   number equal.
    Then MAE pretraining end to end (the mae-train phase): the loop
    (``training/mae.train``: the SSL loader, the schedule, bf16-moment Adam
    with ``lr_scales``, mae_{e}/vit_{e}) at a small size, f32, card against
@@ -2283,6 +2283,10 @@ def phase_losses_zones(torch, counters, smi: str) -> None:
 # the change-detection phase's small card-against-CPU steps: (method, batch,
 # side); SNUNet at base_channel 8, Siam at 36 so that its replication pad
 # acts, HFA-Net at the one side it fits
+# the change-detection legs' (warm-up, timed) train steps: 2 + 3 since PR 18
+# (2 + 5 before; 3 + 10 before PR 14), so that the whole script stays near
+# 1,050 s with the parallel phase
+CD_STEPS = (2, 3)
 CD_SMALL = (("snunet", 2, 64), ("siam-diff", 2, 36), ("siam-conc", 2, 36), ("adhr-cdnet", 2, 32),
             ("hfa-net", 1, 224))
 CD_WIDTH = {"base_channel": 8}
@@ -2649,7 +2653,7 @@ def cd_timed(torch, counters, smi: str, model: str, batch: int, overrides: dict,
 
 def cd_fitting(torch, counters, smi: str, model: str, bn_shapes: set) -> dict:
     """The bf16 train step of a model at b64, or b32 if that does not fit,
-    timed at 2 + 5 steps. HFA-Net and ADHR-CDNet run out of memory at b128
+    timed at CD_STEPS. HFA-Net and ADHR-CDNet run out of memory at b128
     (PERF.md; ``python3 -m kurosiwo_torch.bench --model hfa-net --batch 128``
     tries it), so the search starts at b64. (A whole-forward remat would not
     lower the peak: its backward recomputes every activation before it frees
@@ -2659,7 +2663,7 @@ def cd_fitting(torch, counters, smi: str, model: str, bn_shapes: set) -> dict:
     batches = (BATCH // 2, BATCH // 4)
     for batch in batches:
         try:
-            return cd_timed(torch, counters, smi, model, batch, {}, 2, 5, profile_steps=2,
+            return cd_timed(torch, counters, smi, model, batch, {}, *CD_STEPS, profile_steps=2,
                             bn_shapes=bn_shapes)
         except torch.cuda.OutOfMemoryError:
             print(f"[cd main] {model} b{batch}: out of memory", flush=True)
@@ -2776,15 +2780,15 @@ def phase_cd(torch, counters, smi: str, cli: list) -> dict:
     phase_cd_remat(torch, counters)
     marks = {"parity": time.perf_counter() - t0}
     bn_shapes: set = set()
-    # the legs at 2 warm-up and 5 timed steps, 2 profiled (3, 10 and 3 before
+    # the legs at CD_STEPS (2 warm-up, 3 timed), 2 profiled (3, 10 and 3 before
     # the zoo phase joined the script, within its time limit)
-    out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, 2, 5, eval_too=True,
+    out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, *CD_STEPS, eval_too=True,
                              bn_shapes=bn_shapes, profile_steps=2)
     out["snunet_no_remat"] = cd_timed(torch, counters, smi, "snunet", BATCH, {"remat": False},
-                                      2, 5, profile_steps=2)
+                                      *CD_STEPS, profile_steps=2)
     # ROADMAP C14's question for cd: what deterministic algorithms cost the step
     out["snunet_autotuned"] = cd_timed(torch, counters, smi, "snunet", BATCH,
-                                       {"deterministic": False}, 2, 5, profile_steps=0)
+                                       {"deterministic": False}, *CD_STEPS, profile_steps=0)
     print(f"[cd main] SNUNet b{BATCH} deterministic algorithms cost "
           f"{100 * (1 - out['snunet']['rate'] / out['snunet_autotuned']['rate']):.1f}% of the "
           f"autotuned step's rate in this run [{smi}]", flush=True)
@@ -2796,7 +2800,7 @@ def phase_cd(torch, counters, smi: str, cli: list) -> dict:
     require(on["peak_gib"] < off["peak_gib"],
             f"SNUNet peak memory with remat {on['peak_gib']:.2f} GiB not below "
             f"{off['peak_gib']:.2f} without")
-    out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, 2, 5,
+    out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, *CD_STEPS,
                                 bn_shapes=bn_shapes, profile_steps=2)
     require(out["siam-diff"]["pair_sums"] == 58, "Siam-diff pair_sums a step")
     for model in ("hfa-net", "adhr-cdnet"):
@@ -2995,9 +2999,9 @@ def phase_cd_attn_b4(torch, sa, shapes: dict, label: str = "cd-attn",
     return out
 
 
-def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 2,
-                 steps: int = 5) -> dict:
-    """The b128 f32-twin eval step of a bench leg (2 warm-up, 5 timed), or
+def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = CD_STEPS[0],
+                 steps: int = CD_STEPS[1]) -> dict:
+    """The b128 f32-twin eval step of a bench leg (CD_STEPS), or
     with ``eval_microbatch`` 32 when the whole batch does not fit: patches/s,
     peak memory; every launch a short-attention forward (f32: simt)."""
     from kurosiwo_torch import bench
@@ -3040,15 +3044,15 @@ def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = 2,
 
 def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
                 bn_shapes: set, attn: dict, overrides: dict | None = None) -> dict:
-    """A b128 bf16 train leg (2 warm-up, 5 timed, 2 profiled; 3, 10 and 3
-    before the zoo phase joined the script) through ``cd_timed``, its
+    """A b128 bf16 train leg (CD_STEPS: 2 warm-up, 3 timed; 2 profiled; 3, 10
+    and 3 before the zoo phase joined the script) through ``cd_timed``, its
     short-attention shapes added to ``attn`` ({shape: (leg, calls a
     step)}); an out-of-memory leg prints a line and returns {"oom": True}."""
     import collections
 
     shapes = collections.Counter()
     try:
-        res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, 2, 5,
+        res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, *CD_STEPS,
                        bn_shapes=bn_shapes, model_config=model_config, attn_shapes=shapes,
                        tag=tag, profile_steps=2)
     except torch.cuda.OutOfMemoryError:
@@ -3123,7 +3127,10 @@ def phase_cd_attn(torch, counters, smi: str, cli: list) -> dict:
 
     cfg, inputs = {"on_screen_prints": True, "task": "cd"}, ("--inputs", "pre_event_1",
                                                              "post_event")
-    flags = " ".join(inputs) + " "
+    # TransUNet-CD and ChangeFormer at b64 (CLI_HALF): half their b128 legs'
+    # peaks, so that they run beside each other in the pool
+    argv = {m: inputs + (("--batch_size", str(BATCH // 2)) if m in CLI_HALF else ())
+            for m in ("bit-cd", "transunet-cd", "changeformer")}
 
     def check(results: list) -> None:
         for method, res in zip(("bit-cd", "transunet-cd"), results):
@@ -3131,15 +3138,16 @@ def phase_cd_attn(torch, counters, smi: str, cli: list) -> dict:
             require(any(f.endswith("checkpoint_epoch=0.ptr.json") for f in run["files"]),
                     f"the {method} CLI left no checkpoint_epoch=0: {run['files']}")
             first = next(x for x in run["lines"] if x.get("Iteration") == 0)["Train Loss"]
+            flags = " ".join(argv[method]) + " "
             print(f"[cd-attn cli] python -m kurosiwo_torch --method {method} {flags}--seed 7 "
                   f"(\"task\": \"cd\"): exit 0 in {run['seconds']:.1f} s ({run['at_once']} at "
                   f"once at most), first-step loss {first}, Test Mean IOU {run['miou']!r}, "
                   f"checkpoint_epoch=0 written [{smi}]", flush=True)
-        cli_pair_check("cd-attn", "changeformer", flags, smi, results[2:],
-                       note=' ("task": "cd")')
+        cli_pair_check("cd-attn", "changeformer", " ".join(argv["changeformer"]) + " ", smi,
+                       results[2:], note=' ("task": "cd")')
 
-    cli.append(CliJob([(cfg, (m,), inputs) for m in ("bit-cd", "transunet-cd", "changeformer",
-                                                      "changeformer")], check))
+    cli.append(CliJob([(cfg, (m,), argv[m]) for m in ("bit-cd", "transunet-cd", "changeformer",
+                                                       "changeformer")], check))
     out["wall_s"] = time.perf_counter() - t0
     print(f"[cd-attn] phase wall {out['wall_s']:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}; its CLI runs in the CLI "
@@ -3249,8 +3257,8 @@ def phase_seg_zoo(torch, counters, smi: str, cli: list) -> dict:
     BatchNorm a step and the finetuner B4 24 times each way on the wgmma
     kernels; B3 against its plain version at every BatchNorm input shape of
     those steps and B4 at the finetuner's shapes; adds to ``cli`` the CLI
-    twice at one seed for unet++, deeplabv3, upernet and finetune (at the
-    batch its leg fit). Returns the numbers of each."""
+    twice at one seed for unet++, deeplabv3, upernet and finetune (at half
+    the batch its leg fit). Returns the numbers of each."""
     from kurosiwo_torch.ops import short_attention as sa
 
     t0 = time.perf_counter()
@@ -3284,11 +3292,10 @@ def phase_seg_zoo(torch, counters, smi: str, cli: list) -> dict:
     out["pair_sums_check"] = phase_cd_pair_sums(torch, bn_shapes, label="seg-zoo",
                                                 what="zoo's b128 train steps")
     marks["kernels"] = time.perf_counter() - t0 - sum(marks.values())
-    # the CLI twice a method at one seed, the finetuner's at the batch its leg
-    # fit (b128 does not fit an 80 GB card; b64 peaks at 35 GiB)
+    # the CLI twice a method at one seed, the finetuner's at half the batch its
+    # leg fit (b128 does not fit an 80 GB card; b64 peaks at 35 GiB): CLI_HALF
     fit = out["finetune ViT-L"]["batch"]
-    extra = {m: ("--batch_size", str(fit)) if m == "finetune" and fit != BATCH else ()
-             for m in ZOO_CLI}
+    extra = {m: ("--batch_size", str(fit // 2)) if m == "finetune" else () for m in ZOO_CLI}
     cfg = {"on_screen_prints": True}
     out["cli"] = {}
 
@@ -3393,8 +3400,8 @@ def mae_loop_on(torch, counters, root, device: str, noise: list):
     real_plain = {k: getattr(sa, name) for k, name in plains.items()}
     plain, lrs = dict.fromkeys(plains, 0), []
 
-    def make_step(model, accum, device):
-        step = real_step(model, accum, device=device)
+    def make_step(model, accum, device, plan=None):
+        step = real_step(model, accum, device=device, plan=plan)
         n = model.encoder.num_patches
 
         def one(state, batch, lr, gen):
@@ -4382,6 +4389,418 @@ def phase_weights(torch, counters, smi: str, cli: list, step_rate: float) -> dic
     return out
 
 
+# -- the parallel phase (A12): data parallelism and ring attention -----------------------
+
+DP_STEPS, DP_TIMED = 2, 5  # steps compared, steps a timed turn
+DP_LR = 1e-3  # the main path's Adam (bench.TRAIN_LR)
+# bf16 class (C5): two ranks sum each BatchNorm's statistics in another order than
+# one process, and bf16 rounds the activations after it; the step-1 loss within
+# this relative band and each confusion cell within this share of the valid pixels
+DP_LOSS_BAND, DP_CM_BAND = 1e-2, 1e-2
+RING_SHAPE, RING_SHARDS = (1, 16, 4096, 64), 4  # the scene encode's attention, shards of 1,024
+DP_RANK_GIB = 14  # the 2-rank CLI: two b64 UNet ranks and their CUDA contexts
+
+
+def dp_engine(torch, plan, device, batch: int = BATCH):
+    """The main path's engine: bench's UNet-ResNet18 config (6 channels, bf16 on
+    f32 parameters, Adam at 1e-3, RandomEvents-weighted CE), seed 0, with
+    ``plan`` (None: no process group), as TaskEngine runs it."""
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.training.engine import TaskEngine
+
+    cfg = bench.build_config("unet", batch)
+    model = initialize_segmentation_model(cfg, bench.MODEL_CONFIG, device=device, seed=0)
+    return TaskEngine(model, cfg, dict(bench.MODEL_CONFIG), "segmentation", steps_per_epoch=1,
+                      device=device, seed=0, plan=plan)
+
+
+def dp_steps(torch, counters, engine, batch: dict, steps: int) -> dict:
+    """``steps`` train steps of ``engine`` on ``batch``: each step's loss, its
+    launches, and step 1's confusion counts (reduced over the data group)."""
+    from kurosiwo_torch.ops.metrics import MetricState
+
+    out = {"losses": [], "launches": []}
+    for i in range(steps):
+        zero_counters(counters)
+        ms = MetricState.create(engine.device)
+        engine.state, ms, loss = engine._train_step(engine.state, batch, ms, DP_LR,
+                                                    engine.generator)
+        out["losses"].append(loss.float().item())
+        out["launches"].append(read_counters(counters))
+        if i == 0:
+            out["cm"] = ms.reduce(engine.grid).cm.cpu().numpy()
+    return out
+
+
+def dp_rate(torch, engine, batch: dict, steps: int, global_batch: int) -> float:
+    """Patches/s of ``steps`` train steps (global rows), the ranks waiting for
+    each other at the start and end."""
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.parallel.distributed import barrier
+
+    ms = MetricState.create(engine.device)
+    torch.cuda.synchronize(engine.device)
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.state, ms, _ = engine._train_step(engine.state, batch, ms, DP_LR,
+                                                 engine.generator)
+    torch.cuda.synchronize(engine.device)
+    barrier()
+    return steps * global_batch / (time.perf_counter() - t0)
+
+
+def parallel_world1(torch, counters, smi: str) -> dict:
+    """(a) The DP engine in a group of world size 1 over NCCL against the same
+    engine with no process group: the losses and parameters of DP_STEPS steps
+    bitwise equal, B3 60 and B2 1 each way a step; then their rates in turns
+    (plain, DP, DP, plain) of DP_TIMED steps."""
+    import io
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.ops.metrics import MetricState
+
+    plan = parallel_plan()
+    dev = torch.device("cuda", 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench.host_batch(BATCH, seed=0).items()}
+    plain, dp = dp_engine(torch, None, dev), dp_engine(torch, plan, dev)
+    runs = {"plain": dp_steps(torch, counters, plain, batch, DP_STEPS),
+            "dp": dp_steps(torch, counters, dp, batch, DP_STEPS)}
+    same_loss = runs["plain"]["losses"] == runs["dp"]["losses"]
+    ps, ds = plain.model.state_dict(), dp.model.state_dict()
+    differing = [k for k in ps if not torch.equal(ps[k], ds[k])]
+    require(same_loss and not differing,
+            f"world size 1: DP losses {runs['dp']['losses']} against {runs['plain']['losses']}, "
+            f"{len(differing)} tensors differ ({differing[:3]})")
+    want = dict.fromkeys(counters, 0) | {"pair_sums": 60, "ce_cm_fwd_nhwc": 1,
+                                         "ce_cm_bwd_nhwc": 1}
+    for tag, run in runs.items():
+        for i, got in enumerate(run["launches"]):
+            require(got == want, f"world size 1 {tag} step {i + 1}: launches {got}, want {want}")
+    rates = {"plain": [], "dp": []}
+    engines = {"plain": plain, "dp": dp}
+    for tag in ("plain", "dp", "dp", "plain"):
+        rates[tag].append(dp_rate(torch, engines[tag], batch, DP_TIMED, BATCH))
+    # the card's busy time a step (torch.profiler, 2 steps each): host or device?
+    busy = {}
+    for tag, eng in engines.items():
+        def one(eng=eng):
+            return eng._train_step(eng.state, batch, MetricState.create(dev), DP_LR,
+                                   eng.generator)
+        prof = bench.profile(one, 2, dev, BATCH / max(rates[tag]) * 1e3, file=io.StringIO())
+        busy[tag] = {"busy_ms": prof["kernel_ms"], "launches": prof["launches"]}
+    print(f"[parallel a] world size 1 over NCCL, the DP engine against the engine with no "
+          f"process group (UNet-ResNet18 b128 bf16, Adam 1e-3, {DP_STEPS} steps): losses "
+          f"{runs['dp']['losses']} bitwise equal, every parameter and statistic bitwise equal; "
+          f"launches a step {runs['dp']['launches'][0]}; patches/s DP {rates['dp']} against "
+          f"{rates['plain']} with no group ({DP_TIMED} steps a turn; 120 BatchNorm all-reduces "
+          f"and one of the gradients a step, each of world size 1); the card busy "
+          f"{busy['dp']['busy_ms']:.2f} ms a DP step ({busy['dp']['launches']:.0f} kernel "
+          f"launches) against {busy['plain']['busy_ms']:.2f} ms "
+          f"({busy['plain']['launches']:.0f}) [{smi}]", flush=True)
+    out = {"losses": runs["plain"]["losses"], "cm": runs["plain"]["cm"].tolist(),
+           "launches_per_step": runs["dp"]["launches"][0],
+           "dp_patches_per_s": rates["dp"], "plain_patches_per_s": rates["plain"],
+           "busy": busy}
+    del plain, dp, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_plan():
+    """A process group of world size 1 over NCCL (its own free port) and its
+    1 x 1 mesh: the runtime a launcher with one process starts."""
+    import socket
+
+    from kurosiwo_torch.parallel import create_mesh, initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize({"coordinator_address": f"127.0.0.1:{port}", "num_processes": 1,
+                "process_id": 0})
+    return create_mesh()
+
+
+def ring_fwd_bwd(torch, ra, q, k, v, do, plain: bool = False):
+    """``ring_attention_shards`` over RING_SHARDS shards of q, k, v (views), its
+    output and the gradients of (out * do).sum()."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    shards = [list(t.chunk(RING_SHARDS, dim=2)) for t in leaves]
+    outs = ra.ring_attention_shards(*shards, plain=plain)
+    grads = torch.autograd.grad(outs, leaves, list(do.chunk(RING_SHARDS, dim=2)))
+    return torch.cat([o.detach() for o in outs], dim=2), grads
+
+
+def whole_fwd_bwd(torch, fa, q, k, v, do):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, do)
+
+
+def parallel_ring(torch, counters, fa, smi: str) -> dict:
+    """(d) ``ring_attention_shards`` at RING_SHAPE over 4 shards of 1,024
+    (the flash route) forward and backward on the card: B5's forward, dq and
+    dk/dv 4 times a shard (16 in all), held to whole-sequence flash attention
+    and to the plain ring (B5's plain versions in the same steps) in the bf16
+    band (2e-2 of each tensor's largest |value|, B5's); their times. Then
+    ``vit_whole_scene_cp`` of the ViT-L 1024x1024 scene at world size 1 over
+    NCCL against ``vit_whole_scene``, and its B5 forwards."""
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.inference import vit_whole_scene, vit_whole_scene_cp
+    from kurosiwo_torch.ops import ring_attention as ra
+    from kurosiwo_torch.parallel import create_mesh
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, h, n, d = RING_SHAPE
+    q, k, v, do = (torch.randn(RING_SHAPE, device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    zero_counters(counters)
+    out, grads = ring_fwd_bwd(torch, ra, q, k, v, do)
+    torch.cuda.synchronize()
+    by_kernel = read_kernel_counters(counters)
+    per = RING_SHARDS * RING_SHARDS
+    want = dict.fromkeys(by_kernel, 0) | {f"flash_attention_{x}.wgmma": per
+                                          for x in ("fwd", "dq", "dkv")}
+    require(by_kernel == want, f"ring launches {by_kernel}, expected {per} wgmma B5 forwards, "
+                               f"dq and dk/dv ({RING_SHARDS} a shard)")
+    launches = {x: by_kernel[f"flash_attention_{x}.wgmma"] for x in ("fwd", "dq", "dkv")}
+    whole = whole_fwd_bwd(torch, fa, q, k, v, do)
+    plain = ring_fwd_bwd(torch, ra, q, k, v, do, plain=True)
+    err = {}
+    for tag, (w_out, w_grads) in (("whole", whole), ("plain", plain)):
+        for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), (w_out, *w_grads)):
+            e = (got.float() - ref.float()).abs().max().item()
+            band = 2e-2 * ref.float().abs().max().item()
+            require(bool(torch.isfinite(got.float()).all()) and e <= band,
+                    f"ring against {tag}: {name} error {e:.3e} > {band:.3e}")
+            err[f"{tag}_{name}"] = e
+    ms = {"ring": event_ms(torch, lambda: ring_fwd_bwd(torch, ra, q, k, v, do), reps=3, calls=2),
+          "whole": event_ms(torch, lambda: whole_fwd_bwd(torch, fa, q, k, v, do), reps=3,
+                            calls=2),
+          "plain": event_ms(torch, lambda: ring_fwd_bwd(torch, ra, q, k, v, do, plain=True),
+                            reps=3, calls=1)}
+    work = flash_work(b, h, n, n, d, 2)
+    bms, by = bound(work["fwd"][0] + work["bwd"][0], work["fwd"][1] + work["bwd"][1],
+                    BF16_FLOP_PER_S)
+    print(f"[parallel d] ring_attention_shards {RING_SHAPE} bf16 over {RING_SHARDS} shards of "
+          f"{n // RING_SHARDS}, forward and backward: B5 launches {launches} "
+          f"({RING_SHARDS} a shard, the count of each rank of a {RING_SHARDS}-rank ring); max abs "
+          f"error against whole-sequence flash attention out {err['whole_out']:.3e}, dq "
+          f"{err['whole_dq']:.3e}, dk {err['whole_dk']:.3e}, dv {err['whole_dv']:.3e}; against "
+          f"the plain ring out {err['plain_out']:.3e}, dq {err['plain_dq']:.3e}, dk "
+          f"{err['plain_dk']:.3e}, dv {err['plain_dv']:.3e} (band 2e-2 of each max |value|); "
+          f"forward + backward {ms['ring']:.4f} ms, whole-sequence kernels {ms['whole']:.4f} ms, "
+          f"plain ring {ms['plain']:.4f} ms; bound of the attention's forward and backward "
+          f"{bms:.4f} ms ({by}) [{smi}]", flush=True)
+    del q, k, v, do, out, grads, whole, plain
+    torch.cuda.empty_cache()
+
+    sb = bench.setup_scene(1024)
+    plan = create_mesh(num_data=1, num_model=1)
+    vit_whole_scene(sb.vit, sb.scene)  # warm-up
+    want_tokens = vit_whole_scene(sb.vit, sb.scene)
+    zero_counters(counters)
+    got = vit_whole_scene_cp(sb.vit, sb.scene, plan)
+    torch.cuda.synchronize()
+    cp = read_kernel_counters(counters)
+    bitwise = torch.equal(got, want_tokens)
+    cp_err = (got.float() - want_tokens.float()).abs().max().item()
+    require(got.shape == (1, 4096, 1024) and bool(torch.isfinite(got.float()).all()),
+            f"vit_whole_scene_cp output {tuple(got.shape)}")
+    require(cp == dict.fromkeys(cp, 0) | {"flash_attention_fwd.wgmma": 24},
+            f"vit_whole_scene_cp launches {cp}, expected 24 wgmma B5 forwards")
+    band = 2 * 2.0 ** (math.floor(math.log2(want_tokens.float().abs().max().item())) - 7)
+    require(bitwise or cp_err <= band, f"vit_whole_scene_cp error {cp_err:.3e} > {band:.3e}")
+    print(f"[parallel d] vit_whole_scene_cp ViT-L 1024x1024 (4,096 tokens) at world size 1 over "
+          f"NCCL: {'bitwise equal to' if bitwise else f'max abs error {cp_err:.3e} against'} "
+          f"vit_whole_scene, 24 wgmma B5 forwards [{smi}]", flush=True)
+    del sb, got, want_tokens
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "ms": ms["ring"],
+            "whole_ms": ms["whole"], "plain_ms": ms["plain"], "bound_ms": bms, "bound_by": by,
+            "cp_bitwise": bitwise, "cp_max_abs_err": cp_err}
+
+
+def parallel_two_ranks(torch, smi: str, ref: dict) -> dict:
+    """(b) ``python -m torch.distributed.run --standalone --nproc_per_node 2``
+    of this script's rank body (``dp_rank_main``): two Gloo ranks on the one
+    card, each b64 of the global b128 batch (the batch and seed of (a)), their
+    losses bitwise equal to each other, step 1's loss and confusion counts
+    within the bf16 band of (a)'s one process, B3 60 and B2 0 launches a step
+    on each rank."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root)] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", str(root / "chip_smoke.py"), "--dp-rank", tmp], env=env, cwd=tmp,
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+        require(proc.returncode == 0, f"the 2-rank run exited {proc.returncode}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+    backend = next((x for x in proc.stdout.splitlines() if x.startswith("Distributed backend")),
+                   "")
+    require("gloo" in backend, f"the 2 ranks on one card chose {backend!r}")
+    require(ranks[0]["losses"] == ranks[1]["losses"],
+            f"the ranks' losses differ: {ranks[0]['losses']} {ranks[1]['losses']}")
+    require(ranks[0]["cm"] == ranks[1]["cm"], "the ranks' confusion counts differ")
+    want = {"pair_sums": 60, "ce_cm_fwd_nhwc": 0, "ce_cm_bwd_nhwc": 0}
+    for r in ranks:
+        for got in r["launches"]:
+            require({k: got[k] for k in want} == want, f"rank {r['rank']} launches {got}")
+    import numpy as np
+
+    loss_err = abs(ranks[0]["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    cm, cm_ref = np.asarray(ranks[0]["cm"]), np.asarray(ref["cm"])
+    valid = cm_ref.sum()
+    require(np.array_equal(cm.sum(axis=1), cm_ref.sum(axis=1)),
+            "two ranks' label counts differ from one process's")
+    cm_err = float(np.abs(cm - cm_ref).max() / valid)
+    require(loss_err <= DP_LOSS_BAND and cm_err <= DP_CM_BAND,
+            f"two ranks against one process: loss {loss_err:.3e} (band {DP_LOSS_BAND}), "
+            f"confusion {cm_err:.3e} of the valid pixels (band {DP_CM_BAND})")
+    print(f"[parallel b] 2 ranks on the one card over Gloo ({backend}), b64 each of the b128 "
+          f"batch: losses {ranks[0]['losses']} on both ranks (one process: {ref['losses']}), "
+          f"step-1 loss relative difference {loss_err:.3e}, confusion cells within "
+          f"{cm_err:.3e} of the valid pixels (bf16 band {DP_LOSS_BAND}, {DP_CM_BAND}); launches "
+          f"a step on each rank {[r['launches'][0] for r in ranks]}; {ranks[0]['patches_per_s']:.1f}"
+          f" patches/s over both ranks (Gloo stages CUDA tensors through the host: not a speed "
+          f"claim); the whole run {seconds:.1f} s [{smi}]", flush=True)
+    return {"losses": ranks[0]["losses"], "loss_rel_err": loss_err, "cm_err": cm_err,
+            "launches_per_step": [r["launches"][0] for r in ranks],
+            "patches_per_s": ranks[0]["patches_per_s"], "seconds": seconds}
+
+
+def dp_rank_main(outdir: str) -> int:
+    """One rank of (b), started by ``python -m torch.distributed.run``: the
+    runtime from the launcher's variables, the engine on this rank's rows of
+    the b128 batch, DP_STEPS steps (losses, launches, step 1's confusion
+    counts), then DP_TIMED timed steps; the results to ``outdir/rank{r}.json``."""
+    import torch
+    from pathlib import Path
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.ops import batchnorm, fused_tail
+    from kurosiwo_torch.parallel import create_mesh, initialize, local_batch_slice
+    from kurosiwo_torch.parallel.distributed import rank_device, shutdown
+
+    rank, world = initialize()
+    try:
+        dev = rank_device()
+        counters = {"pair_sums": batchnorm.pair_sums,
+                    "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
+                    "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc}
+        rows = local_batch_slice(BATCH)
+        batch = {k: torch.from_numpy(v[rows]).to(dev)
+                 for k, v in bench.host_batch(BATCH, seed=0).items()}
+        engine = dp_engine(torch, create_mesh(), dev)
+        run = dp_steps(torch, counters, engine, batch, DP_STEPS)
+        rate = dp_rate(torch, engine, batch, DP_TIMED, BATCH)
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "world": world, "losses": run["losses"], "cm": run["cm"].tolist(),
+            "launches": run["launches"], "patches_per_s": rate}))
+    finally:
+        shutdown()
+    return 0
+
+
+def dp_cli(smi: str, world1: dict, baseline: CliJob | None = None) -> CliJob:
+    """(c) ``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    kurosiwo_torch --method unet --backbone resnet18 --seed 7`` on the shipped
+    configs with on_screen_prints and deterministic algorithms (the synthetic
+    split of the [cli] run), in the pool: exit 0, every JSON line and the
+    ``Test Mean IOU:`` printed once by each rank and the same, one
+    best_segmentation and one latest (rank 0 writes), and the test mIoU
+    beside the one-process run's of the same config: C14's first
+    deterministic run (``baseline``), or a run of this job's own where the
+    pool has none (a partial run)."""
+    # --tee 3: each rank's lines reach the output whole, prefixed with the rank
+    # ("[default0]:..."); two ranks writing one file could split a line
+    flags = ("--standalone", "--nproc_per_node", "2", "--tee", "3", "-m", "kurosiwo_torch",
+             "--method", "unet", "--backbone", "resnet18", "--seed", "7")
+    config = {"on_screen_prints": True, "deterministic": True}
+    specs = [(config, ("unet-dp2",), flags, "torch.distributed.run")]
+    if baseline is None:
+        specs.append((config, ("unet", "resnet18"), ()))
+
+    def check(results: list) -> None:
+        import collections
+        import re
+
+        dp = results[0]
+        one = results[1] if baseline is None else baseline.results[C14_DETERMINISTIC]
+        if dp["rc"]:
+            print(dp["stdout"][-3000:], dp["stderr"][-3000:], sep="\n", flush=True)
+        require(dp["rc"] == 0, f"the 2-rank CLI exited {dp['rc']}")
+        ranks = collections.defaultdict(list)  # each rank's lines, the prefix taken off
+        for found in re.finditer(r"^\[[^\]]*?(\d+)\]:(.*)$", dp["stdout"], re.M):
+            ranks[int(found.group(1))].append(found.group(2))
+        require(sorted(ranks) == [0, 1], f"the 2-rank CLI's output has ranks {sorted(ranks)}")
+        mious = [re.findall(r"^Test Mean IOU:\s+(\S+)$", "\n".join(ranks[r]), re.M)
+                 for r in (0, 1)]
+        require(mious[0] == mious[1] and len(mious[0]) == 1, f"the ranks' test mIoU {mious}")
+        miou = mious[0][0]
+        lines = [[json.dumps({k: v for k, v in json.loads(x).items() if "time" not in k})
+                  for x in ranks[r] if x.startswith('{"')] for r in (0, 1)]
+        require(lines[0] and lines[0] == lines[1], "the ranks printed different metric lines")
+        lines = lines[0]
+        for name in ("best_segmentation", "latest"):
+            found = [f for f in dp["files"] if f.endswith(f"{name}.ptr.json")]
+            require(len(found) == 1, f"the 2-rank CLI wrote {found} for {name}")
+        single = cli_finish(one)
+        print(f"[parallel c] python -m torch.distributed.run --standalone --nproc_per_node 2 -m "
+              f"kurosiwo_torch --method unet --backbone resnet18 --seed 7: exit 0 in "
+              f"{dp['seconds']:.1f} s ({dp['at_once']} at once at most), {len(lines)} metric "
+              f"lines printed the same by both ranks, one best_segmentation and one latest; Test "
+              f"Mean IOU {miou} against {single['miou']!r} of one process at the seed "
+              f"[{smi}]", flush=True)
+        world1["cli"] = {"seconds": dp["seconds"], "miou": float(miou),
+                         "one_process_miou": single["miou"]}
+
+    return CliJob(specs, check)
+
+
+def phase_parallel(torch, counters, fa, smi: str, cli: list) -> dict:
+    """The multi-process runtime on the card (A12): (a) world size 1 over
+    NCCL on the main path, (d) ring attention and the CP encoder in that
+    group, then the group left and (b) two Gloo ranks on the one card; (c)
+    the 2-rank CLI goes to ``cli``."""
+    from kurosiwo_torch.parallel.distributed import shutdown
+
+    t0 = time.perf_counter()
+    try:
+        out = {"world1": parallel_world1(torch, counters, smi)}
+        out["ring"] = parallel_ring(torch, counters, fa, smi)
+    finally:
+        shutdown()
+    out["two_ranks"] = parallel_two_ranks(torch, smi, out["world1"])
+    # first among the pool's small runs, so that it runs beside the large ones
+    baseline = next((job for job in cli if job.name == "c14"), None)
+    cli.insert(0, dp_cli(smi, out["world1"], baseline))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[parallel] phase wall {out['wall_s']:.1f} s (the 2-rank CLI in the pool) [{smi}]",
+          flush=True)
+    return out
+
+
+def parallel_summary(par: dict, smi: str) -> str:
+    """One line of the parallel phase's numbers, printed near the end."""
+    return "[parallel summary] " + json.dumps({"card": smi, **{
+        k: v for k, v in par.items() if k != "world1"},
+        "world1": {k: v for k, v in par["world1"].items() if k != "cm"}})
+
+
 def slice_summary(mae: dict | None, rec: dict | None, smi: str,
                   diff: dict | None = None, weights: dict | None = None) -> str:
     """One line of the MAE-loop, recurrent, diffusion and weights phases'
@@ -4417,10 +4836,15 @@ def slice_summary(mae: dict | None, rec: dict | None, smi: str,
 # diffusion CLI's is set by its phase from its leg's peak (at most the
 # budget: then it runs alone); the parity harness's is the raster CLI's (the
 # same UNet eval at b32, in f32).
+# The pairs of runs at 36-39 GiB (TransUNet-CD, ChangeFormer at b128, the finetuner at
+# b64) followed one another, 440 of the pool's 550 s on a slow host (PR 18): since PR
+# 18 they run at half that batch (CLI_HALF), their estimates half the leg's activation
+# peak plus the state and the context, and beside each other.
+CLI_HALF = ("transunet-cd", "changeformer", "finetune")
 CLI_BUDGET_GIB = 62
-CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 39, "changeformer": 36,
-           "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 37, "convlstm": 23, "mae": 8,
-           "raster": 6, "diffusion": CLI_BUDGET_GIB, "parity": 6}
+CLI_GIB = {"unet": 7, "snunet": 22, "bit-cd": 10, "transunet-cd": 21, "changeformer": 20,
+           "unet++": 10, "deeplabv3": 6, "upernet": 16, "finetune": 21, "convlstm": 23, "mae": 8,
+           "raster": 6, "diffusion": CLI_BUDGET_GIB, "parity": 6, "unet-dp2": DP_RANK_GIB}
 CLI_AT_ONCE = 6
 CLI_TIMEOUT_S = 600
 # runs this large pair with no other of their size, so they follow one
@@ -4436,10 +4860,12 @@ class CliJob:
     """CLI runs that a phase asks for (``specs``: (config, method, extra[,
     module]) each, as ``cli_start`` takes them) and ``check``, which ``phase_cli``
     calls with their ``cli_collect`` results, in the order of ``specs``,
-    once the pool has run them all."""
+    once the pool has run them all; ``results`` holds them then, for another
+    job's check to read."""
 
-    def __init__(self, specs: list[tuple], check):
-        self.specs, self.check = specs, check
+    def __init__(self, specs: list[tuple], check, name: str = ""):
+        self.specs, self.check, self.name = specs, check, name
+        self.results: list = []
 
 
 def cli_start(config: dict | None = None, method: tuple = ("unet", "resnet18"),
@@ -4619,8 +5045,10 @@ def phase_cli(torch, jobs: list, smi: str) -> None:
           f"[{smi}]", flush=True)
     k = 0
     for job in jobs:
-        job.check([results[k + i] for i in range(len(job.specs))])
+        job.results = [results[k + i] for i in range(len(job.specs))]
         k += len(job.specs)
+    for job in jobs:
+        job.check(job.results)
 
 
 def c14_cli(smi: str) -> CliJob:
@@ -4664,7 +5092,11 @@ def c14_cli(smi: str) -> CliJob:
                   f"{differing[:4]} [{smi}]", flush=True)
         require(runs[True][0] == runs[True][1], "two deterministic CLI runs at one seed differ")
 
-    return CliJob(specs, check)
+    return CliJob(specs, check, name="c14")
+
+
+# C14's first deterministic run: the shipped configs with on_screen_prints, one process
+C14_DETERMINISTIC = 3
 
 
 def _legs(phase: dict) -> dict:
@@ -4739,8 +5171,15 @@ def run_only(torch, counters, smi: str, only: set) -> None:
         del b
         torch.cuda.empty_cache()
         weights = phase_weights(torch, counters, smi, cli, 10 * BATCH / seconds)
+    if "parallel" in only:
+        from kurosiwo_torch.ops import flash_attention as fa
+
+        torch.cuda.empty_cache()
+        par = phase_parallel(torch, counters, fa, smi, cli)
     if cli:
         phase_cli(torch, cli, smi)
+    if "parallel" in only:
+        print(parallel_summary(par, smi), flush=True)
     if cd is not None or attn is not None:
         print(cd_summary(cd, smi, attn), flush=True)
     if zoo is not None:
@@ -4750,7 +5189,7 @@ def run_only(torch, counters, smi: str, only: set) -> None:
 
 
 ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo", "mae-train",
-        "recurrent", "diffusion", "weights"}
+        "recurrent", "diffusion", "weights", "parallel"}
 
 
 def use_pycache() -> None:
@@ -4777,7 +5216,13 @@ def main(argv=None) -> int:
                         help=f"run only these phases of {sorted(ONLY)} (comma-separated) after "
                              "the device and build phases: a partial run, which prints no "
                              "kernel table and no result line")
+    parser.add_argument("--dp-rank", default=None, metavar="DIR",
+                        help="run one rank of the parallel phase's two-rank step (started by "
+                             "python -m torch.distributed.run) and write its results to DIR")
     args = parser.parse_args(argv)
+    if args.dp_rank:
+        use_pycache()
+        return dp_rank_main(args.dp_rank)
     only = set(args.only.split(",")) if args.only else set()
     if only - ONLY:
         parser.error(f"unknown phases {sorted(only - ONLY)}")
@@ -4873,6 +5318,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         weights = timed(phase_weights, torch, counters, smi, cli, unet["train_rate"])
         torch.cuda.empty_cache()
+        par = timed(phase_parallel, torch, counters, fa, smi, cli)
+        torch.cuda.empty_cache()
         mae_launches = timed(phase_mae_main, torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = timed(phase_scene_main, torch, counters, smi)
@@ -4912,7 +5359,10 @@ def main(argv=None) -> int:
              zoo_batch={k: zoo[k]["batch"] for k, *_ in ZOO_LEGS},
              zoo_shapes_checked=zoo["pair_sums_check"]["shapes"],
              zoo_max_abs_err=zoo["pair_sums_check"]["max_abs_err"],
-             weights_launches=weights["encoder"]["launches"]["pair_sums"]),
+             weights_launches=weights["encoder"]["launches"]["pair_sums"],
+             dp_world1_launches_per_step=par["world1"]["launches_per_step"]["pair_sums"],
+             dp_two_ranks_launches_per_step=[
+                 r["pair_sums"] for r in par["two_ranks"]["launches_per_step"]]),
         dict(row("ce_cm_fwd_nhwc (recurrent_*: the ConvLSTM step with fused_tail true, its "
                  "f32 probabilities)", "kurosiwo_torch/csrc/ce_cm.cu",
                  "kurosiwo_tpu/ops/pallas_tail.py:128", ce["fwd"], launches["ce_cm_fwd_nhwc"]),
@@ -4970,10 +5420,16 @@ def main(argv=None) -> int:
              mae_loop_bf16={k: dict(v["bwd"], kernel=v["kernel"],
                                     calls_per_step=v["calls_per_step"])
                             for k, v in mae_loop["b4"]["per_shape"].items()}),
-        row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
-            "scene encode)",
-            "kurosiwo_torch/csrc/flash_attention.cu", "kurosiwo_tpu/ops/pallas_attention.py:33",
-            flash["fwd"], scene_launches["flash_attention_fwd"]),
+        dict(row("flash_attention_fwd (the wgmma kernel; per call at (1, 16, 4096, 64); 24 per "
+                 "scene encode; ring_*: ring_attention_shards over 4 shards of 1,024, forward "
+                 "and backward, ring_ms its time, ring_whole_ms whole-sequence flash attention's, "
+                 "ring_plain_ms the plain ring's)",
+                 "kurosiwo_torch/csrc/flash_attention.cu",
+                 "kurosiwo_tpu/ops/pallas_attention.py:33", flash["fwd"],
+                 scene_launches["flash_attention_fwd"]),
+             ring_launches=par["ring"]["launches"]["fwd"], ring_ms=par["ring"]["ms"],
+             ring_whole_ms=par["ring"]["whole_ms"], ring_plain_ms=par["ring"]["plain_ms"],
+             ring_bound_ms=par["ring"]["bound_ms"], ring_max_abs_err=par["ring"]["max_abs_err"]),
         # the backward runs on no serving path: launches is the scene main path's
         # count (0), phase_launches the kernel-vs-plain phase's
         dict(row("flash_attention_dq (the wgmma kernel; backward, no serving path runs it; "
@@ -4983,14 +5439,16 @@ def main(argv=None) -> int:
                  scene_launches["flash_attention_dq"]),
              phase_launches=flash["dq"]["phase_launches"],
              whole_backward_ms=flash["dq"]["whole_backward_ms"],
-             library_backward_ms=flash["dq"]["library_backward_ms"]),
+             library_backward_ms=flash["dq"]["library_backward_ms"],
+             ring_launches=par["ring"]["launches"]["dq"]),
         dict(row("flash_attention_dkv (the wgmma kernel; backward, no serving path runs it)",
                  "kurosiwo_torch/csrc/flash_attention.cu",
                  "kurosiwo_tpu/ops/pallas_attention.py:86", flash["dkv"],
                  scene_launches["flash_attention_dkv"]),
              phase_launches=flash["dkv"]["phase_launches"],
              whole_backward_ms=flash["dkv"]["whole_backward_ms"],
-             library_backward_ms=flash["dkv"]["library_backward_ms"]),
+             library_backward_ms=flash["dkv"]["library_backward_ms"],
+             ring_launches=par["ring"]["launches"]["dkv"]),
         row("conv3x3_bn_stats (B6, the wgmma kernel; per train step with the conv routes on: "
             "8 calls; library: F.conv2d, no statistics)", "kurosiwo_torch/csrc/conv3x3.cu",
             "kurosiwo_tpu/ops/pallas_conv_bn.py:79", cbn,
@@ -5010,6 +5468,7 @@ def main(argv=None) -> int:
     print(cd_summary(cd, smi, cd_attn), flush=True)
     print(zoo_summary(zoo, smi), flush=True)
     print(slice_summary(mae_loop, rec, smi, diff, weights), flush=True)
+    print(parallel_summary(par, smi), flush=True)
     print(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
           flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

@@ -44,6 +44,16 @@ them, so the port does not build them. ``--method diffusion`` (its method
 config sets ``"task": "diffusion-unsup"``) runs ``training/diffusion.train``
 on the per-observation loader, with ``diffusion_{e}`` in
 ``checkpoints/diffusion-unsup/``.
+
+Data parallelism over N processes, as ``main.py`` runs over JAX's
+processes: ``python -m torch.distributed.run --standalone --nproc_per_node N
+-m kurosiwo_torch --method unet --backbone resnet18``. Each rank joins the
+process group first (``parallel/distributed.initialize``; rank 0 prints
+``Distributed runtime: process 0/N``), runs on ``cuda:LOCAL_RANK`` (the CPU
+with ``--device cpu``), decodes its row block of every global batch of
+``batch_size`` and steps on the global batch's loss and statistics
+(``training/steps.py``); every rank prints the same metrics and ``Test Mean
+IOU:``, rank 0 alone the config and the checkpoints it writes.
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ from .data.pipeline import prepare_loaders
 from .device import configure_backends
 from .models.factory import (CD_METHODS, initialize_cd_model, initialize_recurrent_model,
                              initialize_segmentation_model)
+from .parallel import create_mesh, initialize
+from .parallel.distributed import rank_device, shutdown
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m kurosiwo_torch")
@@ -80,9 +92,23 @@ def main(argv=None) -> float | None:
     """Run the CLI; returns the test mIoU (None for MAE and diffusion
     pretraining)."""
     args = build_parser().parse_args(argv)
+    # the process group first, as main.py:45-51: a no-op for one process
+    pi, pc = initialize(device=args.device)
+    try:
+        return _run(args, pi, pc)
+    finally:
+        shutdown()
+
+
+def _run(args, pi: int, pc: int) -> float | None:
+    if pc > 1 and pi == 0:
+        print(f"Distributed runtime: process {pi}/{pc}", flush=True)
     np.random.seed(args.seed)
     random.seed(args.seed)
     torch.manual_seed(args.seed)
+    plan = create_mesh()
+    device = rank_device(args.device) if plan.distributed else args.device
+    show = pprint.pprint if pi == 0 else (lambda _: None)
 
     configs = load_config(method=args.method, backbone=args.backbone,
                           config_root=args.config_root, args=args)
@@ -99,36 +125,38 @@ def main(argv=None) -> float | None:
                          "pass --inputs pre_event_1 post_event")
     if args.batch_size is not None:
         configs["batch_size"] = int(args.batch_size)
-    configure_backends(configs, args.device)  # before CUDA's first use (cuBLAS's workspace)
+    configure_backends(configs, device)  # before CUDA's first use (cuBLAS's workspace)
     if task == "diffusion-unsup":
         # main.py:63-70: no val/test splits; the trainer builds its own loader
         from .training import diffusion
 
         configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
-        pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
-        diffusion.train(configs, model_configs=model_configs, seed=args.seed, device=args.device)
+        show({k: v for k, v in configs.items() if k != "model_config"})
+        diffusion.train(configs, model_configs=model_configs, seed=args.seed, device=device,
+                        plan=plan)
         return None
     if task == "mae":
         from .training import mae
 
         configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
-        pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
-        print("Initializing Self-Supervised learning training with configs:", flush=True)
-        mae.train(configs, seed=args.seed, model_configs=model_configs, device=args.device)
+        show({k: v for k, v in configs.items() if k != "model_config"})
+        if pi == 0:
+            print("Initializing Self-Supervised learning training with configs:", flush=True)
+        mae.train(configs, seed=args.seed, model_configs=model_configs, device=device, plan=plan)
         return None
     recurrent = task == "segmentation" and method == "convlstm"
     # the model first: a method that is not ported raises before any directory is made
     if task == "cd":
-        model = initialize_cd_model(configs, model_configs, "train", device=args.device,
+        model = initialize_cd_model(configs, model_configs, "train", device=device,
                                     seed=args.seed)
     elif recurrent:
-        model = initialize_recurrent_model(configs, model_configs, "train", device=args.device,
+        model = initialize_recurrent_model(configs, model_configs, "train", device=device,
                                            seed=args.seed)
     else:
-        model = initialize_segmentation_model(configs, model_configs, device=args.device,
+        model = initialize_segmentation_model(configs, model_configs, device=device,
                                               seed=args.seed)
     configs["checkpoint_path"] = create_checkpoint_directory(configs, model_configs)
-    pprint.pprint({k: v for k, v in configs.items() if k != "model_config"})
+    show({k: v for k, v in configs.items() if k != "model_config"})
 
     from .training.change_detection import eval_change_detection, train_change_detection
     from .training.engine import evaluate_task
@@ -136,9 +164,10 @@ def main(argv=None) -> float | None:
     from .training.segmentation import eval_semantic_segmentation, train_semantic_segmentation
 
     train_loader, val_loader, test_loader = prepare_loaders(configs, seed=args.seed)
-    print("Samples in Train Set: ", train_loader.num_samples())
-    print("Samples in Val Set: ", val_loader.num_samples())
-    print("Samples in Test Set: ", test_loader.num_samples())
+    if pi == 0:
+        print("Samples in Train Set: ", train_loader.num_samples())
+        print("Samples in Val Set: ", val_loader.num_samples())
+        print("Samples in Test Set: ", test_loader.num_samples())
 
     engine_task = "recurrent" if recurrent else task
     train_fn, eval_fn = {
@@ -149,11 +178,11 @@ def main(argv=None) -> float | None:
     if configs.get("test"):
         # eval-only (reference main.py:86-128): training would overwrite the
         # very best_segmentation the user asked to score
-        engine = evaluate_task(model, configs, model_configs, engine_task, device=args.device,
-                               seed=args.seed)
+        engine = evaluate_task(model, configs, model_configs, engine_task, device=device,
+                               seed=args.seed, plan=plan)
     else:
         engine = train_fn(model, train_loader, val_loader, test_loader, configs, model_configs,
-                          seed=args.seed, device=args.device)
+                          seed=args.seed, device=device, plan=plan)
     _, _, miou = eval_fn(engine, test_loader, settype="Test")
     print("Test Mean IOU: ", miou, flush=True)
     return miou

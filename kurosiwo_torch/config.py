@@ -19,9 +19,10 @@ The files are JSON with ``//`` and ``/* */`` comments and trailing commas.
 go, a comma before ``}`` or ``]`` goes, and ``json.loads`` does the rest.
 There is no ``json5`` on the card's machine, and this is the one reader.
 
-The change-detection checkpoint directory is stamped with this process's
-clock; the JAX package broadcasts process 0's stamp across processes, which
-waits for the port's multi-process runtime (ROADMAP.md, A12).
+The change-detection checkpoint directory is stamped with rank 0's clock,
+broadcast to every rank as the JAX package broadcasts process 0's: a
+per-process clock can cross a second boundary and split one run over two
+directories.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import json
 import os
 from pathlib import Path
 from typing import Any
+
+from .parallel.distributed import process_info
 
 # Class weights for the RandomEvents track when `weighted` is enabled
 # (reference: utilities/utilities.py:392-397).
@@ -202,7 +205,12 @@ def create_checkpoint_directory(config: dict, model_config: dict, root: str = "c
     elif config.get("task") == "cd":
         from datetime import datetime
 
-        path = f"{root}/{method.lower()}/{config['track']}_{datetime.now():%Y%m%d%H%M%S}"
+        stamp = [f"{datetime.now():%Y%m%d%H%M%S}"]
+        if process_info()[1] > 1:
+            import torch.distributed as dist
+
+            dist.broadcast_object_list(stamp, src=0)
+        path = f"{root}/{method.lower()}/{config['track']}_{stamp[0]}"
     elif config.get("task") == "finetune":
         path = f"{root}/finetuning"
     else:

@@ -6,8 +6,9 @@
 // Replaces the TPU kernels kurosiwo_tpu/ops/pallas_attention.py::_fwd_kernel
 // (:33, launched by _flash_fwd, :116, pallas_call :124), _dq_kernel (:63) and
 // _dkv_kernel (:86), both launched by flash_bwd (:177, pallas_calls :189 and
-// :205). As there, delta = sum_d(do * out) is the caller's: a ring pass
-// (ROADMAP A12) hands each rotating k/v block the global lse and delta.
+// :205). As there, delta = sum_d(do * out) is the caller's: the ring pass
+// (kurosiwo_torch/ops/ring_attention.py) hands each rotating k/v block the
+// global lse and delta.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): operations. At
 // the whole-scene call (1, 16, 4096, 64) bf16 the forward's two products are

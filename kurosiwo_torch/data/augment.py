@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 _SUPPORTED_AUGMENTATIONS = {
     "RandomResizedCrop",
     "HorizontalFlip",
@@ -223,10 +225,11 @@ def gauss_noise(images: list, draws: list, scale: float = 1.0 / 255) -> list:
 
 
 def draw_multiplicative_noise(g: torch.Generator, images: list, p: float,
-                              limits=(0.9, 1.1)) -> list:
+                              limits=(0.9, 1.1), batch: int | None = None) -> list:
     """One gain per image and sample (A.MultiplicativeNoise's defaults,
-    elementwise=False, per_channel=False)."""
-    b = images[0].shape[0]
+    elementwise=False, per_channel=False); ``batch`` samples (default the
+    images')."""
+    b = images[0].shape[0] if batch is None else batch
     return [{"apply": _coin(g, p, (b,)), "mult": _uniform(g, (b,), limits[0], limits[1])}
             for _ in images]
 
@@ -375,12 +378,15 @@ def _p(aug: dict, name: str) -> float:
     return float(aug.get(name, {}).get("p", 0.0))
 
 
-def draw_augmentations(g: torch.Generator, batch: dict, config: dict) -> dict:
+def draw_augmentations(g: torch.Generator, batch: dict, config: dict,
+                       batch_size: int | None = None) -> dict:
     """The draws of every configured operation with p > 0, in the
-    pipeline's order: {operation: draws}."""
+    pipeline's order: {operation: draws}, for ``batch_size`` samples
+    (default the batch's)."""
     aug = config.get("augmentations") or {}
     images = [batch[k] for k in IMAGE_KEYS if k in batch]
     b, h, w = images[0].shape[:3]
+    b = b if batch_size is None else batch_size
     draws: dict = {}
     rrc = aug.get("RandomResizedCrop", {})
     if _p(aug, "RandomResizedCrop") > 0:
@@ -403,7 +409,7 @@ def draw_augmentations(g: torch.Generator, batch: dict, config: dict) -> dict:
         draws["GaussNoise"] = draw_gauss_noise(g, [(b, h, w, im.shape[-1]) for im in images],
                                                float(gn["p"]))
     if _p(aug, "MultNoise") > 0:
-        draws["MultNoise"] = draw_multiplicative_noise(g, images, _p(aug, "MultNoise"))
+        draws["MultNoise"] = draw_multiplicative_noise(g, images, _p(aug, "MultNoise"), batch=b)
     if _p(aug, "Cutout") > 0:
         draws["Cutout"] = draw_cutout(g, b, h, w, _p(aug, "Cutout"))
     return draws
@@ -465,8 +471,12 @@ def apply_augmentations(batch: dict, config: dict, draws: dict) -> dict:
 def augment_batch(g: torch.Generator, batch: dict, config: dict) -> dict:
     """The configured augmentation pipeline on a batch on ``g``'s device:
     draws from ``g``, then the applies. Raises on an unsupported operation
-    configured with p > 0."""
+    configured with p > 0. Under data parallelism the draws are made for the
+    global batch and cut to this rank's rows (``parallel/mesh.draw_rows``),
+    so a rank augments its rows as one process augments the same rows."""
     if not config.get("augmentations"):
         return batch
     check_augmentations(config)
-    return apply_augmentations(batch, config, draw_augmentations(g, batch, config))
+    local = next(batch[k] for k in IMAGE_KEYS if k in batch).shape[0]
+    draws = draw_rows(lambda b: draw_augmentations(g, batch, config, batch_size=b), local)
+    return apply_augmentations(batch, config, draws)

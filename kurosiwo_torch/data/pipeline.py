@@ -31,10 +31,13 @@ Decoding runs in processes, not threads: the decode is numpy work that holds
 the interpreter lock often, and decode threads slowed the train step's own
 host side, which shares that lock (PERF.md §6).
 
-One process decodes the whole batch: the JAX loader's process grid is
-process 0 of 1 here until the port has a multi-process runtime
-(ROADMAP.md, A12). Not ported: the SLC loader (``data/slc.py``), ROADMAP.md
-A14.
+The process grid (``resolve_process_grid``), as the JAX loader's:
+``batch_size`` is the GLOBAL batch, every process draws the same epoch
+indices (``epoch_rng``) and decodes only its contiguous row block of each
+batch into a ring of local-size buffers, with its own decode processes.
+An eval batch pads each process's block: a process whose whole block is
+padding gets zero samples of weight 0 and mask 3, and still steps. Not
+ported: the SLC loader (``data/slc.py``), ROADMAP.md A14.
 
 The diffusion task (``diffusion-unsup``) reads per-observation records:
 each patch's pre1, pre2 and flood acquisitions as three typed records
@@ -67,6 +70,23 @@ from .tiles import RawSample, read_raw_sample
 def _needs_stats(config) -> bool:
     mode = config.get("scale_input")
     return mode in ("min-max", "custom") or isinstance(mode, (list, tuple))
+
+
+def resolve_process_grid(batch_size: int, process_index: int | None = None,
+                         process_count: int | None = None) -> tuple[int, int, int]:
+    """(process_index, process_count, local batch size) of every loader: the
+    given grid, else the process group's (``parallel/distributed``). Raises
+    on a batch the count does not divide (its tail rows would silently never
+    decode)."""
+    if process_index is None or process_count is None:
+        from ..parallel.distributed import process_info
+
+        process_index, process_count = process_info()
+    process_index, process_count = int(process_index), int(process_count)
+    if batch_size % process_count:
+        raise ValueError(f"batch_size {batch_size} not divisible by process count "
+                         f"{process_count} (tail rows would silently never decode)")
+    return process_index, process_count, batch_size // process_count
 
 
 def epoch_rng(seed: int, mode: str) -> np.random.Generator:
@@ -336,10 +356,14 @@ class Loader:
         config: dict,
         seed: int = 999,
         index_cache: dict | None = None,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
         self.mode = mode
         self.config = config
         self.batch_size = int(config["batch_size"])
+        self.process_index, self.process_count, self.local_batch_size = resolve_process_grid(
+            self.batch_size, process_index, process_count)
         self.seed = seed
         self.workers = int(config.get("num_workers", 8)) or 1
 
@@ -460,7 +484,8 @@ class Loader:
             return
         sample = self._first_sample()
         layout = {k: (np.shape(v), np.asarray(v).dtype) for k, v in sample.items()}
-        self._ring = BatchRing(layout, self.batch_size, max(1, min(RING_SLOTS, len(self))))
+        self._ring = BatchRing(layout, self.local_batch_size,
+                               max(1, min(RING_SLOTS, len(self))))
         self._workers = self.worker_class(self.decoder, self._ring, self.workers)
         self._finalizer = weakref.finalize(self, _shutdown, self._workers, self._ring)
 
@@ -526,11 +551,13 @@ class Loader:
         so the workers go straight from one batch to the next. Errors are
         handed to the consumer, who raises them."""
         ring, pending = self._ring, None
+        lo = self.process_index * self.local_batch_size
         try:
             for ids in batches:
                 slot = ring.acquire(abandoned)
                 if slot is None:
                     return
+                ids = ids[lo:lo + self.local_batch_size]  # this process's rows of the batch
                 done, pending = pending, (slot, len(ids), self._workers.fill(slot, ids))
                 if done is not None:
                     self._finish(done)
@@ -551,13 +578,14 @@ class Loader:
 
     def _finish(self, item: tuple) -> None:
         """Wait for a batch's rows; an eval batch's missing rows become
-        zero-weight, all-ignore copies of its last sample."""
+        zero-weight, all-ignore copies of its last sample (zero samples where
+        the process's whole block is padding)."""
         slot, n, wait = item
         wait()
-        if self.mode != "train" and n < self.batch_size:
+        if self.mode != "train" and n < self.local_batch_size:
             arrays = self._ring.arrays[slot]
             for arr in arrays.values():
-                arr[n:] = arr[n - 1]
+                arr[n:] = arr[n - 1] if n else 0
             arrays["sample_weight"][n:] = 0
             if "mask" in arrays:  # absent from diffusion-unsup's typed records
                 arrays["mask"][n:] = 3

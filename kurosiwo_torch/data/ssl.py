@@ -19,7 +19,9 @@ gamma draws of ``RandomState((seed * 7,654,321 + i) mod (2^31 - 1))``.
 
 The rows are decoded by the Loader's decode processes into its ring of
 batch buffers in shared memory (``pipeline.BatchRing``), which the engine's
-``device_prefetch`` uploads from; the JAX loader decodes on threads.
+``device_prefetch`` uploads from; the JAX loader decodes on threads. Under
+data parallelism each process decodes its row block of every global batch
+(``pipeline.resolve_process_grid``), as the JAX loader does.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .pipeline import Loader
+from .pipeline import Loader, resolve_process_grid
 from .tiles import _imread, list_tile_files, stack_channels
 
 SSL_MEAN = np.array([0.0953, 0.0264], np.float32)
@@ -156,10 +158,13 @@ class SSLLoader(Loader):
     each iteration is an epoch. A ``Loader`` (ring, decode processes,
     ``ring_batches``, ``close``) with the SSL decoder."""
 
-    def __init__(self, config: dict, seed: int = 999, synthetic: bool | None = None):
+    def __init__(self, config: dict, seed: int = 999, synthetic: bool | None = None,
+                 process_index: int | None = None, process_count: int | None = None):
         self.mode = "ssl"
         self.config = config
         self.batch_size = int(config["batch_size"])
+        self.process_index, self.process_count, self.local_batch_size = resolve_process_grid(
+            self.batch_size, process_index, process_count)
         self.seed = seed
         self.workers = int(config.get("num_workers", 8)) or 1
         root = Path(config.get("root_path", "."))

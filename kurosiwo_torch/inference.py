@@ -18,9 +18,12 @@ single-device part of ``kurosiwo_tpu/inference.py``.
     --vv VV.tif --vh VH.tif --checkpoint dir/best_segmentation|model.pt
     [--method unet] [--device cuda|cpu]``.
 
-Not here yet: ``vit_whole_scene_cp`` (context parallelism over four cards,
-ROADMAP A12). Not ported: the JAX package's orbax checkpoint route (its own
-format, read with orbax and JAX).
+  * ``vit_whole_scene_cp``: the same encode with the token sequence sharded
+    over the ranks of a ``MeshPlan``'s model axis, ring attention in every
+    layer (context parallelism).
+
+Not ported: the JAX package's orbax checkpoint route (its own format, read
+with orbax and JAX).
 """
 
 from __future__ import annotations
@@ -30,10 +33,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .device import resolve_device
 from .models.vit import ViT, patchify
+from .ops.ring_attention import SOLO
+from .parallel.mesh import MeshPlan
 
 
 class TilePredictor:
@@ -141,19 +147,21 @@ def _layer_norm_f32(norm, t: torch.Tensor) -> torch.Tensor:
     return (t - mu) / torch.sqrt(var + 1e-6) * norm.scale + norm.bias
 
 
-def _embed_scene_tokens(vit: ViT, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _embed_scene_tokens(vit: ViT, x: torch.Tensor, dtype: torch.dtype,
+                        rows: slice = slice(None)) -> torch.Tensor:
     """Patch embed (LN -> Linear -> LN, all in f32) + resampled positions, no
     cls token (JAX ``_embed_scene_tokens``); deliberately not
     ``ViT.embed_image``, which folds the first LayerNorm into a convolution
     in the compute dtype. Tokens are cast to ``dtype`` after the second
-    LayerNorm; the positions are cast to it and added in it."""
+    LayerNorm; the positions are cast to it and added in it. ``rows``: the
+    tokens to embed (a shard of the sequence), default all."""
     p = vit.patch_size
     gh, gw = x.shape[1] // p, x.shape[2] // p
-    patches = patchify(x, p).float()
+    patches = patchify(x, p)[:, rows].float()
     tokens = _layer_norm_f32(vit.patch_norm1, patches)
     tokens = vit.patch_proj(tokens, torch.float32)
     tokens = _layer_norm_f32(vit.patch_norm2, tokens).to(dtype)
-    return tokens + interpolate_pos_embedding(vit.pos_embedding, (gh, gw)).to(dtype)
+    return tokens + interpolate_pos_embedding(vit.pos_embedding, (gh, gw))[:, rows].to(dtype)
 
 
 def encode_scene(vit: ViT, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -194,12 +202,41 @@ def vit_whole_scene(encoder: ViT, scene: np.ndarray, dtype: torch.dtype = torch.
     return encode_scene(encoder, x, dtype)
 
 
-def vit_whole_scene_cp(*args, **kwargs):
-    """Context-parallel ``vit_whole_scene`` (the token sequence sharded over
-    four cards, ring attention in every layer): not ported yet."""
-    raise NotImplementedError(
-        "vit_whole_scene_cp needs ring attention over several devices, which is not ported "
-        "yet (ROADMAP.md, A12)")
+def vit_whole_scene_cp(encoder: ViT, scene: np.ndarray, plan: MeshPlan,
+                       dtype: torch.dtype = torch.bfloat16,
+                       device: str | torch.device | None = "cuda") -> torch.Tensor:
+    """Context-parallel ``vit_whole_scene`` (JAX ``inference.py:205-290``):
+    the scene's patch-token sequence is sharded over ``plan``'s model axis,
+    each rank embeds its contiguous shard of tokens and encodes it with ring
+    attention in every layer (``ops/ring_attention``), so no rank holds more
+    than N/P tokens of k/v. Everything outside attention is token-pointwise.
+    A plan without a process group is a ring of this process alone.
+
+    The scene is reflect-padded to whole patches; the token count gh*gw must
+    divide by the ring size, else ValueError (grow the scene by patch rows).
+    Every rank returns the gathered (1, gh*gw, dim) features in ``dtype`` on
+    ``device`` (the card unless the caller asks for the CPU), as the JAX
+    function returns the whole array."""
+    dev = resolve_device(device)
+    encoder = encoder.to(dev)
+    padded = pad_scene(scene, encoder.patch_size)
+    gh, gw = padded.shape[0] // encoder.patch_size, padded.shape[1] // encoder.patch_size
+    n, p = gh * gw, plan.num_model
+    if n % p:
+        raise ValueError(f"token grid {gh}x{gw}={n} does not divide by the ring size {p}; pad "
+                         "the scene so the patch grid is a multiple of the ring size")
+    group = plan.model_group if plan.model_group is not None else SOLO
+    shard = n // p
+    rows = slice(plan.model_index * shard, (plan.model_index + 1) * shard)
+    x = torch.from_numpy(np.ascontiguousarray(padded[None], np.float32)).to(dtype).to(dev)
+    with torch.inference_mode():
+        tokens = _embed_scene_tokens(encoder, x, dtype, rows)
+        out = encoder.transformer(tokens, dtype, ring_axis=group)
+        if p == 1:
+            return out
+        parts = [torch.empty_like(out) for _ in range(p)]
+        dist.all_gather(parts, out.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
 
 
 def load_variables(checkpoint: str, model: torch.nn.Module,

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nn import Conv, Dense, GroupNorm, upsample2x
+from ..parallel.mesh import draw_rows
 
 # flax nn.GroupNorm's epsilon
 GN_EPS = 1e-6
@@ -223,10 +224,13 @@ class GaussianDiffusion(nn.Module):
         timesteps ``t`` (uniform in [0, T) from ``generator`` when None)
         with Gaussian ``noise`` (from ``generator`` when None)."""
         b = x0.shape[0]
+        # under data parallelism: the global batch's draws, this rank's rows
         if t is None:
-            t = torch.randint(0, self.timesteps, (b,), generator=generator, device=x0.device)
+            t = draw_rows(lambda n: torch.randint(0, self.timesteps, (n,), generator=generator,
+                                                  device=x0.device), b)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            noise = draw_rows(lambda n: torch.randn((n, *x0.shape[1:]), generator=generator,
+                                                    device=x0.device, dtype=x0.dtype), b)
         t = t.to(x0.device)
         noise = noise.to(x0.device, x0.dtype)
         sqrt_acp = torch.sqrt(self.acp)[t].view(b, 1, 1, 1)

@@ -9,6 +9,15 @@ Dtype policy (as ``ops/nn.py``): f32 parameters, each product casts its
 input and parameters to the compute dtype, LayerNorms compute in f32 and
 round once to it; no autocast. ``model(x, dtype=...)`` overrides the compute
 dtype per call.
+
+Context parallelism (JAX ``ring_axis``): ``SelfAttention`` and
+``Transformer`` take the ring's process group (a ``MeshPlan``'s
+``model_group``, or ``ops/ring_attention.SOLO``), at construction or per
+call; the tokens they are given are then this rank's contiguous shard of
+the sequence, and attention is a ring pass
+(``ops/ring_attention.ring_attention_p``). Everything else in a block is
+token-pointwise. The parameters and their names are unchanged, so converted
+weights load as before.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ from torch import nn
 from ..ops.attention import attention_qkv
 from ..ops.layernorm import LayerNorm
 from ..ops.nn import Dense
+from ..ops.ring_attention import SOLO, ring_attention_p
+from ..ops.short_attention import _heads_view
 
 
 class FeedForward(nn.Module):
@@ -36,14 +47,16 @@ class FeedForward(nn.Module):
 
 class SelfAttention(nn.Module):
     """LayerNorm, fused qkv projection (no bias), packed attention, output
-    projection. ``ring_axis`` (context parallelism) is not ported."""
+    projection. ``ring_axis``: the ring's process group (see the module
+    docstring), or None for attention over the tokens given."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 ring_axis: str | None = None, generator: torch.Generator | None = None):
+                 ring_axis=None, generator: torch.Generator | None = None):
         super().__init__()
-        if ring_axis is not None:
-            raise NotImplementedError(
-                "ring attention (ring_axis) is not ported yet (ROADMAP.md, A12)")
+        if isinstance(ring_axis, str) and ring_axis != SOLO:
+            raise TypeError(f"ring_axis takes the ring's process group (a MeshPlan's "
+                            f"model_group), not the mesh axis name {ring_axis!r}")
+        self.ring_axis = ring_axis
         self.heads, self.dim_head = heads, dim_head
         inner = dim_head * heads
         self.norm = LayerNorm(dim)
@@ -51,27 +64,36 @@ class SelfAttention(nn.Module):
         project_out = not (heads == 1 and dim_head == dim)
         self.to_out = Dense(inner, dim, generator=generator) if project_out else None
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, ring_axis=None) -> torch.Tensor:
+        ring = ring_axis if ring_axis is not None else self.ring_axis
         qkv = self.to_qkv(self.norm(x, dtype), dtype)
         # q, k, v are its column-thirds, read in place (and on the short route
         # the backward writes their gradients into the thirds of one tensor)
-        out = attention_qkv(qkv, self.heads, scale=self.dim_head**-0.5)
+        if ring is None:
+            out = attention_qkv(qkv, self.heads, scale=self.dim_head**-0.5)
+        else:
+            q, k, v = (_heads_view(t, self.heads) for t in qkv.chunk(3, dim=-1))
+            out = ring_attention_p(q, k, v, ring, scale=self.dim_head**-0.5)
+            out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
         return self.to_out(out, dtype) if self.to_out is not None else out
 
 
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, ring_axis=None):
         super().__init__()
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"attn_{i}", SelfAttention(dim, heads, dim_head, generator=generator))
+            self.add_module(f"attn_{i}", SelfAttention(dim, heads, dim_head, ring_axis=ring_axis,
+                                                       generator=generator))
             self.add_module(f"ff_{i}", FeedForward(dim, mlp_dim, generator=generator))
         self.norm = LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, ring_axis=None) -> torch.Tensor:
+        """``ring_axis``: the ring's group for this call (see the module
+        docstring); None keeps the layers' own."""
         for i in range(self.depth):
-            x = getattr(self, f"attn_{i}")(x, dtype) + x
+            x = getattr(self, f"attn_{i}")(x, dtype, ring_axis) + x
             x = getattr(self, f"ff_{i}")(x, dtype) + x
         return self.norm(x, dtype)
 

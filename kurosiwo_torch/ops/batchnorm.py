@@ -14,6 +14,15 @@ Inside a region of ``ops/remat.remat`` the first forward records its batch
 statistics and the recompute reuses them, with no second reduction and no
 second update of the running statistics (the port's
 ``StatCheckpointBatchNorm`` with ``bn_stats_saveable_policy``).
+
+Under data parallelism (``parallel/mesh.use_grid``, which the steps set) the
+statistics are those of the global batch, as JAX's ``_partitioned_pair_sums``
+gives them: the kernel runs on this rank's rows and its (2, C) sums are
+all-reduced over the data group before the mean and variance, and so are the
+backward's (sum dy, sum dy*x) before dx. The scale and bias gradients are
+this rank's share, from its own sums, so that the step's gradient all-reduce
+(``parallel/mesh.sync_gradients``) sums them to the global ones. The running
+statistics then update identically on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 from torch import nn
 
 from .. import kernels
+from ..parallel.mesh import active_grid, all_reduce_sum
 from .remat import active_region
 
 _TILE = 128  # columns a kernel block covers; also the width of the narrow-C fold
@@ -102,10 +112,12 @@ pair_sums.launches = 0
 class _BNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, mean=None, var=None):
+        grid = active_grid()
+        n = x.numel() // x.shape[-1] * (grid.count if grid is not None else 1)
         if mean is None:
-            c = x.shape[-1]
-            n = x.numel() // c
             s = pair_sums(x, x)
+            if grid is not None:
+                s = all_reduce_sum(s, grid)
             mean = s[0] / n
             var = s[1] / n - mean * mean
         inv = torch.rsqrt(var + eps)
@@ -114,23 +126,29 @@ class _BNTrain(torch.autograd.Function):
         dt = x.dtype
         y = x * (inv * scale).to(dt) + (bias - mean * inv * scale).to(dt)
         ctx.save_for_backward(x, mean, inv, scale)
+        ctx.grid, ctx.n = grid, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, scale = ctx.saved_tensors
-        c = x.shape[-1]
-        n = x.numel() // c
+        n = ctx.n
         # autograd may hand a strided gradient (e.g. a slice of a concat's
         # gradient); the kernel and the elementwise pass take dense
         # channels-last, so the gradient is made dense here (no copy when
         # it already is)
         dy = dy.contiguous()
-        s = pair_sums(dy, x)
-        sum_dy, sum_dyx = s[0], s[1]
-        dbeta = sum_dy
-        dgamma = inv * (sum_dyx - mean * sum_dy)
+        local = pair_sums(dy, x)
+        # this rank's share of the parameter gradients, from its own rows
+        dbeta_share = local[0]
+        dgamma_share = inv * (local[1] - mean * local[0])
+        if ctx.grid is None:
+            dbeta, dgamma = dbeta_share, dgamma_share
+        else:
+            s = all_reduce_sum(local, ctx.grid)
+            dbeta = s[0]
+            dgamma = inv * (s[1] - mean * s[0])
         # dx = (scale*inv) * (dy - (dbeta + xhat*dgamma)/n), regrouped as
         # A*dy + B*x + C with f32 per-channel factors cast once
         dt = x.dtype
@@ -138,7 +156,7 @@ class _BNTrain(torch.autograd.Function):
         b_f = -a_f * inv * dgamma / n
         c_f = -a_f * (dbeta / n) - b_f * mean
         dx = dy * a_f.to(dt) + x * b_f.to(dt) + c_f.to(dt)
-        return dx, dgamma, dbeta, None, None, None
+        return dx, dgamma_share, dbeta_share, None, None, None
 
 
 def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.mesh import active_grid, all_reduce_sum
 from .batchnorm import pair_sums
 
 
@@ -215,22 +216,32 @@ class _ConvBN(torch.autograd.Function):
         # the kernel's (9*Cin, Cout) rows in x's dtype, cast and laid out in one pass
         wk = torch.empty(w.shape, dtype=dt, device=w.device).copy_(w)
         y, st = conv3x3_bn_stats(x, wk)
+        grid = active_grid()
         n = y.numel() // y.shape[-1]
+        if grid is not None:
+            # the global batch's statistics: the kernel's sums of this rank's
+            # rows, all-reduced before they are folded (as _BNTrain's)
+            st = all_reduce_sum(st, grid)
+            n *= grid.count
         mean = st[0] / n
         var = st[1] / n - mean * mean
         inv = torch.rsqrt(var + eps)
         out = y * (inv * scale).to(dt) + (bias - mean * inv * scale).to(dt)
         ctx.save_for_backward(x, wk, y, mean, inv, scale)
-        ctx.w_dtype = w.dtype
+        ctx.w_dtype, ctx.grid, ctx.n = w.dtype, grid, n
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         x, wk, y, mean, inv, scale = ctx.saved_tensors
-        n = y.numel() // y.shape[-1]
+        n = ctx.n
         # the kernel and the elementwise pass take dense channels-last
-        s = pair_sums(dout.contiguous(), y)
+        local = pair_sums(dout.contiguous(), y)
+        # this rank's share of the parameter gradients (see ops/batchnorm.py)
+        dbeta_share = local[0]
+        dgamma_share = inv * (local[1] - mean * local[0])
+        s = local if ctx.grid is None else all_reduce_sum(local, ctx.grid)
         dbeta = s[0]
         dgamma = inv * (s[1] - mean * s[0])
         dt = y.dtype
@@ -239,7 +250,7 @@ class _ConvBN(torch.autograd.Function):
         c_f = -a_f * (dbeta / n) - b_f * mean
         dy = dout * a_f.to(dt) + y * b_f.to(dt) + c_f.to(dt)
         dx, dw = conv_backward(x, wk, dy, ctx.needs_input_grad[0], ctx.needs_input_grad[1])
-        return dx, None if dw is None else dw.to(ctx.w_dtype), dgamma, dbeta, None
+        return dx, None if dw is None else dw.to(ctx.w_dtype), dgamma_share, dbeta_share, None
 
 
 def conv3x3_bn(x, w, scale, bias, eps: float = 1e-5):

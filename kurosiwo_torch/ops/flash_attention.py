@@ -5,8 +5,9 @@ Counterpart of the flash part of ``kurosiwo_tpu/ops/pallas_attention.py``:
 ``flash_attention_fwd`` replaces ``_flash_fwd`` and its ``_fwd_kernel``,
 ``flash_attention_dq`` the ``_dq_kernel`` and ``flash_attention_dkv`` the
 ``_dkv_kernel`` of ``flash_bwd``. ``flash_attention_bwd`` is ``flash_bwd``
-itself: it takes the caller's lse and delta, so a ring pass (ROADMAP A12) can
-hand it global statistics with each rotating k/v block. ``FlashAttention`` is
+itself: it takes the caller's lse and delta, so the ring pass
+(``ops/ring_attention.py``) hands it the global statistics with each
+rotating k/v block. ``FlashAttention`` is
 the custom VJP (residuals q, k, v, out, lse, as ``_flash_vjp_fwd``), with
 delta = sum_d(do * out) computed in plain PyTorch between the two calls, as
 ``_flash_vjp_bwd`` computes it.

@@ -316,10 +316,17 @@ def _fused_tail_blockers(config: dict, model_config: dict | None) -> list[str]:
         blockers.append("multi_scale_train deep supervision is unsupported")
     if config.get("log_zone_metrics"):
         blockers.append("log_zone_metrics needs per-zone cm banks")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        blockers.append("requires a single CUDA device (the kernel's sums are not all-reduced)")
+    if _world_size() > 1:
+        blockers.append("requires a single process: under data parallelism the step keeps the "
+                        "plain tail, whose loss and banks are reduced over the data group, as "
+                        "the JAX package keeps the XLA tail on more than one device")
     return blockers
+
+
+def _world_size() -> int:
+    from ..parallel.distributed import process_info
+
+    return process_info()[1]
 
 
 def resolve_fused_tail(config: dict, task: str = "segmentation",
@@ -335,6 +342,8 @@ def resolve_fused_tail(config: dict, task: str = "segmentation",
     is_unet_seg = task == "segmentation" and str(config.get("method", "")).lower() == "unet"
     if flag != "auto":
         flag = flag or None
+        if flag and not strict and _world_size() > 1:
+            return None  # the eval step under data parallelism: the plain tail
         if flag and strict:
             blockers = _fused_tail_blockers(config, model_config)
             if flag == "phase":

@@ -11,6 +11,17 @@ Logits are (B, H, W, C), labels (B, H, W) with values in {0, 1, 2, 3},
 3 = ignore. Every loss is computed in f32 from upcast (bf16) logits;
 autograd gives the backward. The focal loss's alpha and gamma come from the
 class weights and 2.0, as the JAX package builds it; no config file is read.
+
+Under data parallelism (``parallel/mesh.use_grid``) every loss is the global
+batch's, as the JAX step computes it over the sharded batch: each reduction
+over the batch is summed over the data group (``global_sum``, whose backward
+hands each rank the gradient of its own term), so every rank gets the same
+loss and the ranks' parameter gradients sum to the global batch's. The
+Lovasz loss sorts the errors of the whole batch: the ranks' errors and
+labels are gathered, every rank computes the global Lovasz weights in the
+single-process order (the rank blocks are contiguous rows of the batch), and
+each rank's gradient flows through its own pixels' errors times their
+weights.
 """
 
 from __future__ import annotations
@@ -19,6 +30,8 @@ import functools
 from typing import Callable
 
 import torch
+
+from ..parallel.mesh import gather_rows, global_mean, global_rows, global_sum
 
 IGNORE_INDEX = 3
 
@@ -47,8 +60,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     one_hot = _one_hot(labels, num_classes)  # a one-hot product, not a gather: no
     picked = (log_probs * one_hot).sum(dim=-1)  # scatter in the backward
     w = (one_hot * cw).sum(dim=-1)
-    total_w = torch.clamp_min(w.sum(), 1e-12)
-    return -(picked * w).sum() / total_w
+    total_w = torch.clamp_min(global_sum(w.sum()), 1e-12)
+    return -global_sum((picked * w).sum()) / total_w
 
 
 def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -65,7 +78,7 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     dims = tuple(range(1, probs.ndim))
     intersection = (probs * one_hot).sum(dim=dims)
     cardinality = (probs + one_hot).sum(dim=dims)
-    return (1.0 - 2.0 * intersection / (cardinality + eps)).mean()
+    return global_mean(1.0 - 2.0 * intersection / (cardinality + eps))
 
 
 def smp_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -80,10 +93,10 @@ def smp_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     one_hot = _one_hot(labels, num_classes) * valid
     probs = probs * valid
     dims = tuple(range(probs.ndim - 1))
-    intersection = (probs * one_hot).sum(dim=dims)
-    cardinality = (probs + one_hot).sum(dim=dims)
+    intersection = global_sum((probs * one_hot).sum(dim=dims))
+    cardinality = global_sum((probs + one_hot).sum(dim=dims))
     loss = 1.0 - 2.0 * intersection / torch.clamp_min(cardinality, eps)
-    present = (one_hot.sum(dim=dims) > 0).float()
+    present = (global_sum(one_hot.sum(dim=dims)) > 0).float()
     return (loss * present).mean()
 
 
@@ -102,7 +115,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, alpha=None, gamma: fl
         a = torch.as_tensor(alpha, dtype=torch.float32, device=logits.device)
         focal = focal * (one_hot * a).sum(dim=-1)
     valid = one_hot.sum(dim=-1)
-    return (focal * valid).sum() / torch.clamp_min(valid.sum(), 1e-12)
+    return global_sum((focal * valid).sum()) / torch.clamp_min(global_sum(valid.sum()), 1e-12)
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -132,15 +145,18 @@ def lovasz_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,
     classes = torch.arange(num_classes, device=logits.device)[:, None]
     fg = torch.where(valid, (flat == classes).float(), 0.0)
     errors = torch.where(valid, (fg - probs).abs(), -1.0)
-    order = torch.sort(-errors, dim=-1, stable=True).indices
     with torch.no_grad():
+        # the whole batch's errors and labels (this rank's alone outside data
+        # parallelism), in the batch's pixel order
+        all_fg = gather_rows(fg, dim=1)
+        order = torch.sort(-gather_rows(errors.detach(), dim=1), dim=-1, stable=True).indices
         # the Lovasz gradient of each sorted position, put back at the
         # pixel it came from: the loss is then a product with the unsorted
         # errors, whose backward needs no scatter
-        grad = _lovasz_grad(fg.gather(-1, order))
-        weight = grad.gather(-1, torch.argsort(order, dim=-1))
-    losses = (torch.where(valid, errors, 0.0) * weight).sum(dim=-1)
-    present = (fg.sum(dim=-1) > 0).float()
+        grad = _lovasz_grad(all_fg.gather(-1, order))
+        weight = grad.gather(-1, torch.argsort(order, dim=-1))[:, global_rows(flat.numel())[1]]
+    losses = global_sum((torch.where(valid, errors, 0.0) * weight).sum(dim=-1))
+    present = (all_fg.sum(dim=-1) > 0).float()
     return (losses * present).sum() / torch.clamp_min(present.sum(), 1.0)
 
 

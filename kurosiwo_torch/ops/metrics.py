@@ -143,6 +143,18 @@ class MetricState:
             count=self.count + batch_weight,
         )
 
+    def reduce(self, grid=None) -> "MetricState":
+        """The banks summed over the data group (``grid``, default the
+        active one; JAX ``reduce``'s psum), so that every rank summarizes
+        the global batch's metrics; this state outside data parallelism."""
+        from ..parallel.mesh import active_grid, all_reduce_sum
+
+        grid = grid if grid is not None else active_grid()
+        if grid is None:
+            return self
+        return MetricState(*(all_reduce_sum(getattr(self, f.name), grid)
+                             for f in dataclasses.fields(self)))
+
     def summarize(self) -> dict[str, Any]:
         cm = self.cm.cpu().numpy()
         out = derive(cm)
@@ -167,6 +179,18 @@ class HostAOIMetrics:
             if a not in self.banks:
                 self.banks[a] = np.zeros_like(cm_i, dtype=np.int64)
             self.banks[a] += cm_i.astype(np.int64)
+
+    def merge_ranks(self, grid) -> None:
+        """Sum every rank's banks over the data group (``grid``), so that
+        each rank holds the global batch's per-AOI banks."""
+        import torch.distributed as dist
+
+        gathered = [None] * grid.count
+        dist.all_gather_object(gathered, self.banks, group=grid.group)
+        self.banks = {}
+        for banks in gathered:
+            for a, cm in banks.items():
+                self.banks[a] = self.banks.get(a, 0) + cm
 
     def summarize(self) -> dict[int, dict[str, Any]]:
         return {a: derive(cm) for a, cm in sorted(self.banks.items())}

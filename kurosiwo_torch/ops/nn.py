@@ -33,6 +33,7 @@ from torch import nn
 from .batchnorm import BatchNorm
 from .conv_bn import conv3x3_bn
 from .conv_dw import conv3x3_pdw, pick_batch_block
+from ..parallel.mesh import draw_rows
 from .remat import active_region
 
 
@@ -399,8 +400,12 @@ class _MaskedDrop(nn.Module):
         raise NotImplementedError
 
     def draw_mask(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-        """A bool keep-mask of ``mask_shape(x)``."""
-        u = torch.rand(self.mask_shape(x), generator=generator, device=x.device)
+        """A bool keep-mask of ``mask_shape(x)``; under data parallelism drawn
+        for the global batch and cut to this rank's rows
+        (``parallel/mesh.draw_rows``)."""
+        shape = self.mask_shape(x)
+        u = draw_rows(lambda b: torch.rand((b, *shape[1:]), generator=generator,
+                                           device=x.device), shape[0])
         return u < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -13,11 +13,11 @@ from .engine import TaskEngine, train_task
 
 
 def train_change_detection(model, train_loader, val_loader, test_loader, configs,
-                           model_configs, seed=999, device="cuda"):
+                           model_configs, seed=999, device="cuda", plan=None):
     if len(configs["inputs"]) != 2:
         raise ValueError(f"change detection requires exactly 2 inputs, got {configs['inputs']}")
     return train_task(model, train_loader, val_loader, test_loader, configs, model_configs, "cd",
-                      device=device, seed=seed)
+                      device=device, seed=seed, plan=plan)
 
 
 def eval_change_detection(engine: TaskEngine, loader, settype="Test", configs=None,

@@ -24,6 +24,10 @@ fails leaves the previous copy restorable.
 Saves are synchronous: the card waits while the state is copied to the host
 and written. The JAX package saves asynchronously only so that the TPU does
 not wait; at epoch cadence the wait is short.
+
+Under data parallelism every rank holds the same state: rank 0 writes it
+(with its fsync and pointer flip) and the others wait at a barrier, so that
+no rank reads a pointer before it is committed; every rank loads.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.distributed import barrier, is_main_process
 from .state import TrainState
 
 
@@ -68,6 +73,12 @@ class CheckpointManager:
         return self._read_ptr(name) is not None
 
     def save(self, name: str, state: TrainState, extra: dict | None = None) -> None:
+        """Write ``name`` (rank 0), then wait for every rank."""
+        if is_main_process():
+            self._write(name, state, extra)
+        barrier()
+
+    def _write(self, name: str, state: TrainState, extra: dict | None) -> None:
         cur = self._read_ptr(name)
         slot = f"{name}.b" if cur and cur.get("slot", "").endswith(".a") else f"{name}.a"
         payload = {"step": int(state.step), "model": state.model.state_dict()}
@@ -87,8 +98,10 @@ class CheckpointManager:
             os.close(dir_fd)
 
     def save_best(self, state: TrainState, epoch: int, metric: float) -> None:
-        self.save("best_segmentation", state, extra={"epoch": epoch, "metric": metric})
-        (self.dir / "best_segmentation.txt").write_text(f"epoch: {epoch}\nval_miou: {metric}\n")
+        if is_main_process():
+            self._write("best_segmentation", state, {"epoch": epoch, "metric": metric})
+            (self.dir / "best_segmentation.txt").write_text(f"epoch: {epoch}\nval_miou: {metric}\n")
+        barrier()
 
     def save_epoch(self, state: TrainState, epoch: int) -> None:
         self.save(f"checkpoint_epoch={epoch}", state)

@@ -26,6 +26,14 @@ prediction to ``checkpoint_path/viz/{settype}_sample.png``. Weights from
 the reference's files load at init (``pretrained_checkpoint``,
 ``pretrained_encoder``, ``pretrained_upernet``). Not ported: wandb
 logging (A14).
+
+With a ``MeshPlan`` (``parallel/mesh.py``) the engine runs data parallel, as
+the JAX engine runs over its mesh: each rank's loaders decode its row block
+of every global batch, the steps reduce over the data group
+(``steps.py``), the banks are reduced before every read
+(``MetricState.reduce``), so every rank prints the same losses and metrics,
+and only rank 0 writes checkpoints (the others wait at a barrier; every rank
+reads a resume) and prints the engine's messages.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ from ..device import configure_backends, resolve_device
 from ..ops.losses import create_loss
 from ..ops.metrics import HostAOIMetrics, MetricState, derive
 from ..ops.schedules import create_lr_schedule
+from ..parallel.distributed import is_main_process
+from ..parallel.mesh import MeshPlan, broadcast_module
 from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager
 from .state import create_train_state
@@ -119,7 +129,7 @@ class TaskEngine:
 
     def __init__(self, model: torch.nn.Module, config: dict, model_config: dict, task: str,
                  steps_per_epoch: int, device: str | torch.device | None = "cuda",
-                 seed: int = 999):
+                 seed: int = 999, plan: MeshPlan | None = None):
         if task not in TASKS:
             raise NotImplementedError(f"the engine has no task {task!r} (it has {TASKS})")
         self.device = resolve_device(device)
@@ -128,7 +138,10 @@ class TaskEngine:
         self.config = config
         self.model_config = model_config
         self.task = task
-        self.logger = MetricLogger(config)  # raises on wandb_activate with wandb installed (A14)
+        self.plan = plan or MeshPlan()
+        self.grid = self.plan.data_grid()
+        # raises on wandb_activate with wandb installed (A14)
+        self.logger = MetricLogger(config, main=is_main_process())
         # the reference's segmentation and recurrent trainers both take plain
         # Adam (JAX engine.py:90-92)
         self.state = create_train_state(model, config, model_config,
@@ -139,13 +152,14 @@ class TaskEngine:
         self.generator.manual_seed(int(seed))
         self.lr_schedule = create_lr_schedule(config, model_config, steps_per_epoch)
         self._load_pretrained_weights()
+        broadcast_module(model, self.grid)
 
         self.with_aoi = bool(config.get("log_AOI_metrics"))
         # wandb.watch-equivalent gradient tracking (reference main.py:144)
         self.with_grad_norm = bool(config.get("wandb_activate") or config.get("log_grad_norm"))
         self._train_step = make_train_step(
             model, create_loss(config, "train"), config, model_config, task, self.device,
-            with_grad_norm=self.with_grad_norm)
+            with_grad_norm=self.with_grad_norm, plan=self.plan)
         # eval in f32 like the reference (autocast off at eval,
         # segmentation_trainer.py:321): the same f32 parameters, f32 compute;
         # f32_eval: false evaluates under the bf16 policy
@@ -157,7 +171,8 @@ class TaskEngine:
         self.viz_enabled = bool(config.get("wandb_activate") or config.get("save_visualizations"))
         self._eval_step = make_eval_step(
             model, create_loss(config, "val"), config, model_config, task, self.device,
-            dtype=eval_dtype, with_aoi=self.with_aoi, with_preds=self.viz_enabled)
+            dtype=eval_dtype, with_aoi=self.with_aoi, with_preds=self.viz_enabled,
+            plan=self.plan)
 
     def _load_pretrained_weights(self) -> None:
         """Weights from the reference's files at init (JAX
@@ -229,11 +244,12 @@ class TaskEngine:
                                                              lr_value, self.generator)
             loss, grad_norm = aux if self.with_grad_norm else (aux, None)
             if nbatches % print_every == 0:
+                snap = metric_state.reduce(self.grid).cm.cpu().numpy()
                 self.logger.log_train_iteration(
-                    epoch, nbatches, float(loss), lr_value, derive(metric_state.cm.cpu().numpy()),
+                    epoch, nbatches, float(loss), lr_value, derive(snap),
                     grad_norm=None if grad_norm is None else float(grad_norm))
             nbatches += 1
-        summary = metric_state.summarize()
+        summary = metric_state.reduce(self.grid).summarize()
         summary["epoch_time_s"] = time.perf_counter() - t0
         summary["data_wait_s"] = wait
         summary["batches"] = nbatches
@@ -244,7 +260,7 @@ class TaskEngine:
         """(100·acc, 100·meanF1, 100·mIoU, summary); with ``log_AOI_metrics``
         the summary's ``aoi_banks`` holds the per-activation banks."""
         metric_state = MetricState.create(self.device)
-        per_sample, activations = [], []
+        per_sample, activations, weights = [], [], []
         # one random batch gets its first sample drawn, as the JAX engine
         # (the reference's wandb.Image logging, segmentation_trainer.py:516-587)
         viz_index = int(np.random.randint(0, max(len(loader), 1))) if self.viz_enabled else -1
@@ -253,14 +269,22 @@ class TaskEngine:
             if self.with_aoi:
                 per_sample.append(aux["per_sample_cm"])
                 activations.append(np.asarray(batch["activation"]))
-            if index == viz_index:
+                weights.append(torch.as_tensor(batch.get(
+                    "sample_weight", np.ones(len(activations[-1]), np.float32))))
+            if index == viz_index and is_main_process():
                 self._save_visualization(batch, aux["preds"], settype)
-        summary = metric_state.summarize()
+        summary = metric_state.reduce(self.grid).summarize()
         aoi_summary = None
         if self.with_aoi:
             aoi = HostAOIMetrics()
             if per_sample:  # one read of the epoch's per-sample matrices
-                aoi.update(torch.cat(per_sample).cpu().numpy(), np.concatenate(activations))
+                # padding rows (weight 0) are left out: a rank whose block is
+                # all padding holds zero rows of activation 0
+                keep = torch.cat([w.cpu() for w in weights]).numpy() > 0
+                aoi.update(torch.cat(per_sample).cpu().numpy()[keep],
+                           np.concatenate(activations)[keep])
+            if self.grid is not None:
+                aoi.merge_ranks(self.grid)
             summary["aoi_banks"] = aoi.banks
             aoi_summary = aoi.summarize()
         self.logger.log_eval(settype, summary, aoi_summary)
@@ -298,13 +322,14 @@ class TaskEngine:
 
 def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
                test_loader: Loader, config: dict, model_config: dict, task: str,
-               device: str | torch.device | None = "cuda", seed: int = 999) -> TaskEngine:
+               device: str | torch.device | None = "cuda", seed: int = 999,
+               plan: MeshPlan | None = None) -> TaskEngine:
     """The training loop: epochs -> val -> best-mIoU checkpoint, then the
     best weights reloaded for the final test eval (reference main.py:151-158).
     ``test_loader`` is the caller's to evaluate."""
     del test_loader
     engine = TaskEngine(model, config, model_config, task, steps_per_epoch=len(train_loader),
-                        device=device, seed=seed)
+                        device=device, seed=seed, plan=plan)
     ckpt = CheckpointManager(config.get("checkpoint_path", "checkpoints/run"), engine.device)
     start_epoch = int(config.get("start_epoch", 0))
     best_val = 0.0
@@ -341,12 +366,13 @@ def train_task(model: torch.nn.Module, train_loader: Loader, val_loader: Loader,
 
 
 def evaluate_task(model: torch.nn.Module, config: dict, model_config: dict, task: str,
-                  device: str | torch.device | None = "cuda", seed: int = 999) -> TaskEngine:
+                  device: str | torch.device | None = "cuda", seed: int = 999,
+                  plan: MeshPlan | None = None) -> TaskEngine:
     """Eval-only engine (the reference's ``"test": true``, main.py:86-128):
     restore best_segmentation and skip training. Raises when there is none,
     rather than scoring a random-init model."""
     engine = TaskEngine(model, config, model_config, task, steps_per_epoch=1, device=device,
-                        seed=seed)
+                        seed=seed, plan=plan)
     ckpt = CheckpointManager(config.get("checkpoint_path", "checkpoints/run"), engine.device)
     if not ckpt.has("best_segmentation"):
         raise FileNotFoundError(

@@ -10,9 +10,9 @@ from .engine import TaskEngine, train_task
 
 
 def train_recurrent_segmentation(model, train_loader, val_loader, test_loader, configs,
-                                 model_configs, seed=999, device="cuda") -> TaskEngine:
+                                 model_configs, seed=999, device="cuda", plan=None) -> TaskEngine:
     return train_task(model, train_loader, val_loader, test_loader, configs, model_configs,
-                      "recurrent", device=device, seed=seed)
+                      "recurrent", device=device, seed=seed, plan=plan)
 
 
 def eval_recurrent_segmentation(engine: TaskEngine, loader, checkpoint_dir=None,

@@ -13,9 +13,9 @@ from .engine import TaskEngine, train_task
 
 
 def train_semantic_segmentation(model, train_loader, val_loader, test_loader, configs,
-                                model_configs, seed=999, device="cuda"):
+                                model_configs, seed=999, device="cuda", plan=None):
     return train_task(model, train_loader, val_loader, test_loader, configs, model_configs,
-                      "segmentation", device=device, seed=seed)
+                      "segmentation", device=device, seed=seed, plan=plan)
 
 
 def eval_semantic_segmentation(engine: TaskEngine, loader, settype="Test", configs=None,

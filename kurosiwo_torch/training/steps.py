@@ -27,6 +27,16 @@ own blocks and columns, as the factory configures it. The JAX whole-forward
 policy, ``nothing_saveable``, recomputes the BatchNorm statistics; the port
 keeps them across the region instead, the same values at (C,) floats a
 layer, so remat adds no pair-sum launch.
+
+With a ``MeshPlan`` whose groups exist (``parallel/mesh.py``) a step runs
+data parallel: the batch it is given is this rank's row block of the global
+batch, and the step computes what one process computes on the global batch,
+as the JAX step does under GSPMD. The BatchNorm statistics, the loss and the
+random draws are the global batch's (``ops/batchnorm.py``,
+``ops/losses.py``, ``parallel/mesh.draw_rows``), the ranks' gradients are
+summed in one all-reduce before the optimizer step, and the metric banks
+hold this rank's rows until the engine reduces them
+(``MetricState.reduce``). The fused CE+cm tail stays off above one process.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from ..ops.metrics import MetricState, per_sample_confusion
 from ..ops.nn import resize_linear, resize_nearest
 from ..ops.optim import set_learning_rate
 from ..ops.remat import remat
+from ..parallel.mesh import MeshPlan, sync_gradients, use_grid
 from .state import TrainState
 
 
@@ -187,7 +198,8 @@ def _fill_missing_grads(model: torch.nn.Module) -> None:
 
 def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
                     model_config: dict, task: str = "segmentation",
-                    device: str | torch.device | None = "cuda", with_grad_norm: bool = False):
+                    device: str | torch.device | None = "cuda", with_grad_norm: bool = False,
+                    plan: MeshPlan | None = None):
     """Returns ``train_step(state, batch, metric_state, lr, generator=None)
     -> (state, metric_state, aux)``: aux is the loss, or ``(loss,
     grad_norm)`` with ``with_grad_norm``, the global f32 norm of the
@@ -200,9 +212,11 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
     the zone banks with ``log_zone_metrics``). A change-detection model
     draws its dropout masks from ``generator`` (None: torch's default
     generator of the device); ``remat`` and the multi-scale heads are
-    honoured as the module docstring says."""
+    honoured as the module docstring says. ``plan`` makes the step data
+    parallel over its data group (see the module docstring)."""
     _check_task(task)
     _check_ported_keys(config, train=True)
+    grid = plan.data_grid() if plan is not None else None
     dev = resolve_device(device)
     use_remat = bool(config.get("remat")) and config.get("method") != "snunet"
     use_fused = bool(resolve_fused_tail(config, task, model_config, device=dev))
@@ -215,6 +229,10 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
 
     def train_step(state: TrainState, batch: dict, metric_state: MetricState, lr: float,
                    generator: torch.Generator | None = None):
+        with use_grid(grid):
+            return _train_step(state, batch, metric_state, lr, generator)
+
+    def _train_step(state, batch, metric_state, lr, generator):
         batch = _to_device(batch, dev)
         if use_augment:
             if generator is None:
@@ -234,6 +252,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, config: dict,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         _fill_missing_grads(model)
+        sync_gradients(model.parameters(), grid)
         if with_grad_norm:
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -256,7 +275,7 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
                    model_config: dict, task: str = "segmentation",
                    device: str | torch.device | None = "cuda",
                    dtype: torch.dtype | None = None, with_aoi: bool = False,
-                   with_preds: bool = False):
+                   with_preds: bool = False, plan: MeshPlan | None = None):
     """Returns ``eval_step(state, batch, metric_state) -> (metric_state,
     loss, aux)``. ``dtype=torch.float32`` is the f32 twin: the same
     parameters evaluated in f32 compute (the engine's ``f32_eval``).
@@ -276,9 +295,11 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
     whole batch; the returned loss is the mean of the chunks' losses. A
     batch of at most M samples, or one that M does not divide, runs whole.
     With ``log_zone_metrics`` the zone banks are filled too (the fused tail
-    is then off)."""
+    is then off). ``plan``: the loss is the global batch's, as in the train
+    step; the banks hold this rank's rows until ``MetricState.reduce``."""
     _check_task(task)
     _check_ported_keys(config, train=False)
+    grid = plan.data_grid() if plan is not None else None
     dev = resolve_device(device)
     use_fused = bool(resolve_fused_tail(config, task, model_config, strict=False, device=dev))
     with_zones = bool(config.get("log_zone_metrics"))
@@ -286,6 +307,10 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable, config: dict,
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict, metric_state: MetricState):
+        with use_grid(grid):
+            return _eval_step(batch, metric_state)
+
+    def _eval_step(batch, metric_state):
         batch = _to_device(batch, dev)
         model.eval()
         mask = batch["mask"]

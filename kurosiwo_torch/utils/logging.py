@@ -15,8 +15,13 @@ from ..ops.metrics import CLASS_LABELS, NUM_CLASSES
 
 
 class MetricLogger:
-    def __init__(self, config: dict):
+    """``main``: whether this process prints the engine's messages
+    (``info``); under data parallelism only rank 0 does, while every rank
+    prints the metric lines, which are the global batch's on all of them."""
+
+    def __init__(self, config: dict, main: bool = True):
         self.config = config
+        self.main = main
         self.on_screen = bool(config.get("on_screen_prints"))
         if config.get("wandb_activate"):
             if importlib.util.find_spec("wandb") is not None:
@@ -27,7 +32,8 @@ class MetricLogger:
             self.on_screen = True
 
     def info(self, msg: str):
-        print(msg, flush=True)
+        if self.main:
+            print(msg, flush=True)
 
     def _emit(self, payload: dict):
         if self.on_screen:

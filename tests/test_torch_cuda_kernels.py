@@ -956,3 +956,28 @@ def test_conv_wrappers_raise_on_shapes_they_do_not_take(dev):
         conv_fused.conv3x3_fused(x, w, torch.zeros(8))
     with pytest.raises(TypeError):
         conv_fused.conv3x3_fused(x.half(), w.half(), torch.zeros(8, device=dev))
+
+
+def test_ring_attention_on_the_card_launches_b5_or_raises(dev):
+    """Two shards of 1,024 (the flash route): B5's forward, dq and dk/dv
+    twice a shard, the output and gradients in B5's bf16 band of
+    whole-sequence flash attention; shards off the route raise."""
+    from kurosiwo_torch.ops import flash_attention as fa
+    from kurosiwo_torch.ops import ring_attention as ra
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    leaves = [torch.randn((1, 2, 2048, 64), device=dev, generator=g).bfloat16().requires_grad_()
+              for _ in range(3)]
+    fns = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)
+    before = [fn.launches for fn in fns]
+    outs = ra.ring_attention_shards(*[list(t.chunk(2, dim=2)) for t in leaves])
+    grads = torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [4, 4, 4]
+    whole = [t.detach().requires_grad_() for t in leaves]
+    ref = fa.flash_attention(*whole)
+    want = (ref, *torch.autograd.grad(ref, whole, torch.ones_like(ref)))
+    for got, w in zip((torch.cat(outs, dim=2), *grads), want):
+        assert (got.float() - w.float()).abs().max() <= 2e-2 * w.float().abs().max()
+    short = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="flash"):
+        ra.ring_attention_shards([short, short], [short, short], [short, short])

@@ -168,10 +168,17 @@ def test_mae_bench_config_is_the_jax_bench_config():
 
 
 def test_vit_ring_axis_names_its_roadmap_item():
-    from kurosiwo_torch.models.vit import SelfAttention
+    """Ring attention landed (A12): ``ring_axis`` takes the ring's process
+    group, or SOLO, a ring of this process alone, with the parameter names
+    unchanged; a JAX mesh-axis name is refused, naming what to pass."""
+    from kurosiwo_torch.models.vit import SelfAttention, Transformer
+    from kurosiwo_torch.ops.ring_attention import SOLO
 
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="process group"):
         SelfAttention(64, 2, 64, ring_axis="seq")
+    ring = Transformer(64, 1, 2, 32, 64, ring_axis=SOLO)
+    assert ring.attn_0.ring_axis == SOLO
+    assert list(ring.state_dict()) == list(Transformer(64, 1, 2, 32, 64).state_dict())
 
 
 # the finetuner at a CPU size (its ViT-L takes 10 s to initialise here); the
@@ -306,11 +313,26 @@ def test_inference_entry_points_without_device_raise_on_a_cpu_box(monkeypatch):
         bench.setup_scene(64)
 
 
-def test_vit_whole_scene_cp_names_its_roadmap_item():
-    from kurosiwo_torch.inference import vit_whole_scene_cp
+def test_vit_whole_scene_cp_names_its_roadmap_item(monkeypatch):
+    """The context-parallel encode landed (A12): on one process with no
+    process group it is a ring of one, the whole-scene encode's tokens; like
+    every entry point it runs on the card unless asked for the CPU."""
+    import numpy as np
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        vit_whole_scene_cp(None, None, None)
+    from kurosiwo_torch.inference import vit_whole_scene, vit_whole_scene_cp
+    from kurosiwo_torch.models.vit import ViT
+    from kurosiwo_torch.parallel.mesh import MeshPlan
+
+    vit = ViT(image_size=32, patch_size=16, dim=32, depth=1, heads=2, mlp_dim=32, channels=2,
+              dim_head=32)
+    scene = np.random.RandomState(0).randn(40, 48, 2).astype(np.float32)
+    got = vit_whole_scene_cp(vit, scene, MeshPlan(), dtype=torch.float32, device="cpu")
+    want = vit_whole_scene(vit, scene, dtype=torch.float32, device="cpu")
+    assert got.shape == want.shape == (1, 9, 32)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vit_whole_scene_cp(vit, scene, MeshPlan())
 
 
 def test_scene_bench_uses_the_jax_scene_bench_vit():
