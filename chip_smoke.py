@@ -4399,6 +4399,12 @@ DP_LR = 1e-3  # the main path's Adam (bench.TRAIN_LR)
 DP_LOSS_BAND, DP_CM_BAND = 1e-2, 1e-2
 RING_SHAPE, RING_SHARDS = (1, 16, 4096, 64), 4  # the scene encode's attention, shards of 1,024
 DP_RANK_GIB = 14  # the 2-rank CLI: two b64 UNet ranks and their CUDA contexts
+# the tp legs: the UNet DP1 x TP2 step's batch (each rank runs it whole and
+# also holds one process's step, both ranks on the one card) and the 224^2
+# ViT-L forward's
+TP_BATCH, TP_VIT_BATCH = 64, 8
+TP_F32_BAND = 1e-4  # the f32 twins at TP(2): of one process's largest |output|
+TP_BF16_SLACK = 1.5  # TP bf16's error against f32, over one process's bf16 error
 
 
 def dp_engine(torch, plan, device, batch: int = BATCH):
@@ -4635,23 +4641,7 @@ def parallel_two_ranks(torch, smi: str, ref: dict) -> dict:
     import tempfile
     from pathlib import Path
 
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root)] + [
-        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "2", str(root / "chip_smoke.py"), "--dp-rank", tmp], env=env, cwd=tmp,
-            capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
-        require(proc.returncode == 0, f"the 2-rank run exited {proc.returncode}")
-        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
-    backend = next((x for x in proc.stdout.splitlines() if x.startswith("Distributed backend")),
-                   "")
-    require("gloo" in backend, f"the 2 ranks on one card chose {backend!r}")
+    ranks, backend, seconds = launch_two_ranks("dp,tp")
     require(ranks[0]["losses"] == ranks[1]["losses"],
             f"the ranks' losses differ: {ranks[0]['losses']} {ranks[1]['losses']}")
     require(ranks[0]["cm"] == ranks[1]["cm"], "the ranks' confusion counts differ")
@@ -4679,14 +4669,338 @@ def parallel_two_ranks(torch, smi: str, ref: dict) -> dict:
           f"claim); the whole run {seconds:.1f} s [{smi}]", flush=True)
     return {"losses": ranks[0]["losses"], "loss_rel_err": loss_err, "cm_err": cm_err,
             "launches_per_step": [r["launches"][0] for r in ranks],
-            "patches_per_s": ranks[0]["patches_per_s"], "seconds": seconds}
+            "patches_per_s": ranks[0]["patches_per_s"], "seconds": seconds,
+            "tp": tp_report(ranks, smi)}
 
 
-def dp_rank_main(outdir: str) -> int:
-    """One rank of (b), started by ``python -m torch.distributed.run``: the
-    runtime from the launcher's variables, the engine on this rank's rows of
-    the b128 batch, DP_STEPS steps (losses, launches, step 1's confusion
-    counts), then DP_TIMED timed steps; the results to ``outdir/rank{r}.json``."""
+def launch_two_ranks(legs: str) -> tuple[list, str, float]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2`` of
+    this script's rank body (``dp_rank_main``) with ``legs``: each rank's
+    results, the backend line and the run's seconds."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root)] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", str(root / "chip_smoke.py"), "--dp-rank", tmp, "--rank-legs", legs], env=env,
+            cwd=tmp, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+        require(proc.returncode == 0, f"the 2-rank run exited {proc.returncode}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+    backend = next((x for x in proc.stdout.splitlines() if x.startswith("Distributed backend")),
+                   "")
+    require("gloo" in backend, f"the 2 ranks on one card chose {backend!r}")
+    return ranks, backend, seconds
+
+
+def bf16_ulps(top: float, n: int = 2) -> float:
+    """``n`` bf16 ulps at magnitude ``top`` (phase_scene_parity's band)."""
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def tp_report(ranks: list, smi: str) -> dict:
+    """The tp phase's checks and lines from both ranks' ``tp_rank_legs``:
+    (a) 24 wgmma B5 forwards a rank on (1, 8, 4096, 64); (b) 24 wgmma B4
+    forwards a rank. Each leg's f32 twin within TP_F32_BAND of one
+    process's largest |output| (the same function, its sums in another
+    order: a wrong head or slice is O(1)); the bf16 run as accurate as one
+    process's: its error against one process's f32 twin within
+    TP_BF16_SLACK times one process's bf16 error against it (24 layers of
+    bf16 roundings; its distance from one process's bf16 run, and two bf16
+    ulps at the largest |output|, phase_scene_parity's band over 2 layers,
+    are printed beside it). (c) the step's loss and
+    confusion counts within the DP bands of one process's, the same on both
+    ranks, B3 60 launches a rank with the cut convs' BatchNorms on half
+    their channels."""
+    import numpy as np
+
+    tps = [r["tp"] for r in ranks]
+    want = {"scene": ({"flash_attention_fwd.wgmma": 24}, [1, 4096, 1024]),
+            "vit224": ({"short_attention_fwd.wgmma": 24}, [TP_VIT_BATCH, 196, 1024])}
+    for r, tp in enumerate(tps):
+        for leg, (launches, shape) in want.items():
+            x = tp[leg]
+            got = {k: n for k, n in x["launches"].items() if n}
+            require(got == launches and x["finite"] and x["shape"] == shape,
+                    f"tp rank {r} {leg}: launches {got}, shape {x['shape']}, "
+                    f"finite {x['finite']}")
+            band32 = TP_F32_BAND * x["f32_max_abs_ref"]
+            require(x["f32_max_abs_err"] <= band32, f"tp rank {r} {leg} f32 error "
+                                                    f"{x['f32_max_abs_err']:.3e} > {band32:.3e}")
+            require(x["bf16_f32_err"] <= TP_BF16_SLACK * x["bf16_own_err"],
+                    f"tp rank {r} {leg}: bf16 error against one process's f32 twin "
+                    f"{x['bf16_f32_err']:.3e} > {TP_BF16_SLACK} x one process's bf16 error "
+                    f"{x['bf16_own_err']:.3e}")
+        u = tp["unet"]
+        require(u["launches"]["pair_sums"] == 60, f"tp rank {r} UNet step: B3 launches "
+                                                  f"{u['launches']['pair_sums']}, want 60")
+        loss_err = abs(u["loss"] - u["ref_loss"]) / abs(u["ref_loss"])
+        cm, ref = np.asarray(u["cm"]), np.asarray(u["ref_cm"])
+        cm_err = float(np.abs(cm - ref).max() / ref.sum())
+        require(np.isfinite(u["loss"]) and loss_err <= DP_LOSS_BAND and cm_err <= DP_CM_BAND,
+                f"tp rank {r} UNet step against one process: loss {loss_err:.3e}, confusion "
+                f"{cm_err:.3e} (bands {DP_LOSS_BAND}, {DP_CM_BAND})")
+        u["loss_rel_err"], u["cm_err"] = loss_err, cm_err
+    require(tps[0]["unet"]["loss"] == tps[1]["unet"]["loss"]
+            and tps[0]["unet"]["cm"] == tps[1]["unet"]["cm"],
+            "the TP ranks' losses or confusion counts differ")
+    sc, v, u = (tps[0][k] for k in ("scene", "vit224", "unet"))
+
+    def errors(leg):
+        x = tps[0][leg]
+        return (f"max abs error against one process {[t[leg]['max_abs_err'] for t in tps]} "
+                f"(bf16; against one process's f32 twin "
+                f"{[t[leg]['bf16_f32_err'] for t in tps]}, one process's bf16 "
+                f"{x['bf16_own_err']:.4e} (bound x{TP_BF16_SLACK}); two "
+                f"bf16 ulps at max |out| {x['max_abs_ref']:.4f}: "
+                f"{bf16_ulps(x['max_abs_ref']):.4e}), f32 twin "
+                f"{[t[leg]['f32_max_abs_err'] for t in tps]} (band "
+                f"{TP_F32_BAND * x['f32_max_abs_ref']:.4e})")
+
+    print(f"[tp a] vit_whole_scene ViT-L 1024x1024 (4,096 tokens) at TP(2) over Gloo on the one "
+          f"card, {sc['cut']} parameters cut, 8 of 16 heads a rank: B5 launches a rank "
+          f"{[t['scene']['launches']['flash_attention_fwd.wgmma'] for t in tps]} (wgmma); "
+          f"{errors('scene')}; {sc['ms']:.2f} ms an encode (Gloo stages the sums through the "
+          f"host: not a speed claim) [{smi}]", flush=True)
+    print(f"[tp b] ViT-L forward b{TP_VIT_BATCH} 224x224 (197 tokens) at TP(2): B4 launches a "
+          f"rank {[t['vit224']['launches']['short_attention_fwd.wgmma'] for t in tps]} (wgmma, "
+          f"8 heads); {errors('vit224')}; {v['ms']:.2f} ms a forward [{smi}]", flush=True)
+    widths = sorted(set(u["bn_widths"]))
+    print(f"[tp c] UNet-ResNet18 DP1 x TP2 train step b{TP_BATCH} 224x224 bf16 (Adam 1e-3, "
+          f"{u['cut']} parameters cut; b{TP_BATCH}: each rank of DP1 runs the whole batch "
+          f"and also holds one process's step): loss {u['loss']} on both ranks against "
+          f"{u['ref_loss']} of one process (relative {u['loss_rel_err']:.3e}), confusion cells "
+          f"within {u['cm_err']:.3e} of the valid pixels (bands {DP_LOSS_BAND}, {DP_CM_BAND}); "
+          f"B3 launches a rank {[t['unet']['launches']['pair_sums'] for t in tps]} on channel "
+          f"widths {widths}; peak {[round(t['unet']['peak_gib'], 2) for t in tps]} GiB a rank; "
+          f"the step {u['step_s']:.2f} s [{smi}]", flush=True)
+    return {"scene_b5_launches": [t["scene"]["launches"]["flash_attention_fwd.wgmma"] for t in tps],
+            "scene_max_abs_err": [t["scene"]["max_abs_err"] for t in tps],
+            "scene_f32_max_abs_err": [t["scene"]["f32_max_abs_err"] for t in tps],
+            "scene_bf16_own_err": sc["bf16_own_err"], "scene_ms": sc["ms"],
+            "vit224_b4_launches": [t["vit224"]["launches"]["short_attention_fwd.wgmma"]
+                                   for t in tps],
+            "vit224_max_abs_err": [t["vit224"]["max_abs_err"] for t in tps],
+            "vit224_f32_max_abs_err": [t["vit224"]["f32_max_abs_err"] for t in tps],
+            "vit224_bf16_own_err": v["bf16_own_err"], "vit224_ms": v["ms"],
+            "unet_b3_launches": [t["unet"]["launches"]["pair_sums"] for t in tps],
+            "unet_bn_widths": widths, "unet_loss": u["loss"], "unet_ref_loss": u["ref_loss"],
+            "unet_loss_rel_err": u["loss_rel_err"], "unet_cm_err": u["cm_err"],
+            "unet_peak_gib": [t["unet"]["peak_gib"] for t in tps], "unet_batch": TP_BATCH}
+
+
+# the loader legs of the host phase: two runs side by side on the 8 cores
+HOST_SAMPLES, HOST_BATCH, HOST_WORKERS = 192, 64, 3
+
+
+def write_tile_corpus(root, samples: int, size: int = IMAGE) -> dict:
+    """A Kuro Siwo layout of ``samples`` grids of one activation, written with
+    cv2: six float32 backscatter tiles (a few NaNs), uint8 label and valid
+    masks, and the gzip-pickled indices; the loader config that reads it."""
+    import gzip
+    import pickle
+
+    import cv2
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    grids = {}
+    for i in range(samples):
+        key = f"{i:08x}"
+        gdir = root / "data" / "130" / key
+        gdir.mkdir(parents=True)
+        for prefix in ("MS1_IVV", "MS1_IVH", "SL1_IVV", "SL1_IVH", "SL2_IVV", "SL2_IVH"):
+            img = rs.gamma(2.0, 0.03, (size, size)).astype(np.float32)
+            img[rs.rand(size, size) < 0.01] = np.nan
+            require(cv2.imwrite(str(gdir / f"{prefix}_{key}.tif"), img), "cv2.imwrite failed")
+        cv2.imwrite(str(gdir / f"MK0_MLU_{key}.tif"), rs.randint(0, 4, (size, size)).astype(np.uint8))
+        cv2.imwrite(str(gdir / f"MK0_MNA_{key}.tif"), np.ones((size, size), np.uint8))
+        grids[key] = {"path": f"130/{key}", "info": {"actid": 130, "aoiid": 1}, "clz": 1 + i % 3}
+    (root / "pickle").mkdir()
+    for name in ("train.gz", "test.gz"):
+        with gzip.open(root / "pickle" / name, "wb") as f:
+            pickle.dump(grids, f)
+    return {"task": "segmentation", "method": "unet", "root_path": str(root),
+            "train_pickle": str(root / "pickle" / "train.gz"),
+            "test_pickle": str(root / "pickle" / "test.gz"), "train_acts": [130],
+            "val_acts": [130], "test_acts": [130], "batch_size": HOST_BATCH,
+            "num_workers": HOST_WORKERS, "track": "RandomEvents", "synthetic_data": False,
+            "inputs": ["pre_event_1", "pre_event_2", "post_event"], "channels": ["vv", "vh"],
+            "clamp_input": 0.15, "scale_input": "normalize", "data_mean": [0.0953, 0.0264],
+            "data_std": [0.0427, 0.0215], "dem": False, "oversampling": False,
+            "uint8": False, "num_classes": 3}
+
+
+def loader_rate_main(config_path: str) -> int:
+    """``--loader-rate``: the Loader alone over the corpus of the config at
+    ``config_path``, one epoch to start the decode processes, then one timed;
+    one JSON line {decoder, patches_per_s, batches}. The tile decoder is this
+    process's (``KUROSIWO_NATIVE_DECODE``)."""
+    from pathlib import Path
+
+    from kurosiwo_torch.data.pipeline import Loader
+    from kurosiwo_torch.data.tiles import decoder_choice
+
+    cfg = json.loads(Path(config_path).read_text())
+    loader = Loader("train", cfg, seed=0)
+    try:
+        for _ in loader:
+            pass
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader.ring_batches():
+            n += 1
+            batch.release()
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.close()
+    print(json.dumps({"decoder": decoder_choice(), "batches": n,
+                      "patches_per_s": n * cfg["batch_size"] / seconds}), flush=True)
+    return 0
+
+
+def write_slc_corpus(root) -> dict:
+    """Four SLC grids written with cv2 (4-band rasters, one 200x200 tile that
+    the loader pads centred to 224) and their JSON index; the SLC config."""
+    import cv2
+    import numpy as np
+
+    rs = np.random.RandomState(12)
+    index = {}
+    for i, size in enumerate((224, 224, 200, 224)):
+        gdir = root / "130" / "01" / f"g{i:04d}"
+        gdir.mkdir(parents=True)
+        for prefix in ("MS1", "SL1", "SL2"):
+            bands = [rs.rand(size, size).astype(np.float32) for _ in range(4)]
+            require(cv2.imwritemulti(str(gdir / f"{prefix}_slc.tif"), bands),
+                    "cv2.imwritemulti failed")
+        cv2.imwrite(str(gdir / "MK0_MLU_mask.tif"), rs.randint(0, 4, (size, size)).astype(np.uint8))
+        cv2.imwrite(str(gdir / "MK0_MNA_valid.tif"), np.ones((size, size), np.uint8))
+        index[f"g{i:04d}"] = {"actid": 130, "path": f"130/01/g{i:04d}", "aoiid": 1,
+                              "clz": 1 + i % 3}
+    (root / "slc_index.json").write_text(json.dumps(index))
+    return {"slc": True, "slc_root_path": str(root), "track": "RandomEvents",
+            "train_json": str(root / "slc_index.json"), "test_json": str(root / "slc_index.json"),
+            "batch_size": 4, "num_workers": 2, "channels": ["vv", "vh"],
+            "scale_input": "normalize",
+            "slc_mean": [2.2367e-02, 3.9242e01, 8.1130e01, 4.3526e-02],
+            "slc_std": [1.2843, 25.6152, 58.0151, 1.2844], "dem": False, "slope": False,
+            "uint8": False, "task": "segmentation", "synthetic_data": False,
+            "oversampling": False, "train_acts": [130], "val_acts": [130], "test_acts": [130]}
+
+
+def phase_host(torch, smi: str) -> dict:
+    """The host paths (A14): (1) the Loader alone over a cv2-written corpus of
+    HOST_SAMPLES 224x224 grids, native libtiff decode against cv2 (each in a
+    process of its own with KUROSIWO_NATIVE_DECODE set, the two at once: the
+    decode processes fork from a forkserver that keeps the environment it
+    started with), patches/s; (2) one SLC batch (cv2-written 4-band rasters, one ragged
+    tile) through the engine's upload onto the card, bitwise the loader's
+    host batch; (3) ``model_stats`` of UNet-ResNet18 and ViT-L on the card."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.data.pipeline import prepare_loaders
+    from kurosiwo_torch.data.tiles import decoder_choice
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.models.vit import ViT
+    from kurosiwo_torch.training.engine import device_prefetch
+    from kurosiwo_torch.utils.profiling import model_stats
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"decoder": decoder_choice(), "seconds": {}}
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_tile_corpus(Path(tmp) / "corpus", HOST_SAMPLES)
+        cfg_path = Path(tmp) / "loader.json"
+        cfg_path.write_text(json.dumps(cfg))
+        out["seconds"]["corpus"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        procs = {tag: subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--loader-rate", str(cfg_path)],
+            env=dict(os.environ, KUROSIWO_NATIVE_DECODE=flag), cwd=tmp,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for tag, flag in (("native", "1"), ("cv2", "0"))}
+        for tag, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode:
+                print(stdout[-3000:], stderr[-3000:], sep="\n", flush=True)
+            require(proc.returncode == 0, f"the {tag} loader run exited {proc.returncode}")
+            out[tag] = json.loads(stdout.strip().splitlines()[-1])
+        out["seconds"]["loaders"] = time.perf_counter() - t1
+        require(out["cv2"]["decoder"].startswith("cv2"), f"cv2 run decoded with {out['cv2']}")
+
+        slc_cfg = write_slc_corpus(Path(tmp) / "slc")
+        host_loader = prepare_loaders(slc_cfg, seed=3)[0]
+        card_loader = prepare_loaders(slc_cfg, seed=3)[0]
+        try:
+            host = next(iter(host_loader))
+            uploads = device_prefetch(card_loader, dev)
+            card = next(uploads)
+            keys = [k for k in card if torch.is_tensor(card[k])]
+            same = all(torch.equal(card[k].cpu(), torch.from_numpy(host[k])) for k in keys)
+            uploads.close()
+        finally:
+            host_loader.close()
+            card_loader.close()
+        require(type(host_loader).__name__ == "SLCLoader" and host["post"].shape == (4, 224, 224, 4)
+                and same, f"SLC batch on the card: {host['post'].shape}, bitwise {same}")
+        out["slc"] = {"keys": keys, "shape": list(host["post"].shape), "bitwise": same}
+
+    unet = initialize_segmentation_model(bench.build_config("unet", BATCH), bench.MODEL_CONFIG,
+                                         device=dev, seed=0)
+    out["unet_stats"] = model_stats(unet)
+    del unet
+    with torch.device(dev):  # made and drawn on the card: the counts are what is read
+        vit = ViT(**bench.SCENE_VIT, pool="cls")
+    out["vit_stats"] = model_stats(vit)
+    del vit
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[host] the Loader alone over {HOST_SAMPLES} cv2-written 224x224 grids (b{HOST_BATCH}, "
+          f"{HOST_WORKERS} decode processes each, the two runs side by side, 1 timed epoch, warm "
+          f"file cache): native libtiff "
+          f"{out['native']['patches_per_s']:.1f} patches/s ({out['native']['decoder']}), cv2 "
+          f"{out['cv2']['patches_per_s']:.1f} patches/s; this process's decoder: "
+          f"{out['decoder']} [{smi}]", flush=True)
+    print(f"[host] SLC: prepare_loaders with slc true (4 cv2-written 4-band grids, one 200x200 "
+          f"padded centred to 224): batch {out['slc']['shape']} on the card bitwise the loader's "
+          f"host batch ({', '.join(out['slc']['keys'])}) [{smi}]", flush=True)
+    print(f"[host] model_stats UNet-ResNet18 (6 channels) {json.dumps(out['unet_stats'])}; ViT-L "
+          f"{json.dumps(out['vit_stats'])}; phase wall {out['wall_s']:.1f} s (corpus "
+          f"{out['seconds']['corpus']:.1f} s, the two loader runs side by side "
+          f"{out['seconds']['loaders']:.1f} s) [{smi}]", flush=True)
+    return out
+
+
+def phase_tp(torch, smi: str) -> dict:
+    """``--only tp``: the two Gloo ranks with the tensor-parallel legs alone."""
+    t0 = time.perf_counter()
+    ranks, backend, seconds = launch_two_ranks("tp")
+    out = tp_report(ranks, smi)
+    print(f"[tp] 2 ranks ({backend}) in {seconds:.1f} s, phase wall "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    return out
+
+
+def dp_rank_main(outdir: str, legs: set) -> int:
+    """One rank of (b) and of the tp phase, started by ``python -m
+    torch.distributed.run``: the runtime from the launcher's variables; with
+    "dp" in ``legs`` the engine on this rank's rows of the b128 batch,
+    DP_STEPS steps (losses, launches, step 1's confusion counts), then
+    DP_TIMED timed steps; with "tp" the tensor-parallel legs
+    (``tp_rank_legs``); the results to ``outdir/rank{r}.json``."""
     import torch
     from pathlib import Path
 
@@ -4698,21 +5012,150 @@ def dp_rank_main(outdir: str) -> int:
     rank, world = initialize()
     try:
         dev = rank_device()
-        counters = {"pair_sums": batchnorm.pair_sums,
-                    "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
-                    "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc}
-        rows = local_batch_slice(BATCH)
-        batch = {k: torch.from_numpy(v[rows]).to(dev)
-                 for k, v in bench.host_batch(BATCH, seed=0).items()}
-        engine = dp_engine(torch, create_mesh(), dev)
-        run = dp_steps(torch, counters, engine, batch, DP_STEPS)
-        rate = dp_rate(torch, engine, batch, DP_TIMED, BATCH)
-        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps({
-            "rank": rank, "world": world, "losses": run["losses"], "cm": run["cm"].tolist(),
-            "launches": run["launches"], "patches_per_s": rate}))
+        out = {"rank": rank, "world": world}
+        if "dp" in legs:
+            counters = {"pair_sums": batchnorm.pair_sums,
+                        "ce_cm_fwd_nhwc": fused_tail.ce_cm_fwd_nhwc,
+                        "ce_cm_bwd_nhwc": fused_tail.ce_cm_bwd_nhwc}
+            rows = local_batch_slice(BATCH)
+            batch = {k: torch.from_numpy(v[rows]).to(dev)
+                     for k, v in bench.host_batch(BATCH, seed=0).items()}
+            engine = dp_engine(torch, create_mesh(), dev)
+            run = dp_steps(torch, counters, engine, batch, DP_STEPS)
+            rate = dp_rate(torch, engine, batch, DP_TIMED, BATCH)
+            out.update(losses=run["losses"], cm=run["cm"].tolist(), launches=run["launches"],
+                       patches_per_s=rate)
+            del engine, batch
+            torch.cuda.empty_cache()
+        if "tp" in legs:
+            out["tp"] = tp_rank_legs(torch, dev)
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         shutdown()
     return 0
+
+
+def tp_counters():
+    from kurosiwo_torch.ops import batchnorm
+    from kurosiwo_torch.ops import flash_attention as fa
+    from kurosiwo_torch.ops import short_attention as sa
+
+    return {"pair_sums": batchnorm.pair_sums, "short_attention_fwd": sa.short_attention_fwd,
+            "short_attention_bwd": sa.short_attention_bwd,
+            "flash_attention_fwd": fa.flash_attention_fwd}
+
+
+def tp_rank_legs(torch, dev) -> dict:
+    """This rank's tensor-parallel legs at TP(2) on the one card (both ranks
+    one data index), each against the same function of one process, which
+    this rank computes first from the same weights: (a) ``vit_whole_scene``
+    of the ViT-L 1024x1024 scene (4,096 tokens, 8 of 16 heads a rank, B5);
+    (b) a TP_VIT_BATCH x 224^2 ViT-L forward (197 tokens, B4); (c) one
+    UNet-ResNet18 DP1 x TP2 train step at TP_BATCH (bench's config: 6
+    channels, bf16, Adam 1e-3), B3 on the channel slices. The launches of
+    each leg, its error against one process and its time; the step's loss,
+    confusion counts, B3 call widths and peak memory."""
+    import numpy as np
+
+    from kurosiwo_torch import bench
+    from kurosiwo_torch.inference import vit_whole_scene
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.models.vit import ViT
+    from kurosiwo_torch.ops import batchnorm
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.parallel import create_mesh
+    from kurosiwo_torch.parallel.distributed import barrier
+    from kurosiwo_torch.parallel.sharding import apply_shardings
+    from kurosiwo_torch.training.state import create_train_state
+    from kurosiwo_torch.training.steps import make_train_step
+
+    counters = tp_counters()
+    plan = create_mesh(1, 2)
+    out = {}
+
+    # ViT-L made and drawn on the card from the same seed on both ranks (the
+    # ranks must start from the same whole parameters)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        vit = ViT(**bench.SCENE_VIT, pool="cls", dtype=torch.bfloat16)
+    scene = np.random.RandomState(0).randn(1024, 1024, bench.SCENE_VIT["channels"]).astype(
+        np.float32)
+    x224 = torch.from_numpy(np.random.RandomState(5).randn(
+        TP_VIT_BATCH, 224, 224, 6).astype(np.float32)).to(dev)
+    legs = {"scene": lambda dt: vit_whole_scene(vit, scene, dtype=dt, device=dev),
+            "vit224": lambda dt: vit(x224, dt)}
+    with torch.no_grad():
+        refs = {(leg, dt): fn(dt).float().cpu() for leg, fn in legs.items()
+                for dt in (torch.bfloat16, torch.float32)}
+        cuts = apply_shardings(plan, vit)
+        for leg, fn in legs.items():
+            zero_counters(counters)
+            torch.cuda.synchronize(dev)
+            barrier()
+            t0 = time.perf_counter()
+            got = fn(torch.bfloat16)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_kernel_counters(counters)
+            ref, ref32 = refs[(leg, torch.bfloat16)], refs[(leg, torch.float32)]
+            got32 = fn(torch.float32).cpu()
+            out[leg] = {
+                "launches": launches, "shape": list(got.shape),
+                "finite": bool(torch.isfinite(got.float()).all()),
+                "max_abs_err": (got.float().cpu() - ref).abs().max().item(),
+                "max_abs_ref": ref.abs().max().item(),
+                "bf16_own_err": (ref - ref32).abs().max().item(),
+                "bf16_f32_err": (got.float().cpu() - ref32).abs().max().item(),
+                "f32_max_abs_err": (got32 - ref32).abs().max().item(),
+                "f32_max_abs_ref": ref32.abs().max().item(), "cut": len(cuts), "ms": ms}
+    del vit, x224, got, got32, refs
+    torch.cuda.empty_cache()
+
+    cfg = bench.build_config("unet", TP_BATCH)
+    mcfg = dict(bench.MODEL_CONFIG)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench.host_batch(TP_BATCH, seed=0).items()}
+    model = initialize_segmentation_model(cfg, mcfg, device=dev, seed=0)
+    ref_model = copy.deepcopy(model)
+
+    def one_step(m, p):
+        state = create_train_state(m, cfg, mcfg)
+        if p is not None:
+            out["unet_cut"] = len(apply_shardings(p, m, state.optimizer))
+        step = make_train_step(m, create_loss(cfg, "train"), cfg, mcfg, device=dev, plan=p)
+        state, ms, loss = step(state, batch, MetricState.create(dev), DP_LR,
+                               torch.Generator(dev).manual_seed(0))
+        grid = p.data_grid() if p is not None else None
+        return loss.float().item(), ms.reduce(grid).cm.cpu().numpy()
+
+    ref_loss, ref_cm = one_step(ref_model, None)
+    del ref_model
+    torch.cuda.empty_cache()
+    widths = []
+    launch = batchnorm._pair_sums_cuda
+
+    def record(a, b):
+        widths.append(int(a.shape[-1]))
+        return launch(a, b)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters(counters)
+    batchnorm._pair_sums_cuda = record
+    try:
+        t0 = time.perf_counter()
+        loss, cm = one_step(model, plan)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        batchnorm._pair_sums_cuda = launch
+    out["unet"] = {"loss": loss, "ref_loss": ref_loss, "cm": cm.tolist(), "ref_cm": ref_cm.tolist(),
+                   "cut": out.pop("unet_cut"),
+                   "launches": read_counters(counters), "bn_widths": widths,
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                   "step_s": seconds}
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def dp_cli(smi: str, world1: dict, baseline: CliJob | None = None) -> CliJob:
@@ -5176,6 +5619,11 @@ def run_only(torch, counters, smi: str, only: set) -> None:
 
         torch.cuda.empty_cache()
         par = phase_parallel(torch, counters, fa, smi, cli)
+    if "host" in only:
+        phase_host(torch, smi)
+    if "tp" in only:
+        torch.cuda.empty_cache()
+        phase_tp(torch, smi)
     if cli:
         phase_cli(torch, cli, smi)
     if "parallel" in only:
@@ -5189,7 +5637,7 @@ def run_only(torch, counters, smi: str, only: set) -> None:
 
 
 ONLY = {"engine", "feed", "augment", "losses", "c14", "cd", "cd-attn", "seg-zoo", "mae-train",
-        "recurrent", "diffusion", "weights", "parallel"}
+        "recurrent", "diffusion", "weights", "parallel", "tp", "host"}
 
 
 def use_pycache() -> None:
@@ -5219,10 +5667,18 @@ def main(argv=None) -> int:
     parser.add_argument("--dp-rank", default=None, metavar="DIR",
                         help="run one rank of the parallel phase's two-rank step (started by "
                              "python -m torch.distributed.run) and write its results to DIR")
+    parser.add_argument("--rank-legs", default="dp,tp",
+                        help="with --dp-rank: the legs a rank runs (dp, tp)")
+    parser.add_argument("--loader-rate", default=None, metavar="CONFIG",
+                        help="time the Loader alone over the corpus of this JSON config (the "
+                             "host phase's subprocess) and print one JSON line")
     args = parser.parse_args(argv)
     if args.dp_rank:
         use_pycache()
-        return dp_rank_main(args.dp_rank)
+        return dp_rank_main(args.dp_rank, set(args.rank_legs.split(",")))
+    if args.loader_rate:
+        use_pycache()
+        return loader_rate_main(args.loader_rate)
     only = set(args.only.split(",")) if args.only else set()
     if only - ONLY:
         parser.error(f"unknown phases {sorted(only - ONLY)}")
@@ -5320,6 +5776,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         par = timed(phase_parallel, torch, counters, fa, smi, cli)
         torch.cuda.empty_cache()
+        timed(phase_host, torch, smi)
         mae_launches = timed(phase_mae_main, torch, counters, smi)
         torch.cuda.empty_cache()
         scene_launches = timed(phase_scene_main, torch, counters, smi)
@@ -5362,7 +5819,9 @@ def main(argv=None) -> int:
              weights_launches=weights["encoder"]["launches"]["pair_sums"],
              dp_world1_launches_per_step=par["world1"]["launches_per_step"]["pair_sums"],
              dp_two_ranks_launches_per_step=[
-                 r["pair_sums"] for r in par["two_ranks"]["launches_per_step"]]),
+                 r["pair_sums"] for r in par["two_ranks"]["launches_per_step"]],
+             tp_launches_per_rank=par["two_ranks"]["tp"]["unet_b3_launches"],
+             tp_channel_widths=par["two_ranks"]["tp"]["unet_bn_widths"]),
         dict(row("ce_cm_fwd_nhwc (recurrent_*: the ConvLSTM step with fused_tail true, its "
                  "f32 probabilities)", "kurosiwo_torch/csrc/ce_cm.cu",
                  "kurosiwo_tpu/ops/pallas_tail.py:128", ce["fwd"], launches["ce_cm_fwd_nhwc"]),
@@ -5396,7 +5855,9 @@ def main(argv=None) -> int:
              mae_loop_max_abs_err=mae_loop["b4"]["max_abs_err"]["fwd"],
              mae_loop_bf16={k: dict(v["fwd"], kernel=v["kernel"],
                                     calls_per_step=v["calls_per_step"])
-                            for k, v in mae_loop["b4"]["per_shape"].items()}),
+                            for k, v in mae_loop["b4"]["per_shape"].items()},
+             tp_launches_per_rank=par["two_ranks"]["tp"]["vit224_b4_launches"],
+             tp_max_abs_err=par["two_ranks"]["tp"]["vit224_max_abs_err"]),
         dict(row("short_attention_bwd (the wgmma kernel; per MAE train step: 24 encoder + 8 "
                  "decoder calls; step_backward_ms: as the step runs it, into the qkv gradient's "
                  "thirds; library_qkv_backward_ms: SDPA's from one qkv leaf, with the concat)",
@@ -5429,7 +5890,9 @@ def main(argv=None) -> int:
                  scene_launches["flash_attention_fwd"]),
              ring_launches=par["ring"]["launches"]["fwd"], ring_ms=par["ring"]["ms"],
              ring_whole_ms=par["ring"]["whole_ms"], ring_plain_ms=par["ring"]["plain_ms"],
-             ring_bound_ms=par["ring"]["bound_ms"], ring_max_abs_err=par["ring"]["max_abs_err"]),
+             ring_bound_ms=par["ring"]["bound_ms"], ring_max_abs_err=par["ring"]["max_abs_err"],
+             tp_launches_per_rank=par["two_ranks"]["tp"]["scene_b5_launches"],
+             tp_max_abs_err=par["two_ranks"]["tp"]["scene_max_abs_err"]),
         # the backward runs on no serving path: launches is the scene main path's
         # count (0), phase_launches the kernel-vs-plain phase's
         dict(row("flash_attention_dq (the wgmma kernel; backward, no serving path runs it; "

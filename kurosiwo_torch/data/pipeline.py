@@ -36,8 +36,10 @@ The process grid (``resolve_process_grid``), as the JAX loader's:
 indices (``epoch_rng``) and decodes only its contiguous row block of each
 batch into a ring of local-size buffers, with its own decode processes.
 An eval batch pads each process's block: a process whose whole block is
-padding gets zero samples of weight 0 and mask 3, and still steps. Not
-ported: the SLC loader (``data/slc.py``), ROADMAP.md A14.
+padding gets zero samples of weight 0 and mask 3, and still steps. The SLC
+loader (``data/slc.py``, ``slc: true``) runs on the same ring and decode
+processes with a decoder of its own. A loader that decodes tiles from disk
+prints the tile decoder it uses (``tiles.decoder_choice``) at its start.
 
 The diffusion task (``diffusion-unsup``) reads per-observation records:
 each patch's pre1, pre2 and flood acquisitions as three typed records
@@ -64,7 +66,7 @@ import numpy as np
 from .index import GridIndex, Record
 from .normalize import compute_min_max_stats, scale_img
 from .synthetic import synthetic_raw_sample, synthetic_records
-from .tiles import RawSample, read_raw_sample
+from .tiles import RawSample, decoder_choice, read_raw_sample
 
 
 def _needs_stats(config) -> bool:
@@ -482,6 +484,9 @@ class Loader:
         decode workers, once for the Loader's life."""
         if self._ring is not None:
             return
+        if not self.synthetic:
+            print(f"Loader {self.mode}: {self.num_samples()} samples, tile decoder "
+                  f"{decoder_choice()}", flush=True)
         sample = self._first_sample()
         layout = {k: (np.shape(v), np.asarray(v).dtype) for k, v in sample.items()}
         self._ring = BatchRing(layout, self.local_batch_size,
@@ -604,8 +609,10 @@ def prepare_loaders(config: dict, seed: int = 999):
     if config.get("track") not in ("RandomEvents",):
         raise ValueError("No such track! We currently support only RandomEvents")
     if config.get("slc"):
-        raise NotImplementedError("the SLC loader (data/slc.py) is not ported yet "
-                                  "(ROADMAP.md, A14)")
+        from .slc import SLCLoader
+
+        return (SLCLoader("train", config, seed), SLCLoader("val", config, seed),
+                SLCLoader("test", config, seed))
     cache: dict = {}  # share split indices across the three Loaders
     return (
         Loader("train", config, seed, index_cache=cache),

@@ -13,9 +13,12 @@ Parity with the reference's `dataset/Dataset.py:641-768`:
 
 The reference pulls rioxarray/richdem onto the per-sample hot path; here DEM
 interpolation + slope use numpy/scipy (same numerics) and are cheap relative
-to decode. Tile decode itself is cv2 IMREAD_ANYDEPTH like the reference,
-imported at the first decode. The JAX package's native libtiff decoder
-(``data/native.py``) is not ported (ROADMAP.md, A14).
+to decode. Tile decode is the native libtiff thread-pool decoder
+(``data/native.py``) where it builds and libtiff loads, else cv2
+IMREAD_ANYDEPTH like the reference, as the JAX package picks
+(``tiles.py:60-87``): ``KUROSIWO_NATIVE_DECODE=0`` forces cv2, and cv2
+takes a file the native decoder refuses with an ``IOError``.
+``decoder_choice`` names the pick; the Loader prints it at its start.
 """
 
 from __future__ import annotations
@@ -53,13 +56,49 @@ class RawSample:
     activation: int
 
 
+_USE_NATIVE: bool | None = None
+
+
+def use_native() -> bool:
+    """Whether tiles decode natively (decided once a process)."""
+    global _USE_NATIVE
+    if _USE_NATIVE is None:
+        if os.environ.get("KUROSIWO_NATIVE_DECODE", "1") == "0":
+            _USE_NATIVE = False
+        else:
+            from . import native
+
+            _USE_NATIVE = native.available()
+    return _USE_NATIVE
+
+
+def decoder_choice() -> str:
+    """The tile decoder this process uses, and why."""
+    if use_native():
+        return "native libtiff (csrc/tile_decoder.cpp)"
+    if os.environ.get("KUROSIWO_NATIVE_DECODE", "1") == "0":
+        return "cv2 (KUROSIWO_NATIVE_DECODE=0)"
+    from . import native
+
+    return f"cv2 (native decoder unavailable: {native.status()})"
+
+
 def _imread(path: str) -> np.ndarray:
-    """Tile decode with cv2 IMREAD_ANYDEPTH, like the reference."""
+    """Tile decode: the native libtiff decoder where available (float32),
+    else, or for a file it refuses, cv2 IMREAD_ANYDEPTH like the reference."""
+    if use_native():
+        from . import native
+
+        try:
+            return native.decode_tile(path)
+        except IOError:
+            pass  # exotic encodings: cv2
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(f"cannot decode {path}: reading GeoTIFF tiles needs cv2 "
-                          "(opencv), which is not installed") from e
+        raise ImportError(f"cannot decode {path}: reading GeoTIFF tiles needs cv2 (opencv), "
+                          "which is not installed, where the native libtiff decoder does not "
+                          "take the file") from e
     img = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
     if img is None:
         raise IOError(f"failed to decode tile {path}")

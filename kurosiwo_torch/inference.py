@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from .device import resolve_device
 from .models.vit import ViT, patchify
 from .ops.ring_attention import SOLO
-from .parallel.mesh import MeshPlan
+from .parallel.mesh import MeshPlan, full_param
+from .parallel.sharding import is_sharded
 
 
 class TilePredictor:
@@ -161,7 +162,8 @@ def _embed_scene_tokens(vit: ViT, x: torch.Tensor, dtype: torch.dtype,
     tokens = _layer_norm_f32(vit.patch_norm1, patches)
     tokens = vit.patch_proj(tokens, torch.float32)
     tokens = _layer_norm_f32(vit.patch_norm2, tokens).to(dtype)
-    return tokens + interpolate_pos_embedding(vit.pos_embedding, (gh, gw))[:, rows].to(dtype)
+    pos = full_param(vit, "pos_embedding")
+    return tokens + interpolate_pos_embedding(pos, (gh, gw))[:, rows].to(dtype)
 
 
 def encode_scene(vit: ViT, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -216,7 +218,12 @@ def vit_whole_scene_cp(encoder: ViT, scene: np.ndarray, plan: MeshPlan,
     divide by the ring size, else ValueError (grow the scene by patch rows).
     Every rank returns the gathered (1, gh*gw, dim) features in ``dtype`` on
     ``device`` (the card unless the caller asks for the CPU), as the JAX
-    function returns the whole array."""
+    function returns the whole array. A tensor-parallel encoder
+    (``parallel/sharding.apply_shardings``) is refused: both use the model
+    axis, as in JAX."""
+    if is_sharded(encoder):
+        raise ValueError("vit_whole_scene_cp takes a whole encoder: tensor parallelism and the "
+                         "ring share the model axis (this one's parameters are cut over it)")
     dev = resolve_device(device)
     encoder = encoder.to(dev)
     padded = pad_scene(scene, encoder.patch_size)

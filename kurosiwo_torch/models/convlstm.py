@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nn import Conv, GroupNorm, TorchConvTranspose
+from ..parallel.mesh import full_param
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +53,7 @@ class CLSTMCell(nn.Module):
 
     def _gates(self, x: torch.Tensor | None, h: torch.Tensor | None,
                dtype: torch.dtype) -> torch.Tensor:
-        w, cin = self.conv.weight, self.input_channels
+        w, cin = full_param(self.conv, "weight"), self.input_channels
         if x is None:  # zero inputs: only the hidden state's taps
             inp, w = h, w[:, cin:]
         elif h is None:  # zero hidden state: only the inputs' taps

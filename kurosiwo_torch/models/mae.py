@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nn import Dense
+from ..parallel.mesh import full_param
 from .vit import Transformer, ViT, patchify
 
 
@@ -60,17 +61,18 @@ class MAE(nn.Module):
         b, n, _ = tokens.shape
         m = int(self.masking_ratio * n)
         patches = patchify(img.to(tokens.dtype), enc.patch_size)
+        pos = full_param(enc, "pos_embedding")
         if enc.pool == "cls":
-            tokens = tokens + enc.pos_embedding[:, 1 : n + 1].to(tokens.dtype)
+            tokens = tokens + pos[:, 1 : n + 1].to(tokens.dtype)
         else:
-            tokens = tokens + enc.pos_embedding.to(tokens.dtype)
+            tokens = tokens + pos.to(tokens.dtype)
 
         order = torch.argsort(noise, dim=-1, stable=True)
         masked, unmasked = order[:, :m], order[:, m:]
         encoded = enc.transformer(_take(tokens, unmasked), enc.dtype)
         kept = self.enc_to_dec(encoded, dt) if self.enc_to_dec is not None else encoded
 
-        pos_table = self.decoder_pos_emb.embedding.to(dt)
+        pos_table = full_param(self.decoder_pos_emb, "embedding").to(dt)
         kept = kept + F.embedding(unmasked, pos_table)
         mask_tokens = self.mask_token.to(dt).expand(b, m, self.decoder_dim) \
             + F.embedding(masked, pos_table)

@@ -18,9 +18,22 @@ the sequence, and attention is a ring pass
 (``ops/ring_attention.ring_attention_p``). Everything else in a block is
 token-pointwise. The parameters and their names are unchanged, so converted
 weights load as before.
+
+Tensor parallelism (``parallel/sharding.py``, JAX's ``param_shardings``):
+where JAX's rule cuts a block's leaves, ``SelfAttention`` keeps its heads
+local, ``to_qkv`` cut by head (rank m holds q, k and v of heads
+[m H/P, (m+1) H/P): the packed attention runs on H/P heads, B5 or B4 on the
+shard) and ``to_out`` row-parallel on those heads' features, one sum over
+the model group; ``FeedForward`` makes ``fc1`` column-parallel and ``fc2``
+row-parallel. JAX cuts ``to_qkv`` as one block of columns and ``to_out``,
+``fc2`` on their output features; the picked leaves and their gathered
+values are the same (ROADMAP C26). ``pos_embedding`` is gathered before the
+add. A model cut so takes no ring.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +44,7 @@ from ..ops.layernorm import LayerNorm
 from ..ops.nn import Dense
 from ..ops.ring_attention import SOLO, ring_attention_p
 from ..ops.short_attention import _heads_view
+from ..parallel.mesh import full_param, gather_out, shard_of
 
 
 class FeedForward(nn.Module):
@@ -40,9 +54,21 @@ class FeedForward(nn.Module):
         self.fc1 = Dense(dim, hidden_dim, generator=generator)
         self.fc2 = Dense(hidden_dim, dim, generator=generator)
 
+    def tp_layouts(self, num_model: int) -> dict:
+        """``fc2`` row-parallel (its input features), beside a cut ``fc1``."""
+        hidden = self.fc1.weight.shape[0]
+        return {"fc2.weight": (1, "block")} if hidden % num_model == 0 else {}
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x = self.fc1(self.norm(x, dtype), dtype)
-        return self.fc2(F.gelu(x, approximate="none"), dtype)
+        # fc1's slice of the hidden features goes straight into fc2's rows
+        paired = shard_of(self.fc1) is not None and _row_cut(self.fc2)
+        x = self.fc1(self.norm(x, dtype), dtype, gather=not paired)
+        return self.fc2(F.gelu(x, approximate="none"), dtype, local_in=paired)
+
+
+def _row_cut(dense: Dense) -> bool:
+    shard = shard_of(dense)
+    return shard is not None and shard.dim == 1
 
 
 class SelfAttention(nn.Module):
@@ -64,13 +90,35 @@ class SelfAttention(nn.Module):
         project_out = not (heads == 1 and dim_head == dim)
         self.to_out = Dense(inner, dim, generator=generator) if project_out else None
 
+    def tp_layouts(self, num_model: int) -> dict:
+        """``to_qkv`` cut by head and ``to_out`` on those heads' features,
+        where the heads divide by the model axis."""
+        if self.heads % num_model:
+            return {}
+        out = {"to_qkv.weight": (0, "thirds")}
+        if self.to_out is not None:
+            out["to_out.weight"] = (1, "block")
+        return out
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype, ring_axis=None) -> torch.Tensor:
         ring = ring_axis if ring_axis is not None else self.ring_axis
-        qkv = self.to_qkv(self.norm(x, dtype), dtype)
+        shard = shard_of(self.to_qkv)
+        if shard is not None and ring is not None:
+            raise ValueError("a tensor-parallel SelfAttention takes no ring: both use the "
+                             "model axis")
+        # heads local where to_qkv is cut by head; a block cut (heads that do
+        # not divide by the axis) joins the columns and runs every head
+        local = shard is not None and shard.layout == "thirds"
+        qkv = self.to_qkv(self.norm(x, dtype), dtype, gather=not local)
         # q, k, v are its column-thirds, read in place (and on the short route
         # the backward writes their gradients into the thirds of one tensor)
         if ring is None:
-            out = attention_qkv(qkv, self.heads, scale=self.dim_head**-0.5)
+            heads = self.heads // shard.count if local else self.heads
+            out = attention_qkv(qkv, heads, scale=self.dim_head**-0.5)
+            if local:
+                if self.to_out is not None and _row_cut(self.to_out):
+                    return self.to_out(out, dtype, local_in=True)
+                out = gather_out(out, dataclasses.replace(shard, layout="block"))
         else:
             q, k, v = (_heads_view(t, self.heads) for t in qkv.chunk(3, dim=-1))
             out = ring_attention_p(q, k, v, ring, scale=self.dim_head**-0.5)
@@ -113,6 +161,8 @@ def unpatchify(patches: torch.Tensor, patch: int, h: int, w: int, c: int) -> tor
 
 
 class ViT(nn.Module):
+    tp_aware = True  # pos_embedding and patch_proj's weight are taken whole
+
     def __init__(self, image_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  dim: int = 1024, depth: int = 24, heads: int = 16, mlp_dim: int = 2048,
                  pool: str = "cls", channels: int = 6, dim_head: int = 64,
@@ -153,7 +203,8 @@ class ViT(nn.Module):
         m2 = xf.square().mean(dim=(2, 4, 5), keepdim=True)
         rstd = torch.rsqrt(m2 - mu.square() + norm.eps)
         xn = ((xf - mu) * rstd).to(dt).reshape(b, hh, ww, c)
-        weight = self.patch_proj.weight  # (dim, p*p*C), columns in (p1, p2, c) order
+        # (dim, p*p*C), columns in (p1, p2, c) order
+        weight = full_param(self.patch_proj, "weight")
         kf = (weight * norm.scale).reshape(self.dim, p, p, c).permute(0, 3, 1, 2)  # OIHW
         offset = weight @ norm.bias + self.patch_proj.bias
         y = F.conv2d(xn.permute(0, 3, 1, 2), kf.to(dt), stride=p)  # (B, dim, h, w)
@@ -165,7 +216,8 @@ class ViT(nn.Module):
         x = self.embed_image(img, dt)
         b, n, _ = x.shape
         cls = self.cls_token.to(x.dtype).expand(b, 1, self.dim)
-        x = torch.cat([cls, x], dim=1) + self.pos_embedding[:, : n + 1].to(x.dtype)
+        pos = full_param(self, "pos_embedding")
+        x = torch.cat([cls, x], dim=1) + pos[:, : n + 1].to(x.dtype)
         x = self.transformer(x, dt)
         if self.pool == "mean":
             return self.mlp_head(x.mean(dim=1), dt)

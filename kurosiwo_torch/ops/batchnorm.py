@@ -23,6 +23,10 @@ backward's (sum dy, sum dy*x) before dx. The scale and bias gradients are
 this rank's share, from its own sums, so that the step's gradient all-reduce
 (``parallel/mesh.sync_gradients``) sums them to the global ones. The running
 statistics then update identically on every rank.
+
+Under tensor parallelism (``BatchNorm(..., channels=shard)``) the input is
+this rank's slice of the channels: the kernel runs on (N*H*W, C/P), and
+the reductions stay over the data group, never the model group.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from torch import nn
 
 from .. import kernels
-from ..parallel.mesh import active_grid, all_reduce_sum
+from ..parallel.mesh import ModelShard, active_grid, all_reduce_sum, slice_in
 from .remat import active_region
 
 _TILE = 128  # columns a kernel block covers; also the width of the narrow-C fold
@@ -187,18 +191,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None,
+                channels: ModelShard | None = None) -> torch.Tensor:
+        """``channels``: ``x`` holds this rank's slice of the channels under
+        tensor parallelism (a column-parallel conv's output); the scale and
+        bias are sliced to it (their gradients joined back whole), and the
+        slice's statistics are gathered over the model group to update the
+        whole running statistics."""
         out_dtype = dtype or x.dtype
+        scale, bias, mean_r, var_r = self.scale, self.bias, self.mean, self.var
+        if channels is not None:
+            scale, bias = (slice_in(t, channels, 0) for t in (scale, bias))
+            mean_r, var_r = (channels.cut(t, 0) for t in (mean_r, var_r))
         if not self.training:
-            inv = torch.rsqrt(self.var + self.eps)
-            y = (x.float() - self.mean) * (inv * self.scale) + self.bias
+            inv = torch.rsqrt(var_r + self.eps)
+            y = (x.float() - mean_r) * (inv * scale) + bias
             return y.to(out_dtype)
         region = active_region()
         replay = region is not None and region.replay
-        y, mean, var = bn_train_apply(x.to(out_dtype), self.scale, self.bias, self.eps,
+        y, mean, var = bn_train_apply(x.to(out_dtype), scale, bias, self.eps,
                                       region.replay_stats() if replay else None)
         if region is not None and not replay:
             region.record_stats(mean, var)
+        if channels is not None and not replay:
+            mean, var = channels.gather(mean, 0), channels.gather(var, 0)
         self.update_running(mean, var)
         return y
 

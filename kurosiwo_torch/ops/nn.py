@@ -33,7 +33,8 @@ from torch import nn
 from .batchnorm import BatchNorm
 from .conv_bn import conv3x3_bn
 from .conv_dw import conv3x3_pdw, pick_batch_block
-from ..parallel.mesh import draw_rows
+from ..parallel.mesh import (copy_in, draw_rows, full_param, gather_out, reduce_out, shard_of,
+                             slice_in)
 from .remat import active_region
 
 
@@ -58,7 +59,15 @@ class Conv(nn.Module):
     ConvNeXt's depthwise convs: the flax (k, k, 1, C) kernel is the
     (C, 1, k, k) weight). ``padding="SAME"`` is flax's default padding
     (``same_padding``; the patchify convs of ConvNeXt and Swin), zeros
-    added before the convolution."""
+    added before the convolution.
+
+    Under tensor parallelism (``parallel/sharding.py``) a cut ``weight``
+    holds this rank's output channels: the conv computes them from the
+    whole input and joins them at the output (``gather=False`` leaves this
+    rank's channels, which ``ConvBNAct`` normalises); a grouped conv takes
+    its weight whole."""
+
+    tp_aware = True
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int | str = 0, bias: bool = False,
@@ -69,7 +78,13 @@ class Conv(nn.Module):
         lecun_normal_(self.weight.data, cin // groups * kernel * kernel, generator)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, gather: bool = True) -> torch.Tensor:
+        shard = shard_of(self)
+        weight = self.weight
+        if shard is not None and self.groups > 1:
+            weight, shard = full_param(self, "weight"), None
+        if shard is not None:
+            x = copy_in(x, shard)
         x = x.to(dtype).permute(0, 3, 1, 2)
         padding = self.padding
         if padding == "SAME":
@@ -79,18 +94,42 @@ class Conv(nn.Module):
             if top or bottom or left or right:
                 x = F.pad(x, (left, right, top, bottom))
             padding = 0
-        y = F.conv2d(x, self.weight.to(dtype), stride=self.stride, padding=padding,
+        y = F.conv2d(x, weight.to(dtype), stride=self.stride, padding=padding,
                      dilation=self.dilation, groups=self.groups)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
-            y = y + self.bias.to(dtype)
-        return y
+            # a cut conv's channels take the bias's slice before the join, so
+            # each is rounded as one process rounds it
+            y = y + (slice_in(self.bias, shard, 0) if shard is not None else self.bias).to(dtype)
+        return gather_out(y, shard) if shard is not None and gather else y
+
+
+def _row_sum(y: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype,
+             shard) -> torch.Tensor:
+    """A row-parallel layer's output: the ranks' f32 partial products summed
+    over the model group, the bias added in f32, one rounding to ``dtype``
+    (a one-process product accumulates in f32 and rounds once, so partials
+    rounded before their sum would add an ulp a layer)."""
+    y = reduce_out(y.contiguous(), shard)
+    if bias is not None:
+        y = y + bias.to(dtype).float()
+    return y.to(dtype)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` (out, in) f32 (the flax kernel
     transposed), optional ``bias``; input and parameters are cast to the
-    compute dtype for the product."""
+    compute dtype for the product.
+
+    Under tensor parallelism a ``weight`` cut on dim 0 (its output
+    features) is column-parallel: this rank's features (and bias slice)
+    from the whole input, joined at the output unless ``gather=False``. One
+    cut on dim 1 (its input features, ``tp_layouts`` of the ViT's blocks)
+    is row-parallel: this rank's input features (``local_in``: the caller
+    passes just those), the f32 partial products summed over the model
+    group, then the bias, one rounding (``_row_sum``)."""
+
+    tp_aware = True
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  generator: torch.Generator | None = None):
@@ -99,9 +138,21 @@ class Dense(nn.Module):
         lecun_normal_(self.weight.data, cin, generator)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        b = self.bias.to(dtype) if self.bias is not None else None
-        return F.linear(x.to(dtype), self.weight.to(dtype), b)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, gather: bool = True,
+                local_in: bool = False) -> torch.Tensor:
+        shard = shard_of(self)
+        if shard is None:
+            b = self.bias.to(dtype) if self.bias is not None else None
+            return F.linear(x.to(dtype), self.weight.to(dtype), b)
+        if shard.dim == 1:
+            if not local_in:
+                x = slice_in(x, shard, -1)
+            # the dtype's products exactly, accumulated in f32
+            y = F.linear(x.to(dtype).float(), self.weight.to(dtype).float())
+            return _row_sum(y, self.bias, dtype, shard)
+        b = slice_in(self.bias, shard, 0).to(dtype) if self.bias is not None else None
+        y = F.linear(copy_in(x, shard).to(dtype), self.weight.to(dtype), b)
+        return gather_out(y, shard) if gather else y
 
 
 class ConvBNAct(nn.Module):
@@ -119,7 +170,16 @@ class ConvBNAct(nn.Module):
         ``pick_batch_block``: the conv's weight gradient by the B7 kernel
         (``ops/conv_dw.conv3x3_pdw``), then the default BatchNorm.
     Both use the same parameters and buffers as the default branch, and
-    eval takes neither."""
+    eval takes neither.
+
+    Under tensor parallelism a cut ``Conv_0.weight`` (its output channels)
+    makes the block column-parallel: the conv computes this rank's
+    channels, the BatchNorm normalises that slice (B3 on (N*H*W, C/P); its
+    statistics reduced over the data group alone, since the model group's
+    ranks hold other channels) and the ReLU runs on it, then the channels
+    are joined. The opt-in routes are refused there."""
+
+    tp_aware = True
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  act: bool = True, padding: int | None = None,
@@ -142,6 +202,13 @@ class ConvBNAct(nn.Module):
             b, h, w, cin, self.Conv_0.weight.shape[0], itemsize=dtype.itemsize))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        shard = shard_of(self.Conv_0)
+        if shard is not None:
+            if self.conv_bn_kernel or self.dw_kernel:
+                raise NotImplementedError("ConvBNAct's conv_bn_kernel and dw_kernel routes take "
+                                          "whole weights; tensor parallelism cuts this one")
+            y = self.BatchNorm_0(self.Conv_0(x, dtype, gather=False), dtype, channels=shard)
+            return gather_out(torch.relu(y) if self.act else y, shard)
         if self.training and self.conv_bn_kernel:
             bn = self.BatchNorm_0
             # the HWIO view of the f32 parameter; conv3x3_bn casts it to dtype
@@ -283,7 +350,14 @@ class TorchConvTranspose(nn.Module):
     + output_padding, the JAX ``TorchConvTranspose`` (``ops/nn.py:562``).
     ``weight`` is (Cin, Cout, k, k), ``F.conv_transpose2d``'s layout and the
     flax (k, k, Cout, Cin) kernel transposed (3, 2, 0, 1), the bridge's one
-    rule for 4-D kernels; the bias is added after, in the compute dtype."""
+    rule for 4-D kernels; the bias is added after, in the compute dtype.
+
+    Under tensor parallelism JAX's rule cuts the kernel's last flax axis,
+    which is Cin here (weight dim 0): the layer is row-parallel, each rank
+    convolving its input channels and the f32 partial outputs summed over
+    the model group, then the bias (``_row_sum``)."""
+
+    tp_aware = True
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int = 1, padding: int = 0,
                  output_padding: int = 0, bias: bool = True,
@@ -297,6 +371,14 @@ class TorchConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        shard = shard_of(self)
+        if shard is not None:
+            # this rank's input channels; the dtype's products in f32 (_row_sum)
+            x = slice_in(x, shard, -1).to(dtype).float()
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(dtype).float(),
+                                   stride=self.stride, padding=self.padding,
+                                   output_padding=self.output_padding)
+            return _row_sum(y.permute(0, 2, 3, 1), self.bias, dtype, shard)
         y = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
                                stride=self.stride, padding=self.padding,
                                output_padding=self.output_padding)

@@ -9,9 +9,14 @@
            (``ops/metrics.MetricState.reduce``) and the gradients
            (``sync_gradients``); the random draws are made for the global
            batch on every rank (``draw_rows``).
-  model -- the context-parallel axis: ring attention over the token
-           sequence of a whole scene (``ops/ring_attention.py``). Tensor
-           parallelism over it is not ported (ROADMAP A12b).
+  model -- the tensor-parallel axis (``parallel/sharding.py``): a
+           parameter that JAX's rule shards holds this rank's slice, and
+           the layers that own one compute their output slice and join it
+           through the model group's collectives below (``copy_in``,
+           ``gather_out``, ``reduce_out``, ``slice_in``). The same axis
+           carries context-parallel ring attention over the token sequence
+           of a whole scene (``ops/ring_attention.py``), as in JAX; a model
+           sharded over it does not also take a ring.
 
 Ranks are laid out as the JAX mesh lays out devices: rank = d * num_model + m.
 One process is a 1 x 1 grid with no groups, and the same steps run
@@ -70,6 +75,13 @@ class MeshPlan:
         if not self.distributed:
             return None
         return DataGrid(self.data_group, self.data_index, self.num_data)
+
+    def model_grid(self) -> DataGrid | None:
+        """This rank's place on the model axis, or None where the axis has
+        one rank (there is nothing to shard over)."""
+        if not self.distributed or self.num_model == 1:
+            return None
+        return DataGrid(self.model_group, self.model_index, self.num_model)
 
 
 def _group(ranks: list[int]):
@@ -242,3 +254,141 @@ def sync_gradients(params, grid: DataGrid | None = None, average: bool = False) 
         flat.div_(grid.count)
     torch._foreach_copy_(grads, [f.view_as(g) for f, g in
                                  zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+# -- the model axis: tensor parallelism -----------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """How a parameter is cut over the model group: its slice ``index`` of
+    ``count`` along ``dim``, a contiguous block (``layout="block"``) or, for
+    a packed (q | k | v) projection, the block of each third
+    (``layout="thirds"``: rank m holds rows m of q, of k and of v, so the
+    heads it computes are whole). ``full`` is the unsharded shape."""
+
+    group: Any
+    index: int
+    count: int
+    dim: int
+    full: tuple
+    layout: str = "block"
+
+    def cut(self, t: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+        """This rank's slice of the full tensor ``t`` (a view where it can
+        be); ``dim`` overrides the parameter's dim (an activation's)."""
+        dim = self.dim if dim is None else dim % t.dim()
+        if self.layout == "thirds":
+            n = t.shape[dim]
+            parts = t.unflatten(dim, (3, self.count, n // (3 * self.count)))
+            return parts.select(dim + 1, self.index).flatten(dim, dim + 1)
+        size = t.shape[dim] // self.count
+        return t.narrow(dim, self.index * size, size)
+
+    def join(self, parts: list[torch.Tensor], dim: int | None = None) -> torch.Tensor:
+        """The full tensor from every rank's slice, in rank order (the
+        inverse of ``cut``)."""
+        dim = self.dim if dim is None else dim % parts[0].dim()
+        if self.layout == "thirds":
+            thirds = [p.unflatten(dim, (3, p.shape[dim] // 3)) for p in parts]
+            return torch.stack(thirds, dim + 1).flatten(dim, dim + 2)
+        return torch.cat(parts, dim)
+
+    def gather(self, t: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+        """Every rank's slice ``t`` joined (no gradient)."""
+        parts = [torch.empty_like(t) for _ in range(self.count)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return self.join(parts, dim)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Forward: the replicated input as it is. Backward: the ranks' partial
+    input gradients summed over the model group (each rank's slice of the
+    layer's outputs gives one part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.shard.group)
+        return grad, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """Forward: the ranks' output slices joined along ``dim``. Backward:
+    this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.shard.cut(grad, ctx.dim).contiguous(), None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Forward: the ranks' partial outputs summed over the model group.
+    Backward: the (replicated) gradient as it is, to each rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=shard.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SliceIn(torch.autograd.Function):
+    """Forward: this rank's slice of a replicated tensor along ``dim``.
+    Backward: the ranks' slice gradients joined, so that the replicated
+    tensor's gradient is whole and the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        return shard.cut(x, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.shard.gather(grad, ctx.dim), None, None
+
+
+def copy_in(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    return _CopyIn.apply(x, shard)
+
+
+def gather_out(x: torch.Tensor, shard: ModelShard, dim: int = -1) -> torch.Tensor:
+    return _GatherOut.apply(x, shard, dim)
+
+
+def reduce_out(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    return _ReduceOut.apply(x, shard)
+
+
+def slice_in(x: torch.Tensor, shard: ModelShard, dim: int = -1) -> torch.Tensor:
+    return _SliceIn.apply(x, shard, dim)
+
+
+def shard_of(module: torch.nn.Module, name: str = "weight") -> ModelShard | None:
+    """The ``ModelShard`` of ``module``'s parameter ``name``, or None where
+    it is whole (``parallel/sharding.apply_shardings`` records them)."""
+    return module.__dict__.get("tp_shards", {}).get(name)
+
+
+def full_param(module: torch.nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name`` whole: the parameter itself, or its
+    slices gathered over the model group (differentiable: the gradient of
+    the whole goes back as this rank's slice of it)."""
+    t = getattr(module, name)
+    shard = shard_of(module, name)
+    if shard is None or tuple(t.shape) == shard.full:
+        return t
+    return _GatherOut.apply(t, shard, None)

@@ -27,7 +27,10 @@ not wait; at epoch cadence the wait is short.
 
 Under data parallelism every rank holds the same state: rank 0 writes it
 (with its fsync and pointer flip) and the others wait at a barrier, so that
-no rank reads a pointer before it is committed; every rank loads.
+no rank reads a pointer before it is committed; every rank loads. Under
+tensor parallelism (``parallel/sharding.py``) every rank first gathers the
+whole state (``gather_state``, a collective), so that a file is the one a
+single process writes and loads into one.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from pathlib import Path
 import torch
 
 from ..parallel.distributed import barrier, is_main_process
+from ..parallel.sharding import gather_state, is_sharded
 from .state import TrainState
 
 
@@ -74,16 +78,14 @@ class CheckpointManager:
 
     def save(self, name: str, state: TrainState, extra: dict | None = None) -> None:
         """Write ``name`` (rank 0), then wait for every rank."""
+        payload = _payload(state)
         if is_main_process():
-            self._write(name, state, extra)
+            self._write(name, payload, extra)
         barrier()
 
-    def _write(self, name: str, state: TrainState, extra: dict | None) -> None:
+    def _write(self, name: str, payload: dict, extra: dict | None) -> None:
         cur = self._read_ptr(name)
         slot = f"{name}.b" if cur and cur.get("slot", "").endswith(".a") else f"{name}.a"
-        payload = {"step": int(state.step), "model": state.model.state_dict()}
-        if state.optimizer is not None:  # MAE's vit_{e}: the encoder alone
-            payload["optimizer"] = state.optimizer.state_dict()
         # the pointer names the other slot until the replace below
         _fsync_write(self.dir / slot, lambda f: torch.save(payload, f))
         ptr = self._ptr_path(name)
@@ -98,8 +100,9 @@ class CheckpointManager:
             os.close(dir_fd)
 
     def save_best(self, state: TrainState, epoch: int, metric: float) -> None:
+        payload = _payload(state)
         if is_main_process():
-            self._write("best_segmentation", state, {"epoch": epoch, "metric": metric})
+            self._write("best_segmentation", payload, {"epoch": epoch, "metric": metric})
             (self.dir / "best_segmentation.txt").write_text(f"epoch: {epoch}\nval_miou: {metric}\n")
         barrier()
 
@@ -125,6 +128,21 @@ class CheckpointManager:
         _steps_to_host(state.optimizer)
         state.step = int(payload["step"])
         return state, extra
+
+
+def _payload(state: TrainState) -> dict:
+    """What a checkpoint holds: the step, the model's ``state_dict`` and the
+    optimizer's (none for MAE's ``vit_{e}``, the encoder alone), each whole
+    (gathered over the model group where tensor parallelism cut them)."""
+    if is_sharded(state.model):
+        model, opt = gather_state(state.model, state.optimizer)
+    else:
+        model = state.model.state_dict()
+        opt = state.optimizer.state_dict() if state.optimizer is not None else None
+    payload = {"step": int(state.step), "model": model}
+    if opt is not None:
+        payload["optimizer"] = opt
+    return payload
 
 
 def _steps_to_host(optimizer: torch.optim.Optimizer) -> None:

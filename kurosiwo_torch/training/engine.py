@@ -22,10 +22,13 @@ model config's ``optimizer`` and ``betas`` say, as the JAX engine) and
 saves ``checkpoint_epoch={e}`` as change detection does. With
 ``save_visualizations`` each eval draws one batch (``np.random.randint``,
 as the JAX engine) and writes its first sample's image, ground truth and
-prediction to ``checkpoint_path/viz/{settype}_sample.png``. Weights from
+prediction to ``checkpoint_path/viz/{settype}_sample.png``; with
+``wandb_activate`` (and wandb installed) the three images go to wandb
+instead, as the JAX engine sends them, and every ``print_frequency`` steps
+``wandb_watch`` (default on) logs the parameter histograms and per-layer
+gradient norms (``utils/logging.MetricLogger.log_watch``). Weights from
 the reference's files load at init (``pretrained_checkpoint``,
-``pretrained_encoder``, ``pretrained_upernet``). Not ported: wandb
-logging (A14).
+``pretrained_encoder``, ``pretrained_upernet``).
 
 With a ``MeshPlan`` (``parallel/mesh.py``) the engine runs data parallel, as
 the JAX engine runs over its mesh: each rank's loaders decode its row block
@@ -140,7 +143,7 @@ class TaskEngine:
         self.task = task
         self.plan = plan or MeshPlan()
         self.grid = self.plan.data_grid()
-        # raises on wandb_activate with wandb installed (A14)
+        # wandb (wandb_activate) on rank 0 alone
         self.logger = MetricLogger(config, main=is_main_process())
         # the reference's segmentation and recurrent trainers both take plain
         # Adam (JAX engine.py:90-92)
@@ -157,6 +160,10 @@ class TaskEngine:
         self.with_aoi = bool(config.get("log_AOI_metrics"))
         # wandb.watch-equivalent gradient tracking (reference main.py:144)
         self.with_grad_norm = bool(config.get("wandb_activate") or config.get("log_grad_norm"))
+        # wandb.watch parity (main.py:144): per-layer parameter histograms and
+        # gradient norms (JAX engine.py:107-110)
+        self.with_watch = bool(config.get("wandb_activate")) and bool(
+            config.get("wandb_watch", True))
         self._train_step = make_train_step(
             model, create_loss(config, "train"), config, model_config, task, self.device,
             with_grad_norm=self.with_grad_norm, plan=self.plan)
@@ -248,6 +255,11 @@ class TaskEngine:
                 self.logger.log_train_iteration(
                     epoch, nbatches, float(loss), lr_value, derive(snap),
                     grad_norm=None if grad_norm is None else float(grad_norm))
+                if self.with_watch:
+                    # the step leaves the (reduced) gradients on the parameters
+                    self.logger.log_watch(self.model, {
+                        n: torch.linalg.vector_norm(p.grad.float())
+                        for n, p in self.model.named_parameters() if p.grad is not None})
             nbatches += 1
         summary = metric_state.reduce(self.grid).summarize()
         summary["epoch_time_s"] = time.perf_counter() - t0
@@ -297,14 +309,16 @@ class TaskEngine:
         reverse-scaled with its ``flood_sv1``/``flood_sv2`` where
         ``scale_input`` is set) as one PNG,
         ``checkpoint_path/viz/{settype}_sample.png`` (lower case), with
-        ``save_visualizations``; the wandb route is refused with wandb
-        installed (``utils/logging.MetricLogger``, A14)."""
-        if not self.config.get("save_visualizations"):
+        ``save_visualizations``; with ``wandb_activate`` and a wandb run
+        the three images go to wandb instead (``utils/visualize.to_wandb_images``,
+        keys "{settype} image", ...), as the JAX engine sends them."""
+        to_wandb = bool(self.config.get("wandb_activate")) and self.logger.wandb is not None
+        if not (to_wandb or self.config.get("save_visualizations")):
             return
         import cv2
         from pathlib import Path
 
-        from ..utils.visualize import prediction_triptych
+        from ..utils.visualize import prediction_triptych, to_wandb_images
 
         def host(x):
             return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
@@ -314,6 +328,9 @@ class TaskEngine:
             sv = (host(batch["flood_sv1"])[0], host(batch["flood_sv2"])[0])
         trip = prediction_triptych(host(batch["post"][0]), host(preds[0]),
                                    host(batch["mask"][0]), sv, self.config)
+        if to_wandb:
+            self.logger.log({f"{settype} {k}": v for k, v in to_wandb_images(trip).items()})
+            return
         out_dir = Path(self.config.get("checkpoint_path", "checkpoints/run")) / "viz"
         out_dir.mkdir(parents=True, exist_ok=True)
         panel = np.concatenate(list(trip.values()), axis=1)

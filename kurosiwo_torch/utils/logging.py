@@ -1,15 +1,20 @@
 """Metric logging; counterpart of ``kurosiwo_tpu/utils/logging.py``: the
-stdout sink (``on_screen_prints``), behind the reference's config keys
-(segmentation_trainer.py:166-228, :829-1009). When wandb is requested but
-not installed, the sink prints to stdout, as the JAX version does. The wandb
-sink itself (metrics, ``wandb.watch`` histograms, images) is not ported yet
-(ROADMAP.md, A14): with wandb installed, ``wandb_activate`` raises.
+stdout sink (``on_screen_prints``) and the wandb sink (``wandb_activate``),
+behind the reference's config keys (segmentation_trainer.py:166-228,
+:829-1009). Both sinks are independent, as in the reference. wandb's run id
+is kept in ``checkpoint_path/id.json`` (``resume_wandb`` reads it back).
+``log_watch`` is ``wandb.watch``'s telemetry: parameter histograms and
+per-layer gradient norms under the JAX package's flax-path keys
+(``convert.torch_to_flax``'s names and layouts), so that one dashboard
+reads both packages. When wandb is requested but not installed, the sink
+prints to stdout, as the JAX version does. Under data parallelism only
+rank 0 logs to wandb.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
+from pathlib import Path
 
 from ..ops.metrics import CLASS_LABELS, NUM_CLASSES
 
@@ -23,19 +28,51 @@ class MetricLogger:
         self.config = config
         self.main = main
         self.on_screen = bool(config.get("on_screen_prints"))
+        self.wandb = None
         if config.get("wandb_activate"):
-            if importlib.util.find_spec("wandb") is not None:
-                # raised before any wandb call: no remote run, no id.json
-                raise NotImplementedError("wandb logging (metrics, watch histograms and images) "
-                                          "is not ported yet (ROADMAP.md, A14)")
-            print("[kurosiwo_torch] wandb requested but not installed; logging to stdout")
-            self.on_screen = True
+            try:
+                import wandb
+            except ImportError:
+                print("[kurosiwo_torch] wandb requested but not installed; logging to stdout")
+                self.on_screen = True
+                return
+            if main:
+                self.wandb = wandb
+                wandb.init(
+                    project=config.get("wandb_project"),
+                    entity=config.get("wandb_entity"),
+                    id=self._run_id(wandb),
+                    resume="allow",
+                    config={k: v for k, v in config.items()
+                            if isinstance(v, (int, float, str, bool))},
+                )
+
+    def _run_id(self, wandb) -> str | None:
+        """The run id, kept in ``checkpoint_path/id.json`` for resumable runs
+        (the reference's change_detection_trainer.py:22-31)."""
+        ckpt_path = self.config.get("checkpoint_path")
+        if not ckpt_path:
+            return None
+        id_file = Path(ckpt_path) / "id.json"
+        if self.config.get("resume_wandb") and id_file.exists():
+            return json.loads(id_file.read_text()).get("run_id")
+        run_id = wandb.util.generate_id()
+        id_file.parent.mkdir(parents=True, exist_ok=True)
+        id_file.write_text(json.dumps({"run_id": run_id}))
+        return run_id
 
     def info(self, msg: str):
         if self.main:
             print(msg, flush=True)
 
+    def log(self, payload: dict):
+        """A payload to wandb alone (the engine's images), where it is on."""
+        if self.wandb is not None:
+            self.wandb.log(payload)
+
     def _emit(self, payload: dict):
+        if self.wandb is not None:
+            self.wandb.log(payload)
         if self.on_screen:
             print(json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
                               for k, v in payload.items()}), flush=True)
@@ -55,6 +92,32 @@ class MetricLogger:
                 payload[f"Train IoU ({CLASS_LABELS[c]})"] = 100 * float(snap["iou"][c])
             payload["Train MeanIoU"] = 100 * snap["mean_iou"]
         self._emit(payload)
+
+    def log_watch(self, model, grad_norms: dict | None = None, prefix: str = ""):
+        """``wandb.watch``'s telemetry (the reference's main.py:144): a
+        histogram of every parameter and, with ``grad_norms`` ({parameter
+        name: its gradient's norm}), each one's gradient norm, under the
+        flax path of the JAX package's ``log_watch`` ("parameters/encoder/
+        stem/Conv_0/kernel", "gradients/....norm"), the values in flax's
+        layout."""
+        if self.wandb is None:
+            return
+        import numpy as np
+        import torch
+
+        from ..convert import torch_to_flax
+
+        names = {n for n, _ in model.named_parameters()}
+        params = {k: v for k, v in model.state_dict().items() if k in names}
+        flat = _flax_paths(torch_to_flax(params)["params"])
+        payload = {f"parameters/{prefix}{path}": self.wandb.Histogram(
+            np.asarray(leaf, np.float32).ravel()) for path, leaf in flat.items()}
+        if grad_norms is not None:
+            names = {k: path for k, path in zip(params, _torch_to_flax_names(params))}
+            for name, norm in grad_norms.items():
+                value = float(norm.item() if torch.is_tensor(norm) else norm)
+                payload[f"gradients/{prefix}{names[name]}.norm"] = value
+        self.wandb.log(payload)
 
     def log_train_epoch(self, epoch: int, summary: dict):
         payload = {"Epoch": epoch, "Train MeanIoU": summary["mean_iou"] * 100}
@@ -82,3 +145,26 @@ class MetricLogger:
             for act, asum in aoi_summary.items():
                 payload[f"{settype} AOI {act} MeanIoU"] = 100 * asum["mean_iou"]
         self._emit(payload)
+
+
+def _flax_paths(tree: dict, prefix: str = "") -> dict:
+    """{"a/b/kernel": leaf} of a nested dict, in the order of jax's
+    ``tree_flatten_with_path`` (keys sorted at every level)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flax_paths(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def _torch_to_flax_names(params: dict) -> list[str]:
+    """Each parameter name's flax path ("a.b.weight" -> "a/b/kernel")."""
+    out = []
+    for key in params:
+        *path, name = key.split(".")
+        out.append("/".join(path + ["kernel" if name == "weight" else name]))
+    return out

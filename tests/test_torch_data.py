@@ -103,21 +103,26 @@ def test_abandoned_epoch_stops_the_feeder(base_config):
 
 @pytest.mark.parametrize("kw,what", [
     ({"packed_shards": "shards/"}, None),
-    ({"slc": True}, "SLC"),
+    ({"slc": True, "slc_mean": [2.2367e-02, 3.9242e01, 8.1130e01, 4.3526e-02],
+      "slc_std": [1.2843, 25.6152, 58.0151, 1.2844]}, "SLC"),
 ], ids=["shards", "slc"])
 def test_unported_sources_name_a14(base_config, kw, what):
-    """The SLC loader names A14; packed_shards is ported (a split with no
-    pack under the directory decodes from its source, as JAX's does)."""
+    """A14's sources are ported: packed_shards (a split with no pack under
+    the directory decodes from its source, as JAX's does) and the SLC
+    loader (``slc: true``: the three SLCLoaders, their synthetic batches
+    bitwise the JAX package's)."""
+    got = tpipe.prepare_loaders(_cfg(base_config, **kw), seed=9)
     if what is None:
-        got = tpipe.prepare_loaders(_cfg(base_config, **kw), seed=9)
         want = [jpipe.Loader(m, _cfg(base_config, **kw), seed=9, process_index=0,
                              process_count=1) for m in ("train", "val", "test")]
         for g, w in zip(got, want):
             assert g.shard_reader is None and w.shard_reader is None
-            _assert_batches_equal(list(g), list(w))
-        return
-    with pytest.raises(NotImplementedError, match=rf"{what}.*A14"):
-        tpipe.prepare_loaders(_cfg(base_config, **kw))
+    else:
+        want = jpipe.prepare_loaders(_cfg(base_config, **kw), seed=9)
+        assert [type(g).__name__ for g in got] == ["SLCLoader"] * 3
+    for g, w in zip(got, want):
+        _assert_batches_equal(list(g), list(w))
+        g.close()
 
 
 def test_diffusion_loader_names_a10(base_config):

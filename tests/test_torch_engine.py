@@ -21,6 +21,8 @@ Exactness classes (ROADMAP C5):
   whole-batch banks bit-exact.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -312,25 +314,39 @@ def test_engine_refuses_what_is_not_ported(kw, tmp_path):
 @pytest.mark.parametrize("installed", [True, False], ids=["wandb-installed", "wandb-absent"])
 def test_wandb_request_raises_before_any_side_effect_or_prints(monkeypatch, tmp_path, capsys,
                                                                installed):
-    import importlib.util
+    """wandb_activate: with wandb importable (a stub module here) the engine
+    starts one run, its id kept in checkpoint_path/id.json, and the metric
+    lines go to wandb alone (no prints without on_screen_prints); without
+    wandb, as the JAX logger: stdout in its place. Nothing raises."""
+    import sys
+    import types
 
     from kurosiwo_torch.utils.logging import MetricLogger
 
-    real = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: (object() if installed else None) if name == "wandb"
-                        else real(name, *a))
+    calls = []
+    stub = types.ModuleType("wandb")
+    stub.util = types.SimpleNamespace(generate_id=lambda: "run0001")
+    stub.init = lambda **kw: calls.append(("init", kw))
+    stub.log = lambda payload: calls.append(("log", payload))
+    if installed:
+        monkeypatch.setitem(sys.modules, "wandb", stub)
+    else:
+        monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb raises ImportError
     cfg = _cfg(wandb_activate=True, on_screen_prints=False, checkpoint_path=str(tmp_path))
-    if installed:  # the wandb sink is A14's: refused before a run or id.json exists
-        with pytest.raises(NotImplementedError, match="wandb.*A14"):
-            TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
-                    device="cpu")
-        assert list(tmp_path.iterdir()) == []
+    if installed:
+        engine = TEngine(t_init_model(cfg, MCFG, device="cpu"), cfg, MCFG, "segmentation", 1,
+                         device="cpu")
+        assert [c[0] for c in calls] == ["init"] and calls[0][1]["id"] == "run0001"
+        assert json.loads((tmp_path / "id.json").read_text()) == {"run_id": "run0001"}
+        engine.logger.log_train_iteration(0, 0, 0.5, 1e-3)
+        assert calls[-1] == ("log", {"Epoch": 0, "Iteration": 0, "Train Loss": 0.5, "lr": 1e-3})
+        assert capsys.readouterr().out == ""
     else:  # as the JAX logger: stdout in its place
         logger = MetricLogger(cfg)
         logger.log_train_iteration(0, 0, 0.5, 1e-3)
         out = capsys.readouterr().out
         assert "not installed" in out and '"Train Loss": 0.5' in out
+        assert calls == [] and not (tmp_path / "id.json").exists()
 
 
 def test_engine_refuses_other_tasks():

@@ -1,5 +1,6 @@
-"""Gloo ranks for the port's data- and context-parallel tests
-(tests/test_torch_parallel.py, tests/test_torch_ring_attention.py).
+"""Gloo ranks for the port's data-, context- and tensor-parallel tests
+(tests/test_torch_parallel.py, tests/test_torch_ring_attention.py,
+tests/test_torch_tensor_parallel.py).
 
 ``spawn(world, job)`` starts ``world`` processes of this file on the CPU,
 joined by ``kurosiwo_torch.parallel.initialize`` over Gloo on a free local
@@ -252,10 +253,138 @@ def engine_epoch(job: dict, plan) -> dict:
             "state": _state(engine.model)}
 
 
-# scenario -> (function, the plan's axis: "data" shards the batch, "model" the sequence)
+def tp_vit(job: dict, plan) -> dict:
+    """The ViT forward on this rank's rows, its parameters cut by JAX's rule
+    at the job's ``min_size`` over the plan's model axis: the output rows,
+    the cuts (dim, layout, whole shape) and the cut parameters' slices;
+    then ``vit_whole_scene_cp``'s refusal of the cut encoder."""
+    from kurosiwo_torch.inference import vit_whole_scene_cp
+    from kurosiwo_torch.models.vit import ViT
+    from kurosiwo_torch.parallel.sharding import apply_shardings
+
+    vit = ViT(**job["vit"])
+    vit.load_state_dict({k: torch.from_numpy(v) for k, v in job["weights"].items()})
+    cuts = apply_shardings(plan, vit, min_size=job["min_size"]) if plan is not None else {}
+    x = torch.from_numpy(job["x"][_rows(plan, len(job["x"]))])
+    with torch.no_grad():
+        out = vit(x, torch.float32)
+    res = {"out": _np(out), "cuts": {n: (s.dim, s.layout, s.full) for n, s in cuts.items()},
+           "slices": {n: _np(p) for n, p in vit.named_parameters() if n in cuts}}
+    if plan is not None:
+        try:
+            vit_whole_scene_cp(vit, job["scene"], plan, dtype=torch.float32, device="cpu")
+            res["cp_refusal"] = None
+        except ValueError as e:
+            res["cp_refusal"] = str(e)
+    return res
+
+
+def tp_unet(job: dict, plan) -> dict:
+    """One SGD train step of the UNet on this rank's rows, its parameters
+    cut by JAX's rule over the plan's model axis: the loss, the reduced
+    bank, the gathered state, the gradients of the uncut parameters, the
+    B3 call widths, a checkpoint written under the cut (rank 0 writes,
+    every rank gathers) read back into a whole model; then one Adam step
+    from the job's weights, cut the same way, and its gathered moments."""
+    from kurosiwo_torch.models.factory import initialize_segmentation_model
+    from kurosiwo_torch.ops import batchnorm
+    from kurosiwo_torch.ops.losses import create_loss
+    from kurosiwo_torch.ops.metrics import MetricState
+    from kurosiwo_torch.parallel.sharding import apply_shardings, gather_state
+    from kurosiwo_torch.training.checkpoint import CheckpointManager
+    from kurosiwo_torch.training.state import TrainState
+    from kurosiwo_torch.training.steps import make_train_step
+
+    cfg, mcfg = job["config"], job["model_config"]
+    model = initialize_segmentation_model(cfg, mcfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in job["init"].items()})
+    cuts = apply_shardings(plan, model, min_size=job["min_size"]) if plan is not None else {}
+    state = TrainState(0, model, torch.optim.SGD(model.parameters(), lr=job["lr"]))
+    step = make_train_step(model, create_loss(cfg, "train"), cfg, mcfg, "segmentation",
+                           device="cpu", plan=plan)
+    batch = {k: v[_rows(plan, len(v))] for k, v in job["batch"].items()}
+    widths = []
+    plain = batchnorm.pair_sums_plain
+
+    def record(a, b):
+        widths.append(a.shape[-1])
+        return plain(a, b)
+
+    batchnorm.pair_sums_plain = record
+    try:
+        state, ms, loss = step(state, batch, MetricState.create(), job["lr"])
+    finally:
+        batchnorm.pair_sums_plain = plain
+    grid = None if plan is None else plan.data_grid()
+    whole, _ = gather_state(model)
+    res = {"loss": float(loss), "cm": _np(ms.reduce(grid).cm),
+           "state": {k: _np(v) for k, v in whole.items()},
+           "grads": {n: _np(p.grad) for n, p in model.named_parameters() if n not in cuts},
+           "cut": sorted(cuts), "bn_widths": widths}
+    manager = CheckpointManager(Path.cwd() / "tp")
+    manager.save("latest", state)
+    one = initialize_segmentation_model(cfg, mcfg, device="cpu")
+    one.load_state_dict(manager.load("latest")[0]["model"])
+    res["checkpoint"] = _state(one)
+    # Adam from the job's weights: its moments made on the slices
+    model = initialize_segmentation_model(cfg, mcfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in job["init"].items()})
+    adam = torch.optim.Adam(model.parameters(), lr=1e-3)
+    if plan is not None:
+        apply_shardings(plan, model, adam, min_size=job["min_size"])
+    step = make_train_step(model, create_loss(cfg, "train"), cfg, mcfg, "segmentation",
+                           device="cpu", plan=plan)
+    step(TrainState(0, model, adam), batch, MetricState.create(), job["lr"])
+    _, opt = gather_state(model, adam)
+    names = [n for n, _ in model.named_parameters()]
+    res["adam"] = {names[i]: {k: _np(v) for k, v in s.items() if k != "step"}
+                   for i, s in opt["state"].items()}
+    return res
+
+
+def tp_models(job: dict, plan) -> dict:
+    """Two more models cut by JAX's rule at the job's ``min_size``, each on
+    the whole batch on every rank: the MAE's loss from the job's noise and
+    its gradients (a cut one gathered whole), whose encoder's and decoder's
+    positions are read across modules; BiT-CD's eval forward, whose
+    ``pos_embedding`` lives in a module with no sliced forward (it gets the
+    parameter whole for its forward)."""
+    from kurosiwo_torch.models.bit_cd import build_bit_cd
+    from kurosiwo_torch.models.factory import build_mae
+    from kurosiwo_torch.parallel.mesh import shard_of
+    from kurosiwo_torch.parallel.sharding import apply_shardings
+
+    mae = build_mae({"num_channels": 6, "mixed_precision": False}, job["mae_config"],
+                    device="cpu", seed=0)
+    bit = build_bit_cd({"net_G": "base_transformer_pos_s4"}, 2,
+                       generator=torch.Generator().manual_seed(0)).eval()
+    cuts = {}
+    if plan is not None:
+        cuts = {name: sorted(apply_shardings(plan, m, min_size=job["min_size"]))
+                for name, m in (("mae", mae), ("bit", bit))}
+    loss = mae(torch.from_numpy(job["image"]), torch.from_numpy(job["noise"]))
+    loss.backward()
+    grads = {}
+    for prefix, m in mae.named_modules():
+        for n, p in m.named_parameters(recurse=False):
+            if p.grad is None:  # the encoder's cls token: MAE does not read it
+                continue
+            shard = shard_of(m, n)
+            g = p.grad if shard is None else shard.gather(p.grad)
+            grads[f"{prefix}.{n}" if prefix else n] = _np(g)
+    with torch.no_grad():
+        out = bit(*(torch.from_numpy(x) for x in job["frames"]))
+    return {"mae_loss": float(loss), "mae_grads": grads, "bit": _np(out), "cuts": cuts}
+
+
+# scenario -> (function, the plan's axis: "data" shards the batch, "model" the
+# sequence, "data x model" the batch over half the ranks and the parameters
+# over pairs)
 SCENARIOS = {"unet": (unet_steps, "data"), "bn": (bn_stats, "data"), "ring": (ring, "model"),
              "cp": (cp_encode, "model"), "mae": (mae_step, "data"),
-             "diffusion": (diffusion_step, "data"), "engine": (engine_epoch, "data")}
+             "diffusion": (diffusion_step, "data"), "engine": (engine_epoch, "data"),
+             "tp_vit": (tp_vit, "data x model"), "tp_unet": (tp_unet, "data x model"),
+             "tp_models": (tp_models, "data x model")}
 
 
 def run(job: dict, world: int = 1) -> dict:
@@ -268,7 +397,9 @@ def run(job: dict, world: int = 1) -> dict:
     for name, scenario in job.items():
         fn, axis = SCENARIOS[name]
         if world > 1 and axis not in plans:
-            plans[axis] = create_mesh(world, 1) if axis == "data" else create_mesh(1, world)
+            plans[axis] = {"data": (world, 1), "model": (1, world),
+                           "data x model": (world // 2, 2)}[axis]
+            plans[axis] = create_mesh(*plans[axis])
         out[name] = fn(scenario, plans.get(axis))
     return out
 
