@@ -335,8 +335,8 @@ def phase_build(kernels) -> None:
     total = time.perf_counter() - t0
     detail = ", ".join(f"{k}.cu {v:.1f}s" for k, v in sorted(per_source.items())) or "cached"
     print(f"[build] {total:.1f}s wall ({detail}) into {kernels.build_dir()}", flush=True)
-    for name in ("pair_sums", "ce_cm", "short_attention", "flash_attention", "conv3x3",
-                 "conv_dw", "conv_fused"):
+    for name in ("pair_sums", "ce_cm", "short_attention", "long_attention", "flash_attention",
+                 "conv3x3", "conv_dw", "conv_fused"):
         kernels.library(name)
 
 
@@ -1672,11 +1672,11 @@ def phase_main_path(torch, counters, smi: str) -> dict:
 # train steps of b128 (64 samples dropped) and 3 val or test batches, the
 # last padded with 64 zero-weight samples; these short epochs check the
 # engine, and their times include the loader's start-up (the first batch is
-# decoded before any step). The timed epoch has ENGINE_LONG_SAMPLES: 12
-# steps, where the start-up is one batch in 12 (20 before the zoo phase
-# joined the script, within its time limit).
+# decoded before any step). The timed epoch has ENGINE_LONG_SAMPLES: 8
+# steps, where the start-up is one batch in 8 (12 before the script's
+# 800 s budget).
 ENGINE_SAMPLES = 320
-ENGINE_LONG_SAMPLES = 1536
+ENGINE_LONG_SAMPLES = 1024
 ENGINE_SEED = 11
 
 
@@ -2078,7 +2078,7 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
         def one():
             engine._train_step(engine.state, batch, ms, 1e-3, engine.generator)
 
-        prof = bench.profile(one, 5, engine.device, 1e3 * BATCH / step_rate)
+        prof = bench.profile(one, 2, engine.device, 1e3 * BATCH / step_rate)
         peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2105,10 +2105,10 @@ def phase_packed_feed(torch, counters, smi: str, step_rate: float) -> dict:
           f"{unloaded['batches'] * BATCH / unloaded['epoch_time_s']:.2f} patches/s, "
           f"{1e3 * (unloaded['epoch_time_s'] - unloaded['data_wait_s']) / unloaded['batches']:.1f}"
           f" ms a step outside the wait [{smi}]", flush=True)
-    print(f"[feed] device busy {busy:.2f} ms a step (torch.profiler, 5 steps); the train step "
-          f"alone {step_rate:.2f} patches/s (bench.run_train, this run); peak "
-          f"{peak:.2f} GiB; batch 0 bitwise equal across arms and to the plain decode [{smi}]",
-          flush=True)
+    print(f"[feed] device busy {busy:.2f} ms a step (torch.profiler, 2 steps; 5 before the "
+          f"script's 800 s budget); the train step alone {step_rate:.2f} patches/s "
+          f"(bench.run_train, this run); peak {peak:.2f} GiB; batch 0 bitwise equal across arms "
+          f"and to the plain decode [{smi}]", flush=True)
     return out
 
 
@@ -2283,10 +2283,10 @@ def phase_losses_zones(torch, counters, smi: str) -> None:
 # the change-detection phase's small card-against-CPU steps: (method, batch,
 # side); SNUNet at base_channel 8, Siam at 36 so that its replication pad
 # acts, HFA-Net at the one side it fits
-# the change-detection legs' (warm-up, timed) train steps: 2 + 3 since PR 18
-# (2 + 5 before; 3 + 10 before PR 14), so that the whole script stays near
-# 1,050 s with the parallel phase
-CD_STEPS = (2, 3)
+# the change-detection legs' (warm-up, timed) train steps and their
+# profiled steps, cut to fit the script's 800 s budget (2 + 3 and 2 before)
+CD_STEPS = (1, 2)
+CD_PROFILE_STEPS = 1
 CD_SMALL = (("snunet", 2, 64), ("siam-diff", 2, 36), ("siam-conc", 2, 36), ("adhr-cdnet", 2, 32),
             ("hfa-net", 1, 224))
 CD_WIDTH = {"base_channel": 8}
@@ -2663,8 +2663,8 @@ def cd_fitting(torch, counters, smi: str, model: str, bn_shapes: set) -> dict:
     batches = (BATCH // 2, BATCH // 4)
     for batch in batches:
         try:
-            return cd_timed(torch, counters, smi, model, batch, {}, *CD_STEPS, profile_steps=2,
-                            bn_shapes=bn_shapes)
+            return cd_timed(torch, counters, smi, model, batch, {}, *CD_STEPS,
+                            profile_steps=CD_PROFILE_STEPS, bn_shapes=bn_shapes)
         except torch.cuda.OutOfMemoryError:
             print(f"[cd main] {model} b{batch}: out of memory", flush=True)
         gc.collect()
@@ -2780,12 +2780,11 @@ def phase_cd(torch, counters, smi: str, cli: list) -> dict:
     phase_cd_remat(torch, counters)
     marks = {"parity": time.perf_counter() - t0}
     bn_shapes: set = set()
-    # the legs at CD_STEPS (2 warm-up, 3 timed), 2 profiled (3, 10 and 3 before
-    # the zoo phase joined the script, within its time limit)
+    # the legs at CD_STEPS, CD_PROFILE_STEPS profiled
     out["snunet"] = cd_timed(torch, counters, smi, "snunet", BATCH, {}, *CD_STEPS, eval_too=True,
-                             bn_shapes=bn_shapes, profile_steps=2)
+                             bn_shapes=bn_shapes, profile_steps=CD_PROFILE_STEPS)
     out["snunet_no_remat"] = cd_timed(torch, counters, smi, "snunet", BATCH, {"remat": False},
-                                      *CD_STEPS, profile_steps=2)
+                                      *CD_STEPS, profile_steps=CD_PROFILE_STEPS)
     # ROADMAP C14's question for cd: what deterministic algorithms cost the step
     out["snunet_autotuned"] = cd_timed(torch, counters, smi, "snunet", BATCH,
                                        {"deterministic": False}, *CD_STEPS, profile_steps=0)
@@ -2801,7 +2800,7 @@ def phase_cd(torch, counters, smi: str, cli: list) -> dict:
             f"SNUNet peak memory with remat {on['peak_gib']:.2f} GiB not below "
             f"{off['peak_gib']:.2f} without")
     out["siam-diff"] = cd_timed(torch, counters, smi, "siam-diff", BATCH, {}, *CD_STEPS,
-                                bn_shapes=bn_shapes, profile_steps=2)
+                                bn_shapes=bn_shapes, profile_steps=CD_PROFILE_STEPS)
     require(out["siam-diff"]["pair_sums"] == 58, "Siam-diff pair_sums a step")
     for model in ("hfa-net", "adhr-cdnet"):
         out[model] = cd_fitting(torch, counters, smi, model, bn_shapes)
@@ -2919,7 +2918,9 @@ def phase_cd_attn_b4(torch, sa, shapes: dict, label: str = "cd-attn",
     ChangeFormer's reduced keys come), with phase_short_attention's bands,
     two runs bitwise equal, and each call on the kernel its plan names; in
     bf16 the kernels' times beside the plain version's, SDPA's (a yardstick
-    only) and the bound."""
+    only) and the bound, and where the plan names wgmma_long the mma.sync
+    kernels' time on the same inputs (``mma_sync_ms``, through a plan
+    override; timed only)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -2981,15 +2982,24 @@ def phase_cd_attn_b4(torch, sa, shapes: dict, label: str = "cd-attn",
             lib_f = event_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv, scale=scale))
             lib_b = event_ms(torch, lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo,
                                                                 retain_graph=True))
+            mma = {}
+            if plan.kernel == "wgmma_long":
+                old = plan._replace(kernel="mma_sync")
+                mma = {"fwd": event_ms(torch, lambda: sa.launch_fwd(old, q, k, v, h, scale)),
+                       "bwd": event_ms(torch, lambda: sa.launch_bwd(old, q, k, v, do, wl, wo, h,
+                                                                    scale))}
             work = attention_work_qk(b, nq, nk, h, d, 2)
             row = {"leg": leg, "calls_per_step": calls, "kernel": plan.kernel}
             for kdir, ms, pl, lib in (("fwd", ms_f, pl_f, lib_f), ("bwd", ms_b, pl_b, lib_b)):
                 bms, by = bound(*work[kdir], BF16_FLOP_PER_S)
                 row[kdir] = {"ms": ms, "plain_ms": pl, "sdpa_ms": lib, "bound_ms": bms,
                              "bound_by": by}
+                if mma:
+                    row[kdir]["mma_sync_ms"] = mma[kdir]
                 print(f"[{label} b4 {kdir}] {leg} {(b, nq, nk, hd)} H{h} bf16 x{calls}/step: "
-                      f"{plan.kernel} kernel {ms:.4f} ms, plain {pl:.4f} ms, SDPA {lib:.4f} ms, "
-                      f"bound {bms * 1e3:.1f} us ({by})", flush=True)
+                      f"{plan.kernel} kernel {ms:.4f} ms"
+                      f"{f', mma.sync {mma[kdir]:.4f} ms' if mma else ''}, plain {pl:.4f} ms, "
+                      f"SDPA {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by})", flush=True)
             out["per_shape"][f"{leg} ({b},{nq},{nk},{hd}) H{h}"] = row
             del lq, lk, lv, lib_out
         torch.cuda.empty_cache()
@@ -3044,8 +3054,7 @@ def cd_attn_eval(torch, counters, smi: str, model: str, warmup: int = CD_STEPS[0
 
 def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
                 bn_shapes: set, attn: dict, overrides: dict | None = None) -> dict:
-    """A b128 bf16 train leg (CD_STEPS: 2 warm-up, 3 timed; 2 profiled; 3, 10
-    and 3 before the zoo phase joined the script) through ``cd_timed``, its
+    """A b128 bf16 train leg (CD_STEPS, CD_PROFILE_STEPS profiled) through ``cd_timed``, its
     short-attention shapes added to ``attn`` ({shape: (leg, calls a
     step)}); an out-of-memory leg prints a line and returns {"oom": True}."""
     import collections
@@ -3054,13 +3063,13 @@ def cd_attn_leg(torch, counters, smi: str, tag: str, model: str, model_config: d
     try:
         res = cd_timed(torch, counters, smi, model, BATCH, overrides or {}, *CD_STEPS,
                        bn_shapes=bn_shapes, model_config=model_config, attn_shapes=shapes,
-                       tag=tag, profile_steps=2)
+                       tag=tag, profile_steps=CD_PROFILE_STEPS)
     except torch.cuda.OutOfMemoryError:
         print(f"[cd-attn main] {tag} b{BATCH}: out of memory [{smi}]", flush=True)
         torch.cuda.empty_cache()
         return {"oom": True}
     for shape, calls in shapes.items():
-        attn.setdefault(shape, (tag, calls // 7))
+        attn.setdefault(shape, (tag, calls // sum(CD_STEPS)))
     return res
 
 
@@ -3109,14 +3118,17 @@ def phase_cd_attn(torch, counters, smi: str, cli: list) -> dict:
     got = {k: out[k]["pair_sums"] for k in want}
     require(got == want, f"pair_sums a step {got}, expected {want}")
     sa_steps = {k: out[k].get("short_attention", {}) for k in ("bit-cd dd8", "changeformer")}
+    # the token encoder and ChangeFormer's stage 4 on wgmma, the long queries
+    # over short keys (the dd8 decoder's 3,136 pixels over 4 tokens, stage 2's
+    # 784 over 49) on wgmma_long
     require(sa_steps["bit-cd dd8"] == {"short_attention_fwd.wgmma": 1,
-                                       "short_attention_fwd.mma_sync": 16,
+                                       "short_attention_fwd.wgmma_long": 16,
                                        "short_attention_bwd.wgmma": 1,
-                                       "short_attention_bwd.mma_sync": 16}
+                                       "short_attention_bwd.wgmma_long": 16}
             and sa_steps["changeformer"] == {"short_attention_fwd.wgmma": 6,
-                                             "short_attention_fwd.mma_sync": 6,
+                                             "short_attention_fwd.wgmma_long": 6,
                                              "short_attention_bwd.wgmma": 6,
-                                             "short_attention_bwd.mma_sync": 6},
+                                             "short_attention_bwd.wgmma_long": 6},
             f"short-attention launches a step by kernel {sa_steps}")
     require(not out["bit-cd"].get("short_attention") and not out["transunet-cd"].get(
         "short_attention"), "a leg without B4 launched it")
@@ -3188,10 +3200,10 @@ ZOO_LEGS = (
     ("deeplabv3 resnet50", "deeplabv3", {"backbone": "resnet50"}, (BATCH,)),
 )
 ZOO_CLI = ("unet++", "deeplabv3", "upernet", "finetune")
-# the zoo and recurrent legs' train and f32-eval steps: warm-up, timed (3
-# and 10 before the MAE-loop and recurrent phases joined the script, 2 and 5
-# before the diffusion phase, within its time limit)
-ZOO_STEPS = (2, 3)
+# the zoo and recurrent legs' train and f32-eval steps (warm-up, timed),
+# cut to fit the script's 800 s budget (2 and 3 before); profiled
+# CD_PROFILE_STEPS
+ZOO_STEPS = (1, 2)
 
 
 def zoo_swin_deterministic(torch) -> None:
@@ -3221,8 +3233,8 @@ def zoo_swin_deterministic(torch) -> None:
 def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict | None,
             bn_shapes: set, attn: dict, batches: tuple = (BATCH, BATCH // 2, BATCH // 4),
             label: str = "seg-zoo main") -> dict:
-    """A full-width bf16 train leg (ZOO_STEPS: 2 warm-up, 3 timed; 2
-    profiled) and its f32-twin eval (ZOO_STEPS) through
+    """A full-width bf16 train leg (ZOO_STEPS, CD_PROFILE_STEPS profiled)
+    and its f32-twin eval (ZOO_STEPS) through
     ``cd_timed`` at the first of ``batches`` that fits (named on its line);
     its short-attention shapes go to ``attn``."""
     import collections
@@ -3232,8 +3244,8 @@ def zoo_leg(torch, counters, smi: str, tag: str, model: str, model_config: dict 
         shapes = collections.Counter()
         try:
             res = cd_timed(torch, counters, smi, model, batch, {}, *ZOO_STEPS, eval_too=True,
-                           eval_steps=ZOO_STEPS, profile_steps=2, bn_shapes=bn_shapes,
-                           model_config=model_config,
+                           eval_steps=ZOO_STEPS, profile_steps=CD_PROFILE_STEPS,
+                           bn_shapes=bn_shapes, model_config=model_config,
                            attn_shapes=shapes, tag=tag, label=label)
         except torch.cuda.OutOfMemoryError:
             print(f"[{label}] {tag} b{batch}: out of memory [{smi}]", flush=True)
@@ -3697,7 +3709,8 @@ def phase_recurrent(torch, counters, smi: str, fused_tail, cli: list) -> dict:
 # diffusion.json (bench.setup_diffusion) at the first of these batches that
 # fits; the raster CLI on a scene of this side
 DIFF_SMALL = {"dim": 16, "dim_mults": [1, 2], "timesteps": 10, "learning_rate": 1e-3}
-DIFF_STEPS = (2, 5)
+DIFF_STEPS = (1, 3)  # warm-up, timed (2, 5 before the script's 800 s budget)
+SAMPLER_STEPS = 100  # the length of the sampler's whole chain (the shipped schedule: 1000)
 DIFF_BATCHES = (BATCH, BATCH // 2, BATCH // 4)
 RASTER_SIDE = 2048
 
@@ -3804,7 +3817,7 @@ def diffusion_leg(torch, smi: str) -> tuple[dict, object]:
         peak = torch.cuda.max_memory_allocated() / 2**30
         require(bool(torch.isfinite(loss).item()), f"diffusion b{batch} train loss {loss.item()}")
         ms = seconds / steps * 1e3
-        prof = bench.profile(one, 2, b.device, ms, file=sys.stdout)
+        prof = bench.profile(one, 1, b.device, ms, file=sys.stdout)
         cats, busy = prof["categories"], prof["kernel_ms"]
         share = {k: cats.get(c, 0.0) / busy for k, c in (
             ("cudnn_cublas", "convolution / matmul (cuDNN, cuBLAS)"),
@@ -3825,32 +3838,39 @@ def diffusion_leg(torch, smi: str) -> tuple[dict, object]:
 
 
 def diffusion_sampler(torch, model, smi: str) -> dict:
-    """One whole ``sample`` chain (the model's 1000 steps) at (1, 224, 224, 2)
-    at full width, from a seeded generator on the card: its seconds (host
-    clock, synchronised) and a finite output of the right shape (random
-    weights: its scale is not a trained model's). Then 3 of its steps under
-    torch.profiler: the card's busy time and the kernel launches a step."""
+    """One whole ancestral chain at (1, 224, 224, 2) at full width, from a
+    seeded generator on the card: the model's UNet under a schedule of
+    SAMPLER_STEPS steps from x_T to x_0 (the shipped 1000-step chain runs
+    the same UNet a step and is bound by the host's launches, so its length
+    adds time and no check): its seconds (host clock, synchronised) and a
+    finite output of the right shape (random weights: its scale is not a
+    trained model's). Then 3 of the model's steps under torch.profiler: the
+    card's busy time and the kernel launches a step."""
     from kurosiwo_torch import bench
+    from kurosiwo_torch.models.diffusion import GaussianDiffusion
 
+    chain = GaussianDiffusion(model.model, timesteps=SAMPLER_STEPS,
+                              loss_type=model.loss_type).to(model.betas.device)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x = model.sample((1, IMAGE, IMAGE, 2), generator=gen)
+    x = chain.sample((1, IMAGE, IMAGE, 2), generator=gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     require(tuple(x.shape) == (1, IMAGE, IMAGE, 2) and x.dtype == torch.float32
             and bool(torch.isfinite(x).all().item()),
             f"the sampler's output {tuple(x.shape)} {x.dtype}, finite "
             f"{bool(torch.isfinite(x).all().item())}")
-    out = {"steps": model.timesteps, "seconds": seconds,
-           "ms_per_step": seconds / model.timesteps * 1e3, "std": x.std().item()}
+    out = {"steps": chain.timesteps, "model_steps": model.timesteps, "seconds": seconds,
+           "ms_per_step": seconds / chain.timesteps * 1e3, "std": x.std().item()}
     gen.manual_seed(0)
     sampler = copy.copy(model)  # the same modules, a chain of 3 steps
     sampler.timesteps = 3
     prof = bench.profile(lambda: sampler.sample((1, IMAGE, IMAGE, 2), generator=gen), 1,
                          torch.device("cuda"), 3 * out["ms_per_step"], file=sys.stdout)
     out["busy_ms_per_step"], out["launches_per_step"] = prof["kernel_ms"] / 3, prof["launches"] / 3
-    print(f"[diffusion sampler] {model.timesteps}-step chain at (1, {IMAGE}, {IMAGE}, 2), dim "
+    print(f"[diffusion sampler] {chain.timesteps}-step chain (the model's {model.timesteps} cut "
+          f"to {chain.timesteps}) at (1, {IMAGE}, {IMAGE}, 2), dim "
           f"64 bf16: {seconds:.2f} s ({out['ms_per_step']:.2f} ms a step), output finite, std "
           f"{out['std']:.4g}; a step keeps the card busy {out['busy_ms_per_step']:.2f} ms over "
           f"{out['launches_per_step']:.0f} kernel launches (torch.profiler, 3 steps) [{smi}]",
@@ -3977,7 +3997,7 @@ def raster_cli_finish(res: dict, raster: dict, out, smi: str) -> dict:
 def phase_diffusion(torch, counters, smi: str, cli: list) -> dict:
     """Diffusion pretraining (A10) and the raster CLI (A11): the DDPM card
     against CPU (``diffusion_card_vs_cpu``); the full-width train leg
-    (``diffusion_leg``) and the 1000-step sampler (``diffusion_sampler``),
+    (``diffusion_leg``) and the sampler's whole chain (``diffusion_sampler``),
     every kernel counter 0 across both; the raster CLI's inputs and its
     in-process map (``raster_inputs``); adds to ``cli`` the diffusion CLI at
     the leg's batch and the raster CLI. Returns the numbers of each."""
@@ -5374,7 +5394,7 @@ def cli_collect(run: dict) -> dict:
                      if f.is_file()) if ckpt.exists() else []
     res = {"rc": proc.returncode, "stdout": (root / "cli.stdout").read_text(),
            "stderr": (root / "cli.stderr").read_text(), "seconds": run["end"] - run["t0"],
-           "files": written, "at_once": run["at_once"]}
+           "files": written, "at_once": run["at_once"], "t0": run["t0"], "argv": run["argv"]}
     tmp.cleanup()
     return res
 
@@ -5439,7 +5459,8 @@ def phase_cli(torch, jobs: list, smi: str) -> None:
     CLI_BUDGET_GIB, the runs under CLI_BIG_GIB at a lower CPU priority; each
     given CLI_TIMEOUT_S), then each job's check, in the order of ``jobs``.
     Prints the pool's wall time, the most runs at once and the card's memory
-    in use at most (nvidia-smi, every 2 s)."""
+    in use at most (nvidia-smi, every 2 s), then each run's start, seconds,
+    runs at once at most and estimate."""
     import gc
 
     gc.collect()
@@ -5486,6 +5507,11 @@ def phase_cli(torch, jobs: list, smi: str) -> None:
           f"at once (estimated peaks within {CLI_BUDGET_GIB} GiB), the card's memory in use at "
           f"most {used_max:.1f} GiB (nvidia-smi, every 2 s; this process holds {held:.2f} GiB) "
           f"[{smi}]", flush=True)
+    for k in sorted(results, key=lambda k: results[k]["t0"]):
+        res = results[k]
+        print(f"[cli pool] run {k}: {' '.join(res['argv'])}: started at "
+              f"{res['t0'] - t0:.1f} s, took {res['seconds']:.1f} s, {res['at_once']} at once at "
+              f"most, estimate {gib[k]} GiB", flush=True)
     k = 0
     for job in jobs:
         job.results = [results[k + i] for i in range(len(job.specs))]
@@ -5846,6 +5872,7 @@ def main(argv=None) -> int:
              a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["fwd"],
              a6_bf16={k: dict(v["fwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
                       for k, v in cd_attn["b4"]["per_shape"].items()},
+             wgmma_long_source="kurosiwo_torch/csrc/long_attention.cu",
              finetune_launches_per_step=zoo["finetune ViT-L"]["short_attention"],
              finetune_max_abs_err=zoo["b4"]["max_abs_err"]["fwd"],
              finetune_bf16={k: dict(v["fwd"], kernel=v["kernel"],
@@ -5871,6 +5898,7 @@ def main(argv=None) -> int:
              a6_max_abs_err=cd_attn["b4"]["max_abs_err"]["bwd"],
              a6_bf16={k: dict(v["bwd"], kernel=v["kernel"], calls_per_step=v["calls_per_step"])
                       for k, v in cd_attn["b4"]["per_shape"].items()},
+             wgmma_long_source="kurosiwo_torch/csrc/long_attention.cu",
              finetune_launches_per_step=zoo["finetune ViT-L"]["short_attention"],
              finetune_max_abs_err=zoo["b4"]["max_abs_err"]["bwd"],
              finetune_bf16={k: dict(v["bwd"], kernel=v["kernel"],

@@ -4,7 +4,8 @@
 // convolution kernels (conv3x3.cu: B6, conv_dw.cu: B7, conv_fused.cu: B8,
 // which also stores its output tiles by TMA) and the bf16 flash
 // attention kernels at D 64 and 128 (flash_attention.cu: B5) and short-
-// sequence attention kernels (short_attention.cu: B4).
+// sequence attention kernels (short_attention.cu and long_attention.cu: B4,
+// through attention_hw.cuh).
 //
 // Shared-memory operand layout ("B128 tiles"). A tile is stored in 128-byte
 // rows of 64 bf16 values, in atoms of 8 rows (1024 bytes, 1024-byte
@@ -363,6 +364,28 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 48, f32) += A (64 x 16) B (16 x 48), both bf16 from shared memory;
+// fragment layout as wgmma_m64n128k16, with n8 blocks j < 6 (long_attention.cu
+// at 33-48 keys).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23},"
+      " %24, %25, p, 1, 1, %27, %28;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -18,8 +18,8 @@ the short route its custom VJP (``short_attention_qkv``) writes dq, dk and
 dv into the thirds of one qkv gradient; the flash and einsum routes take
 the thirds as ``attention_packed`` does. ``attention_packed``'s short route
 (``short_attention``, separate q, k, v) is for attention whose q and k/v
-come from different projections: the change-detection transformers'
-cross-attention and reduced keys (ROADMAP A6).
+come from different projections: BiT-CD's cross-attention (the decoder's
+pixels over its tokens) and ChangeFormer's reduced keys.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Short-sequence multi-head attention on the packed (B, N, H*D) layout,
 forward and backward, through the hand-written kernels of
-``csrc/short_attention.cu`` (B4).
+``csrc/short_attention.cu`` and, for long queries over short keys,
+``csrc/long_attention.cu`` (B4).
 
 Counterpart of the short part of ``kurosiwo_tpu/ops/pallas_attention.py``:
 ``short_attention_fwd`` replaces ``_short_fwd_kernel`` and
@@ -9,8 +10,9 @@ is the custom VJP on q, k and v (residuals q, k, v, out, lse, as
 ``_short_vjp_fwd``); ``short_attention_qkv`` the same on the packed qkv
 projection, whose backward returns the qkv gradient with dq, dk and dv
 written into its three column-thirds (no concat). delta = sum_d(do * out)
-(``_short_vjp_bwd``) is computed inside the wgmma kernel, and in plain
-PyTorch (``attention_delta``) for the other kernels and the plain version.
+(``_short_vjp_bwd``) is computed inside the wgmma and wgmma_long kernels,
+and in plain PyTorch (``attention_delta``) for the other kernels and the
+plain version.
 
 Layout: q (B, Nq, H*D), k and v (B, Nk, H*D), each with unit stride in its
 last axis and any batch and row strides, so the three column-thirds of a
@@ -23,9 +25,12 @@ rules. The kernels take f32 or bf16, D in {32, 64, 128} and H*D % 128 == 0.
 A wrapper takes the plain version for a CPU tensor; for a CUDA tensor it
 launches the kernel that ``short_plan`` names for the call's dtype and shape
 or raises: bf16 at D 64 with Nq, Nk <= 256 (and at D 128 with Nq <= 256, Nk
-<= 128) runs the Hopper kernels (wgmma fed by TMA), other bf16 calls the
-mma.sync ones, f32 the CUDA-core ones. ``.launches`` counts kernel wrapper
-calls, ``.kernel_launches`` them by kernel.
+<= 128) runs the Hopper kernels that hold a head whole (``wgmma``); bf16 at
+D 64 with Nq > 256 over 1-64 keys (BiT-CD's decoder, ChangeFormer's stage
+2) the Hopper kernels for long queries over short keys (``wgmma_long``,
+units of (batch, head, chunk of query tiles): ``long_chunk``); other bf16
+calls the mma.sync ones, f32 the CUDA-core ones. ``.launches`` counts
+kernel wrapper calls, ``.kernel_launches`` them by kernel.
 """
 
 from __future__ import annotations
@@ -39,10 +44,14 @@ import torch
 from .. import kernels
 
 HEAD_DIMS = (32, 64, 128)
-# the kernels of csrc/short_attention.cu, by their Kernel number there
-SHORT_KERNELS = {"simt": 0, "mma_sync": 1, "wgmma": 2}
+# the kernels, by their Kernel number in csrc/short_attention.cu (wgmma_long:
+# csrc/long_attention.cu's, which has its own entry points)
+SHORT_KERNELS = {"simt": 0, "mma_sync": 1, "wgmma": 2, "wgmma_long": 3}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may take on an H100 (227 KB)
 WGMMA_MAX_ROWS = 256  # the longest head (queries or keys) the wgmma kernels hold whole
+LONG_MAX_KEYS = 64  # the most keys the wgmma_long kernels take
+SMS = 132  # streaming multiprocessors of an H100 SXM
+LONG_WAVES = 2  # units a launch of wgmma_long gives each resident block, at least
 
 
 class ShortPlan(NamedTuple):
@@ -113,19 +122,67 @@ def wgmma_takes(d: int, nq: int, nk: int) -> bool:
             and ((d == 64 and nk <= WGMMA_MAX_ROWS) or (d == 128 and nk <= 128)))
 
 
+def long_route(d: int, nq: int, nk: int) -> bool:
+    """Whether a bf16 call takes the wgmma_long kernels: D 64, a head too
+    long to hold whole (Nq > 256) over 1-64 keys."""
+    return d == 64 and nq > WGMMA_MAX_ROWS and 1 <= nk <= LONG_MAX_KEYS
+
+
+def _keys16(nk: int) -> int:
+    return -(-nk // 16) * 16
+
+
+def long_fwd_smem() -> int:
+    """csrc/long_attention.cu's LongLayout, forward: K and V tiles, a ring
+    of three Q tiles, the out tile of the TMA store (8 KB each), four
+    mbarriers, 1 KB of alignment slack."""
+    return 6 * 8192 + 8 * 4 + 1024
+
+
+def long_bwd_smem(nk: int) -> int:
+    """The backward: K and V tiles, a ring of two (Q, dO, out) stages, P^T
+    and dS^T ([keys rounded up to 16][64 queries] bf16), three mbarriers,
+    1 KB of alignment slack."""
+    return 8 * 8192 + 2 * _keys16(nk) * 128 + 8 * 3 + 1024
+
+
+def long_blocks(which: str, nk: int) -> int:
+    """Blocks one SM holds (the kernels' __launch_bounds__): four forward
+    blocks, three backward ones up to 32 keys, else two (the registers of
+    dK^T, dV^T, S and dP at 64 keys)."""
+    return 4 if which == "fwd" else 3 if _keys16(nk) <= 32 else 2
+
+
+def long_chunk(which: str, nq: int, nk: int, items: int) -> int:
+    """Query tiles of one wgmma_long unit, for ``items`` (batch, head)
+    pairs: each item cut into the fewest chunks that give every resident
+    block (``long_blocks`` on SMS) LONG_WAVES units. A unit is (item, chunk
+    c), tiles [c * chunk, min((c + 1) * chunk, ceil(Nq / 64))); the backward
+    sums its units' dK and dV partials in chunk order. A pure function of
+    the call's shape, so a call's result is too."""
+    nqt = _tiles(nq)
+    want = LONG_WAVES * SMS * long_blocks(which, nk)
+    per_item = min(nqt, max(1, -(-want // items)))
+    return -(-nqt // per_item)
+
+
 @functools.lru_cache(maxsize=None)
 def short_plan(dtype: torch.dtype, d: int, nq: int, nk: int) -> ShortPlan:
     """The csrc/short_attention.cu kernels of one call: f32 the CUDA-core
     kernels; bf16 the Hopper kernels (wgmma fed by TMA, one (batch, head)
     item held whole a block, blocks resident and walking the items) where
-    ``wgmma_takes``, else the mma.sync kernels (Nk > 256, D 32, D 128 with Nk
-    > 128). The kernel refuses a call it does not take (the wrapper raises)."""
+    ``wgmma_takes``; the Hopper kernels for long queries over short keys
+    where ``long_route``; else the mma.sync kernels (Nk > 256, Nk > 64 with
+    Nq > 256, D 32, D 128 with Nq > 256 or Nk > 128). The kernel refuses a
+    call it does not take (the wrapper raises)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"short_plan: no kernel takes {dtype}")
     if d not in HEAD_DIMS or nq < 1 or nk < 1:
         raise ValueError(f"short_plan: no kernel takes D = {d}, Nq = {nq}, Nk = {nk}")
     if dtype == torch.float32:
         return ShortPlan("simt", 256, 256, *_simt_smem(d))
+    if long_route(d, nq, nk):
+        return ShortPlan("wgmma_long", 128, 128, long_fwd_smem(), long_bwd_smem(nk))
     if not wgmma_takes(d, nq, nk):
         return ShortPlan("mma_sync", 128, 128, *_mma_sync_smem(d))
     return ShortPlan("wgmma", 256 if _tiles(nq) > 1 else 128, 128 * (_bwd_shape(d, nk)[0] + 1),
@@ -224,13 +281,31 @@ def _lib():
     return lib
 
 
+def _long_lib():
+    lib = kernels.library("long_attention")
+    if lib.ks_long_attention_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ks_long_attention_fwd.argtypes = [p, p, p, i, i, i, i, i, f, i, i, p]
+        lib.ks_long_attention_fwd.restype = i
+        lib.ks_long_attention_bwd.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
+        lib.ks_long_attention_bwd.restype = i
+        lib.ks_long_attention_footprint.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.ks_long_attention_footprint.restype = ctypes.c_longlong
+    return lib
+
+
 def kernel_footprint(which: str, d: int, nq: int, nk: int) -> tuple[int, int]:
     """(dynamic shared memory of a block in bytes, blocks one SM holds) of
-    the built wgmma kernel for ``which`` ("fwd", "bwd") of a call, from the
-    library itself: what ``short_plan``'s numbers are held to on the card."""
+    the built wgmma or wgmma_long kernel for ``which`` ("fwd", "bwd") of a
+    call (as ``short_plan`` routes it), from the library itself: what
+    ``short_plan``'s numbers are held to on the card."""
     blocks = ctypes.c_int(0)
-    smem = _lib().ks_short_attention_footprint(("fwd", "bwd").index(which), d, nq, nk,
-                                               ctypes.byref(blocks))
+    if long_route(d, nq, nk):
+        smem = _long_lib().ks_long_attention_footprint(("fwd", "bwd").index(which), nk,
+                                                       ctypes.byref(blocks))
+    else:
+        smem = _lib().ks_short_attention_footprint(("fwd", "bwd").index(which), d, nq, nk,
+                                                   ctypes.byref(blocks))
     return smem, blocks.value
 
 
@@ -263,11 +338,18 @@ def launch_fwd(plan: ShortPlan | None, q, k, v, heads: int, scale: float):
     _grid_limit(b, heads)
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.ks_short_attention_fwd(
-        kernels.pointers(q, k, v, out), kernels.strides((q, k, v, out), 2), lse.data_ptr(), b,
-        heads, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
-        SHORT_KERNELS[plan.kernel], kernels.stream_ptr(q))
+    long = plan.kernel == "wgmma_long"
+    lib = _long_lib() if long else _lib()
+    if long:
+        err = lib.ks_long_attention_fwd(
+            kernels.pointers(q, k, v, out), kernels.strides((q, k, v, out), 2), lse.data_ptr(),
+            b, heads, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            long_chunk("fwd", nq, nk, b * heads), kernels.stream_ptr(q))
+    else:
+        err = lib.ks_short_attention_fwd(
+            kernels.pointers(q, k, v, out), kernels.strides((q, k, v, out), 2), lse.data_ptr(),
+            b, heads, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            SHORT_KERNELS[plan.kernel], kernels.stream_ptr(q))
     kernels.check(lib, err, f"short_attention forward {plan.kernel} launch")
     short_attention_fwd.launches += 1
     short_attention_fwd.kernel_launches[plan.kernel] += 1
@@ -294,9 +376,9 @@ def _outputs(q, k, dq, dk, dv):
 def short_attention_bwd(q, k, v, do, lse, out, heads: int, scale: float, dq=None, dk=None,
                         dv=None):
     """(dq, dk, dv) in the inputs' dtypes from do (B, Nq, H*D), the
-    forward's out and its f32 (B, H, Nq) lse. The wgmma kernel computes delta
-    = sum_d(do * out) itself; the other kernels and the plain version take
-    it from ``attention_delta``. ``dq``, ``dk``, ``dv``: views to write the
+    forward's out and its f32 (B, H, Nq) lse. The wgmma and wgmma_long
+    kernels compute delta = sum_d(do * out) themselves; the other kernels and
+    the plain version take it from ``attention_delta``. ``dq``, ``dk``, ``dv``: views to write the
     gradients into (new tensors where None)."""
     check_layout(q, k, v, heads)
     if q.device.type == "cpu":
@@ -311,9 +393,10 @@ def short_attention_bwd(q, k, v, do, lse, out, heads: int, scale: float, dq=None
 def launch_bwd(plan: ShortPlan | None, q, k, v, do, lse, out, heads: int, scale: float,
                dq=None, dk=None, dv=None):
     """``short_attention_bwd`` on the card through ``plan``'s kernel (as
-    ``launch_fwd``). One call is one launch (wgmma) or two (dk/dv over key
-    tiles, then dq over query tiles), after ``attention_delta`` for the
-    simt and mma_sync kernels."""
+    ``launch_fwd``). One call is one launch (wgmma) or two: wgmma_long's
+    fused kernel, then the fixed-order sum of its units' dk/dv partials (f32
+    scratch from here); simt's and mma_sync's dk/dv over key tiles, then dq
+    over query tiles, after ``attention_delta``."""
     d = check_layout(q, k, v, heads)
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"short_attention: do {tuple(do.shape)}, out {tuple(out.shape)} != q "
@@ -329,13 +412,23 @@ def launch_bwd(plan: ShortPlan | None, q, k, v, do, lse, out, heads: int, scale:
         raise ValueError(f"short_attention: lse must be a contiguous f32 (B, H, Nq) tensor on "
                          f"q's device, got {lse.dtype} {tuple(lse.shape)}")
     _grid_limit(b, heads)
-    delta = None if plan.kernel == "wgmma" else attention_delta(do, out, heads)
-    lib = _lib()
-    err = lib.ks_short_attention_bwd(
-        kernels.pointers(q, k, v, do, out, dq, dk, dv),
-        kernels.strides((q, k, v, do, out, dq, dk, dv), 2), lse.data_ptr(),
-        None if delta is None else delta.data_ptr(), b, heads, nq, nk, d, float(scale),
-        int(q.dtype == torch.bfloat16), SHORT_KERNELS[plan.kernel], kernels.stream_ptr(q))
+    long = plan.kernel == "wgmma_long"
+    lib = _long_lib() if long else _lib()
+    ptrs = kernels.pointers(q, k, v, do, out, dq, dk, dv)
+    strides = kernels.strides((q, k, v, do, out, dq, dk, dv), 2)
+    if long:
+        chunk = long_chunk("bwd", nq, nk, b * heads)
+        part = torch.empty(b * heads * -(-_tiles(nq) // chunk) * 2 * nk * d,
+                           dtype=torch.float32, device=q.device)
+        err = lib.ks_long_attention_bwd(ptrs, strides, lse.data_ptr(), part.data_ptr(), b, heads,
+                                        nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+                                        chunk, kernels.stream_ptr(q))
+    else:
+        delta = None if plan.kernel == "wgmma" else attention_delta(do, out, heads)
+        err = lib.ks_short_attention_bwd(
+            ptrs, strides, lse.data_ptr(), None if delta is None else delta.data_ptr(), b,
+            heads, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            SHORT_KERNELS[plan.kernel], kernels.stream_ptr(q))
     kernels.check(lib, err, f"short_attention backward {plan.kernel} launch")
     short_attention_bwd.launches += 1
     short_attention_bwd.kernel_launches[plan.kernel] += 1
@@ -361,8 +454,9 @@ def _unit_stride(do: torch.Tensor) -> torch.Tensor:
 class _ShortAttention(torch.autograd.Function):
     """Attention on separate q, k and v (``attention_packed``'s short route):
     the route of attention whose q and k/v come from different projections,
-    as BiT-CD's cross-attention and ChangeFormer's reduced keys (ROADMAP A6);
-    self-attention on one qkv projection takes ``_ShortAttentionQKV``."""
+    as BiT-CD's cross-attention (the decoder's pixels over its tokens) and
+    ChangeFormer's reduced keys; self-attention on one qkv projection takes
+    ``_ShortAttentionQKV``."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, scale):

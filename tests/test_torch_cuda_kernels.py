@@ -241,29 +241,44 @@ def _attention_inputs(dev, b, nq, nk, heads, d, dtype, seed):
     return q, k, v, do
 
 
-def _close(got, want, band):
+def _close(got, want, band, like=None):
+    """max |got - want| within ``band`` of the largest |value| of ``like``
+    (default ``want``)."""
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= band * want.float().abs().max().item(), (err, band)
+    ref = want if like is None else like
+    assert err <= band * ref.float().abs().max().item(), (err, band)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nq,nk,heads,d", [(3, 49, 49, 4, 64), (2, 77, 77, 8, 32),
                                              (2, 130, 20, 2, 64), (1, 5, 200, 1, 128),
-                                             (2, 196, 196, 16, 64), (1, 300, 300, 2, 64)])
+                                             (2, 196, 196, 16, 64), (1, 300, 300, 2, 64),
+                                             (2, 3136, 4, 8, 64), (2, 1000, 49, 2, 64),
+                                             (1, 257, 1, 2, 64)])
 def test_short_attention_kernel_matches_plain(dev, b, nq, nk, heads, d, dtype):
     """Each call on the kernel its plan names: f32 the simt kernels; bf16 at
-    D 64 with Nq, Nk <= 256 and at D 128 with Nk <= 128 the wgmma kernels,
-    else (D 32, (1, 300, 300) past 256 keys, (1, 5, 200) at D 128) the
-    mma.sync ones. Bands as chip_smoke.py: f32 out and lse 1e-5, grads 1e-4
-    of each tensor's largest value (f32 sums in another order, online
-    softmax); bf16 out 1e-2, lse 1e-3, grads 2e-2 (the mma.sync forward
-    divides by l at the end where the plain version rounds p/l; one bf16
-    rounding of p and ds in every backward)."""
+    D 64 with Nq, Nk <= 256 and at D 128 with Nk <= 128 the wgmma kernels;
+    bf16 at D 64 with Nq > 256 over at most 64 keys (BiT-CD's decoder at 4
+    keys, ChangeFormer's stage 2 at 49 over a ragged 1,000 queries, one key
+    over 257) the wgmma_long kernels, k and v the column halves of one
+    tensor as ChangeFormer's kv projection gives them; else (D 32, (1, 300,
+    300) past 256 keys, (1, 5, 200) at D 128) the mma.sync ones. Bands as
+    chip_smoke.py: f32 out and lse 1e-5, grads 1e-4 of each tensor's largest
+    value (f32 sums in another order, online softmax); bf16 out 1e-2, lse
+    1e-3, grads 2e-2 (the mma.sync forward divides by l at the end where the
+    plain version rounds p/l; one bf16 rounding of p and ds in every
+    backward). Over one key p = 1, so dP = delta and dq, dk are 0 in exact
+    arithmetic: their rounding noise is held to the band of dv's largest
+    value, the call's gradient scale. Two runs bitwise equal."""
     q, k, v, do = _attention_inputs(dev, b, nq, nk, heads, d, dtype, seed=nq + nk)
     scale = d**-0.5
     f32 = dtype == torch.float32
     kernel = sa.short_plan(dtype, d, nq, nk).kernel
-    assert kernel == ("simt" if f32 else "wgmma" if sa.wgmma_takes(d, nq, nk) else "mma_sync")
+    long = sa.long_route(d, nq, nk)
+    assert kernel == ("simt" if f32 else "wgmma" if sa.wgmma_takes(d, nq, nk) else
+                      "wgmma_long" if long else "mma_sync")
+    if long:
+        k, v = torch.cat([k, v], -1).chunk(2, dim=-1)
     n0 = sa.short_attention_fwd.launches, sa.short_attention_bwd.launches
     k0 = [f.kernel_launches[kernel] for f in (sa.short_attention_fwd, sa.short_attention_bwd)]
     out, lse = sa.short_attention_fwd(q, k, v, heads, scale)
@@ -277,10 +292,11 @@ def test_short_attention_kernel_matches_plain(dev, b, nq, nk, heads, d, dtype):
     want = sa.short_attention_bwd_plain(q, k, v, do, want_lse, delta, heads, scale)
     for g_, w_ in zip(got, want):
         assert g_.dtype == dtype
-        _close(g_, w_, 1e-4 if f32 else 2e-2)
+        _close(g_, w_, 1e-4 if f32 else 2e-2, like=want[2] if nk == 1 else None)
     again = sa.short_attention_bwd(q, k, v, do, want_lse, want_out, heads, scale)
     assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic
-    assert torch.equal(out, sa.short_attention_fwd(q, k, v, heads, scale)[0])
+    out2, lse2 = sa.short_attention_fwd(q, k, v, heads, scale)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert (sa.short_attention_fwd.launches, sa.short_attention_bwd.launches) == (n0[0] + 2,
                                                                                  n0[1] + 2)
     assert [f.kernel_launches[kernel] for f in (sa.short_attention_fwd,
@@ -368,13 +384,17 @@ def test_wgmma_short_attention_matches_plain(dev, b, nq, nk, heads, d):
 
 def test_short_plan_footprint_is_the_kernels_own(dev):
     for d, nq, nk in ((64, 49, 49), (64, 196, 196), (64, 200, 130), (64, 13, 13),
-                      (128, 77, 120), (128, 40, 40), (128, 70, 70), (128, 256, 128)):
+                      (128, 77, 120), (128, 40, 40), (128, 70, 70), (128, 256, 128),
+                      (64, 3136, 4), (64, 784, 49), (64, 257, 32), (64, 300, 40)):
         plan = sa.short_plan(torch.bfloat16, d, nq, nk)
         smem, blocks = sa.kernel_footprint("fwd", d, nq, nk)
         assert smem == plan.fwd_smem and blocks >= 1
         smem, blocks = sa.kernel_footprint("bwd", d, nq, nk)
         assert smem == plan.bwd_smem and blocks >= 1
     assert sa.kernel_footprint("bwd", 64, 49, 49)[1] == 2  # the encoder's: two an SM
+    for nk in (4, 32, 48, 64):  # the long-query kernels hold the blocks long_chunk counts on
+        for which in ("fwd", "bwd"):
+            assert sa.kernel_footprint(which, 64, 3136, nk)[1] == sa.long_blocks(which, nk)
 
 
 def test_short_wrappers_raise_and_do_not_retry(dev):
@@ -385,7 +405,11 @@ def test_short_wrappers_raise_and_do_not_retry(dev):
     before = [(f.launches, dict(f.kernel_launches)) for f in fns]
     refused = "launch: CUDA error 1 "
     wgmma = sa.short_plan(torch.bfloat16, 64, 49, 49)
-    cases = [(wgmma, 64, 300, torch.bfloat16),  # wgmma past 256 keys
+    long = sa.short_plan(torch.bfloat16, 64, 3136, 4)
+    cases = [(long, 64, 300, torch.bfloat16),  # wgmma_long past 64 keys
+             (long, 32, 300, torch.bfloat16),  # wgmma_long at D 32
+             (long, 64, 300, torch.float32),  # wgmma_long on f32
+             (wgmma, 64, 300, torch.bfloat16),  # wgmma past 256 keys
              (wgmma, 32, 49, torch.bfloat16),  # wgmma at D 32
              (wgmma, 128, 130, torch.bfloat16),  # wgmma at D 128 past 128 keys
              (wgmma, 64, 49, torch.float32),  # wgmma on f32

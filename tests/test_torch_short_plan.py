@@ -18,7 +18,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 # (name, dtype, D, Nq, Nk, kernel): the MAE ViT-L b64 encoder (49 kept
 # tokens) and decoder (196), chip_smoke.py's small MAE (13 kept of 49, and
 # its 50-token decoder with the cls token), a ragged Nq != Nk shape, D 128,
-# and the calls the wgmma kernels do not take
+# the long queries over at most 64 keys that the wgmma_long kernels take
+# (Nq > 256, D 64), and the calls neither takes
 PLANS = [
     ("MAE encoder", BF16, 64, 49, 49, "wgmma"),
     ("MAE decoder", BF16, 64, 196, 196, "wgmma"),
@@ -28,14 +29,20 @@ PLANS = [
     ("ragged D64", BF16, 64, 200, 130, "wgmma"),
     ("D128", BF16, 128, 77, 120, "wgmma"),
     ("N 3136", BF16, 64, 3136, 3136, "mma_sync"),
-    ("Nq 257", BF16, 64, 257, 49, "mma_sync"),
+    ("Nq 257", BF16, 64, 257, 49, "wgmma_long"),
+    ("Nq 257 Nk 64", BF16, 64, 257, 64, "wgmma_long"),
+    ("Nq 257 Nk 1", BF16, 64, 257, 1, "wgmma_long"),
+    ("Nq 300 Nk 65", BF16, 64, 300, 65, "mma_sync"),
+    ("D128 long head", BF16, 128, 3136, 4, "mma_sync"),
+    ("D32 long head", BF16, 32, 3136, 4, "mma_sync"),
+    ("f32 Nq 257 Nk 64", F32, 64, 257, 64, "simt"),
     ("D128 Nk 129", BF16, 128, 64, 129, "mma_sync"),
     ("D32", BF16, 32, 77, 77, "mma_sync"),
     ("f32 encoder", F32, 64, 49, 49, "simt"),
     ("f32 D128", F32, 128, 200, 130, "simt"),
     # the change-detection calls that take B4 (A6_SHAPES below), in bf16 and f32
-    ("ChangeFormer stage 2", BF16, 64, 784, 49, "mma_sync"),
-    ("BiT decoder", BF16, 64, 3136, 4, "mma_sync"),
+    ("ChangeFormer stage 2", BF16, 64, 784, 49, "wgmma_long"),
+    ("BiT decoder", BF16, 64, 3136, 4, "wgmma_long"),
     ("ChangeFormer stage 4", BF16, 64, 49, 49, "wgmma"),
     ("BiT encoder", BF16, 64, 8, 8, "wgmma"),
     ("f32 ChangeFormer stage 2", F32, 64, 784, 49, "simt"),
@@ -66,6 +73,7 @@ def test_each_call_takes_its_kernel(name, dtype, d, nq, nk, kernel):
     assert plan.kernel == kernel and plan.kernel in sa.SHORT_KERNELS
     if dtype == BF16:
         assert sa.wgmma_takes(d, nq, nk) == (kernel == "wgmma")
+        assert sa.long_route(d, nq, nk) == (kernel == "wgmma_long")
     assert not _flash_route(nq, nk)  # every one of these reaches the short route
 
 
@@ -77,6 +85,53 @@ def test_every_wgmma_plans_shared_memory_fits_a_block(d, nk):
             continue
         assert 0 < sa.wgmma_fwd_smem(d, nq, nk) <= sa.SMEM_LIMIT == 227 * 1024
         assert 0 < sa.wgmma_bwd_smem(d, nk) <= sa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_every_long_plans_shared_memory_fits_an_sm(which):
+    """Every wgmma_long plan (Nk 1-64, Nq 257-4,096) fits one block, and
+    the blocks ``long_chunk`` counts on fit one SM's 228 KB (1 KB of each
+    block's reserved): four forward blocks, three backward ones up to 32
+    keys, else two."""
+    for nk in range(1, 65):
+        for nq in range(257, 4097, 61):
+            plan = sa.short_plan(BF16, 64, nq, nk)
+            assert plan.kernel == "wgmma_long" and plan.fwd_threads == plan.bwd_threads == 128
+            smem = plan.fwd_smem if which == "fwd" else plan.bwd_smem
+            assert 0 < smem <= sa.SMEM_LIMIT
+            assert sa.long_blocks(which, nk) * (smem + 1024) <= 228 * 1024
+    assert sa.long_fwd_smem() == 6 * 8192 + 32 + 1024
+    assert [sa.long_bwd_smem(nk) for nk in (4, 49)] == [8 * 8192 + 2 * 16 * 128 + 24 + 1024,
+                                                         8 * 8192 + 2 * 64 * 128 + 24 + 1024]
+    assert [sa.long_blocks(which, nk) for nk in (1, 16, 17, 32, 33, 64)] == (
+        [4] * 6 if which == "fwd" else [3, 3, 3, 3, 2, 2])
+
+
+# (which, Nq, Nk, items = B * H, tiles a unit): BiT-CD dd8's decoder at b128
+# (1,024 items of 49 query tiles: the forward cuts each in two, the backward
+# takes whole items), ChangeFormer's stage 2 (256 items of 13 tiles), a
+# small batch (every item cut to single tiles) and a ragged edge
+LONG_CHUNKS = [("fwd", 3136, 4, 1024, 25), ("bwd", 3136, 4, 1024, 49),
+               ("fwd", 784, 49, 256, 3), ("bwd", 784, 49, 256, 5),
+               ("fwd", 1000, 49, 4, 1), ("bwd", 257, 1, 2, 1), ("bwd", 4096, 64, 8, 1)]
+
+
+@pytest.mark.parametrize("which,nq,nk,items,chunk", LONG_CHUNKS,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}-{c[3]}" for c in LONG_CHUNKS])
+def test_long_chunks_cover_each_query_tile_once(which, nq, nk, items, chunk):
+    """``long_chunk`` cuts each item's query tiles into chunks that cover
+    each tile exactly once, in order (unit item * chunks + c, whose dK and
+    dV partials the backward sums in c order), and gives every resident
+    block LONG_WAVES units where the items' tiles allow."""
+    got = sa.long_chunk(which, nq, nk, items)
+    assert got == chunk == sa.long_chunk(which, nq, nk, items)
+    nqt = -(-nq // 64)
+    chunks = -(-nqt // chunk)
+    tiles = [t for c in range(chunks) for t in range(c * chunk, min((c + 1) * chunk, nqt))]
+    assert tiles == list(range(nqt))
+    assert all(c * chunk < nqt for c in range(chunks))  # no empty unit
+    resident = sa.SMS * sa.long_blocks(which, nk)
+    assert items * chunks >= min(items * nqt, sa.LONG_WAVES * resident)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
